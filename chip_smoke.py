@@ -7,11 +7,16 @@ Phases (a failure in any of them propagates and exits nonzero):
 1. Environment: the card's name and power limit, torch and CUDA versions,
    and the build of every kernel under kubernetes_tpu_torch/csrc (one nvcc
    per source, all started together).
-2. Each kernel against its plain PyTorch version on the card, exactly, at
-   the main path's shapes and at the shapes that take its other paths;
-   kernel, plain and library times with CUDA events (per call over runs
-   of back-to-back calls, median of 20 runs after warm-up), and each one's
-   own device time from torch.profiler.
+2. Each kernel against its plain PyTorch version on the card, exactly (both
+   outputs of domain_counts: the [T, d_pad] totals and the gathered
+   per-node totals), at the main path's shapes -- InterPodAffinity's in
+   and ex rows as one two-set launch, a spread row -- and at the shapes
+   that take its other paths and cluster sizes (d_pad 16,384 at 10,240
+   nodes, 65,536, and 2^19 beyond a cluster); kernel, plain and library
+   times with CUDA events (per call over runs of back-to-back calls,
+   median of 20 runs after warm-up), and each one's own device time from
+   torch.profiler. Then every cluster size at the main path's launch,
+   and every cluster size on both paths, each exact.
 3. Card against CPU at reduced depth: 1,024 nodes and one batch of 512
    pods of the workload below, solved by the port on the card and on the
    CPU; assignments and written-back node state must be identical.
@@ -195,48 +200,110 @@ def device_ms(fn, calls=20):
     return sum(e.device_time_total for e in kernels) / 1e3 / calls
 
 
-def kernel_case(label, dom, cnt, d_pad):
-    """The kernel against its plain version (exact), and the three times.
-    library_ms is one scatter_add_ over the flattened (row, domain) index,
-    whose preparation is left out of the timing."""
-    got = dc.domain_counts(dom, cnt, d_pad)
-    want = dc.domain_counts_plain(dom, cnt, d_pad)
-    torch.cuda.synchronize()
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-    if not torch.equal(got, want):
-        raise AssertionError(f"domain_counts {label}: kernel != plain (max err {err})")
-    t, n = dom.shape
-    hk = dom >= 0
-    seg = torch.where(hk, dom.to(torch.int64), d_pad) + torch.arange(
-        t, device=dom.device
-    )[:, None] * (d_pad + 1)
-    seg = seg.reshape(-1)
+def _dev(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def _library(sets, d_pad, counts, gather):
+    """The fewest PyTorch calls that compute the same function: zero_ and
+    one scatter_add_ over the flattened (row, domain) index of every set,
+    then one gather for the per-node totals. Index preparation is left out
+    of the timing. Returns (fn, result getter)."""
+    dom = torch.cat([s[0] for s in sets])
+    cnt = torch.cat([s[1] for s in sets])
+    gdom = torch.cat([s[0] if s[2] is None else s[2] for s in sets])
+    rows = dom.shape[0]
+    ar = torch.arange(rows, device=dom.device)[:, None] * (d_pad + 1)
+    ok = (dom >= 0) & (dom < d_pad)
+    seg = (torch.where(ok, dom.to(torch.int64), d_pad) + ar).reshape(-1)
+    gidx = torch.clamp(gdom, min=0).to(torch.int64)
     vals = cnt.reshape(-1)
-    lib_out = torch.zeros(t * (d_pad + 1), dtype=torch.int32, device=dom.device)
+    buf = torch.zeros(rows * (d_pad + 1), dtype=torch.int32, device=dom.device)
+    state = {}
 
     def library():
-        lib_out.zero_()
-        lib_out.scatter_add_(0, seg, vals)
+        buf.zero_()
+        buf.scatter_add_(0, seg, vals)
+        if gather:
+            state["tot"] = torch.gather(buf.view(rows, d_pad + 1), 1, gidx)
 
+    def result():
+        out = buf.view(rows, d_pad + 1)[:, :d_pad]
+        return out if counts else None, state.get("tot")
+
+    return library, result
+
+
+def _max_err(got, want):
+    err = 0
+    for g_pair, w_pair in zip(got, want):
+        for g, w in zip(g_pair, w_pair):
+            if w is None:
+                continue
+            if g is None or g.shape != w.shape:
+                raise AssertionError("kernel output missing or misshaped")
+            err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                      if g.numel() else 0)
+    return err
+
+
+def check_exact(label, sets, d_pad, cluster=None):
+    """Both outputs of one launch against the plain versions; exact."""
+    got = dc.aggregate(sets, d_pad, cluster=cluster)
+    want = dc.aggregate_plain(sets, d_pad)
+    torch.cuda.synchronize()
+    err = _max_err(got, want)
+    if err:
+        raise AssertionError(f"domain_counts {label}: kernel != plain (max err {err})")
+    return err
+
+
+def kernel_case(label, sets, d_pad, counts=True, gather=True):
+    """One case: the kernel against its plain version (exact, both outputs),
+    then the kernel, plain and library times of the form the caller uses.
+    ``ms`` times a prepared launch, as the scan makes it; ``oneshot_ms``
+    times ``aggregate``, which checks and allocates on every call."""
+    err = check_exact(label, sets, d_pad)
+    rows = sum(s[0].shape[0] for s in sets)
+    n = sets[0][0].shape[1]
+    library, lib_result = _library(sets, d_pad, counts, gather)
     library()
-    if not torch.equal(lib_out.reshape(t, d_pad + 1)[:, :d_pad], want):
+    want = dc.aggregate_plain(sets, d_pad)
+    lib_out, lib_tot = lib_result()
+    if counts and not torch.equal(lib_out, torch.cat([w[0] for w in want])):
         raise AssertionError(f"domain_counts {label}: scatter_add_ yardstick disagrees")
-    adds = int((hk & (cnt != 0)).sum())
-    bytes_moved = t * n * 8 + t * d_pad * 4
+    if gather and not torch.equal(lib_tot, torch.cat([w[1] for w in want])):
+        raise AssertionError(f"domain_counts {label}: gather yardstick disagrees")
+    adds = sum(int(((s[0] >= 0) & (s[0] < d_pad) & (s[1] != 0)).sum()) for s in sets)
+    separate_gather = sum(s[0].numel() for s in sets if s[2] is not None)
+    bytes_moved = (rows * n * 8 + (separate_gather * 4 if gather else 0)
+                   + (rows * d_pad * 4 if counts else 0) + (rows * n * 4 if gather else 0))
     b_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    o_ms = adds / LANE_OPS_PER_S * 1e3
-    smem = dc.uses_shared_memory(d_pad, dom.device)
+    o_ms = (adds + (rows * n if gather else 0)) / LANE_OPS_PER_S * 1e3
+    # the kernel as the scan calls it: prepared once, launched per call
+    kernel = dc.Aggregation(sets, d_pad, counts=counts, gather=gather)
+
+    def oneshot():
+        dc.aggregate(sets, d_pad, counts=counts, gather=gather)
+
+    def plain():
+        dc.aggregate_plain(sets, d_pad, counts=counts, gather=gather)
+
     case = {
         "case": label,
-        "shape": {"T": t, "N": n, "d_pad": d_pad},
-        "path": "shared" if smem else "global",
+        "shape": {"T": [s[0].shape[0] for s in sets], "N": n, "d_pad": d_pad},
+        "outputs": [k for k, on in (("out", counts), ("tot", gather)) if on],
+        "path": "global" if kernel.is_global else "shared",
+        "cluster": kernel.cluster,
         "exact": True,
         "max_abs_err": err,
-        "ms": time_ms(lambda: dc.domain_counts(dom, cnt, d_pad)),
-        "plain_ms": time_ms(lambda: dc.domain_counts_plain(dom, cnt, d_pad)),
+        "ms": time_ms(kernel),
+        "oneshot_ms": time_ms(oneshot),
+        "plain_ms": time_ms(plain),
         "library_ms": time_ms(library),
-        "device_ms": device_ms(lambda: dc.domain_counts(dom, cnt, d_pad)),
-        "plain_device_ms": device_ms(lambda: dc.domain_counts_plain(dom, cnt, d_pad)),
+        "library": "zero_ + scatter_add_" + (" + gather" if gather else ""),
+        "device_ms": device_ms(kernel),
+        "plain_device_ms": device_ms(plain),
         "library_device_ms": device_ms(library),
         "bound_ms": max(b_ms, o_ms),
         "bound_by": "bytes" if b_ms >= o_ms else "operations",
@@ -245,30 +312,75 @@ def kernel_case(label, dom, cnt, d_pad):
     return case
 
 
+def cluster_sweep(sets, d_pad):
+    """Every cluster size on the main path's launch: exact, then its per-call
+    and device times."""
+    out = []
+    for c in (1, 2, 4, 8):
+        check_exact(f"sweep C={c}", sets, d_pad, cluster=c)
+        kernel = dc.Aggregation(sets, d_pad, counts=False, cluster=c)
+
+        row = {"cluster": c, "ms": time_ms(kernel), "device_ms": device_ms(kernel)}
+        out.append(row)
+        log("cluster sweep " + json.dumps(row))
+    return out
+
+
+def coverage(dev, rng):
+    """Every cluster size on both paths, exact."""
+    ran = []
+    for path, d_pad in (("shared", 8192), ("global", 2**19)):
+        dom = _dev(rng.integers(-1, d_pad, (4, 5120)).astype(np.int32), dev)
+        cnt = _dev(rng.integers(0, 4, (4, 5120)).astype(np.int32), dev)
+        gdom = _dev(rng.integers(-1, d_pad, (4, 5120)).astype(np.int32), dev)
+        for c in (1, 2, 4, 8):
+            agg = dc.Aggregation([(dom, cnt, gdom)], d_pad, cluster=c)
+            if agg.cluster != c or agg.is_global != (path == "global"):
+                raise AssertionError(f"{path} C={c}: launched C={agg.cluster}")
+            check_exact(f"{path} C={c}", [(dom, cnt, gdom)], d_pad, cluster=c)
+            ran.append(f"{path} C={c}")
+    log("coverage " + json.dumps(ran))
+    return ran
+
+
 def kernel_checks(dev, interpod):
     rng = np.random.default_rng(SEED)
-    cases = []
-    # the main path's shapes: the full-width batch's real term rows
+    # the main path's shapes: the full-width batch's real term rows, with
+    # counts as a scan carries them
+    ipa = []
     for name in ("in_dom", "ex_dom"):
-        dom_np = np.ascontiguousarray(getattr(interpod, name))
-        cnt_np = rng.integers(0, 4, dom_np.shape).astype(np.int32)
-        cases.append(kernel_case(
-            f"interpod {name}", torch.from_numpy(dom_np).to(dev),
-            torch.from_numpy(cnt_np).to(dev), interpod.d_pad,
-        ))
-    # one spread row at an untiled node count
-    dom = torch.from_numpy(rng.integers(-1, 3, (1, 5001)).astype(np.int32)).to(dev)
-    cnt = torch.from_numpy(rng.integers(0, 4, (1, 5001)).astype(np.int32)).to(dev)
-    cases.append(kernel_case("untiled T=1", dom, cnt, 8))
-    # a d_pad beyond one block's shared memory: the global-memory path
-    big = 65536
-    dom = torch.from_numpy(rng.integers(-1, big, (8, 5120)).astype(np.int32)).to(dev)
-    cnt = torch.from_numpy(rng.integers(0, 4, (8, 5120)).astype(np.int32)).to(dev)
-    cases.append(kernel_case("global d_pad=65536", dom, cnt, big))
+        dom_np = getattr(interpod, name)
+        ipa.append((_dev(dom_np, dev), _dev(rng.integers(0, 4, dom_np.shape).astype(np.int32), dev),
+                    None))
+    d = interpod.d_pad
+    cases = [
+        kernel_case("interpod in+ex, one launch (main path)", ipa, d, counts=False),
+        kernel_case("interpod in_dom, counts only (the TPU kernel's function)",
+                    ipa[:1], d, gather=False),
+    ]
+    # one spread row at an untiled node count, gathered by its own domain row
+    n = 5001
+    dom = rng.integers(-1, 3, (1, n)).astype(np.int32)
+    counted = np.where(rng.random((1, n)) < 0.8, dom, -1).astype(np.int32)
+    cases.append(kernel_case(
+        "spread T=1 N=5001 untiled",
+        [(_dev(counted, dev), _dev(rng.integers(0, 4, (1, n)).astype(np.int32), dev),
+          _dev(dom, dev))], 8,
+    ))
+    for label, t, n, d_pad in (
+        ("d_pad=16384 at 10,240 nodes", 8, 10240, 16384),
+        ("d_pad=65536 (cluster path)", 8, 5120, 65536),
+        ("d_pad=2^19 beyond a cluster (global path)", 8, 5120, 2**19),
+    ):
+        dom = _dev(rng.integers(-1, min(d_pad, 2 * n), (t, n)).astype(np.int32), dev)
+        cnt = _dev(rng.integers(0, 4, (t, n)).astype(np.int32), dev)
+        cases.append(kernel_case(label, [(dom, cnt, None)], d_pad))
     paths = {c["path"] for c in cases}
     if paths != {"shared", "global"}:
         raise AssertionError(f"kernel paths exercised: {paths}")
-    return cases
+    sweep = cluster_sweep(ipa, d)
+    ran = coverage(dev, rng)
+    return cases, sweep, ran
 
 
 # -- phases 3 and 4 --------------------------------------------------------
@@ -429,7 +541,7 @@ def main():
     _, _, _, _, _, interpod = tensorize(
         nodes, first, {}, ResourceVocab.build(first, nodes)
     )
-    cases = kernel_checks(dev, interpod)
+    cases, sweep, ran = kernel_checks(dev, interpod)
     reduced_depth(dev)
     full = full_width(dev)
     per_step = launches_per_step(dev)
@@ -444,7 +556,6 @@ def main():
         "exact": True,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"],
-        "kernel_ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "library_ms": main_case["library_ms"],
         "bound_ms": main_case["bound_ms"],
@@ -452,8 +563,12 @@ def main():
         "device_ms": main_case["device_ms"],
         "plain_device_ms": main_case["plain_device_ms"],
         "library_device_ms": main_case["library_device_ms"],
+        "library": main_case["library"],
         "shape": main_case["shape"],
+        "cluster": main_case["cluster"],
         "cases": cases,
+        "cluster_sweep": sweep,
+        "paths_and_cluster_sizes_run": sorted(ran),
     }
     log(json.dumps({"kernels": [record]}))
     log(json.dumps({

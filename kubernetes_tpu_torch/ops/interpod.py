@@ -2,14 +2,17 @@
 
 Counterpart of ``kubernetes_tpu/ops/interpod.py``. The reference's
 topologyToMatchedTermCount hash maps (interpodaffinity/filtering.go) become
-one (term, domain) aggregation per step -- the ``domain_counts`` kernel --
-of the per-node owner/match counts [T, N] into [T, D] domain totals,
-gathered back per node. All four directions (incoming aff/anti,
-existing-anti symmetry, scored preferred/hard symmetry) read those two
-aggregates.
+one (term, domain) aggregation per step of the per-node owner/match counts
+[T, N] into [T, D] domain totals, gathered back per node: one launch of the
+``domain_counts`` kernel covers both the ``in`` and the ``ex`` table. All
+four directions (incoming aff/anti, existing-anti symmetry, scored
+preferred/hard symmetry) read those two aggregates.
 
-Table layout: ``ipa`` holds ``in_dom``/``ex_dom`` [T, N] int32 and
-``ex_anti`` [Te] bool as tensors on the device, and the class slot tables
+Table layout: ``ipa`` holds ``in_dom``/``ex_dom`` [T, N] int32, their
+has_key masks ``in_hk``/``ex_hk`` (``static_tables``, built once per solve)
+and ``ex_anti`` [Te] bool as tensors on the device, and optionally
+``launch``, a dict in which the prepared aggregation over the carried
+counts is kept from one step to the next (the solver gives one per solve); and the class slot tables
 (``cls_req_aff``, ``cls_req_anti``, ``cls_pref``) and ``in_pref_w`` as host
 numpy arrays; the pod's class is a host int, so its term slots resolve on
 the host. The per-pod rows in ``x`` (``ipa_m_anti``, ``ipa_m_w``,
@@ -26,20 +29,33 @@ MAX_NODE_SCORE = 100
 INF = 2**30
 
 
-def domain_counts(dom, cnt, d_pad: int, ident: bool = False):
-    """dom, cnt: [T, N] int32 -> (per-node domain totals [T, N], has_key [T, N]).
+def node_totals(ipa, in_cnt, ex_cnt, d_pad: int, ident: bool = False):
+    """(in totals [Ti, N], ex totals [Te, N]): the per-node domain totals
+    of both tables -- the JAX package's ``domain_counts`` of each -- from
+    one launch of the kernel over both row sets.
 
     ``ident=True``: every valid node has a unique domain in every row (the
     hostname-topology case, verified by the tensorizer), so the per-node
-    total is the per-node count and no aggregation runs. Otherwise the
-    kernel aggregates all T rows into [T, d_pad] and the totals are
-    gathered back per node."""
-    hk = dom >= 0
+    total is the per-node count (masked by has_key) and no aggregation
+    runs."""
     if ident:
-        return torch.where(hk, cnt, 0), hk
-    dd = torch.where(hk, dom, 0).to(torch.int64)
-    seg = dc.domain_counts(dom.contiguous(), cnt.contiguous(), d_pad)
-    return torch.gather(seg, 1, dd), hk
+        return (torch.where(ipa["in_hk"], in_cnt, 0),
+                torch.where(ipa["ex_hk"], ex_cnt, 0))
+    cache = ipa.get("launch", {})
+    agg = cache.get("totals")
+    if agg is None or agg.sets[0][1] is not in_cnt or agg.sets[1][1] is not ex_cnt:
+        agg = cache["totals"] = dc.Aggregation(
+            [(ipa["in_dom"], in_cnt, None), (ipa["ex_dom"], ex_cnt, None)],
+            d_pad, counts=False,
+        )
+    (_, in_tot), (_, ex_tot) = agg()
+    return in_tot, ex_tot
+
+
+def static_tables(in_dom, ex_dom) -> dict:
+    """The per-solve pieces of the tables that no step changes: has_key
+    of both tables (the JAX package recomputes it every step)."""
+    return {"in_hk": in_dom >= 0, "ex_hk": ex_dom >= 0}
 
 
 def filter_and_score(
@@ -53,8 +69,8 @@ def filter_and_score(
     are unnormalized -- normalization runs over the final feasible mask.
     ``score=False``: the batch has no preferred terms and no symmetry
     weights, so the scoring section is skipped (raw is all-zero)."""
-    in_counts, in_hk = domain_counts(ipa["in_dom"], in_cnt, d_pad, ident)
-    ex_counts, ex_hk = domain_counts(ipa["ex_dom"], ex_cnt, d_pad, ident)
+    in_counts, ex_counts = node_totals(ipa, in_cnt, ex_cnt, d_pad, ident)
+    in_hk, ex_hk = ipa["in_hk"], ipa["ex_hk"]
     n = in_counts.shape[1]
     dev = in_counts.device
 

@@ -314,6 +314,10 @@ class ExactSolver:
         use_spread = not spread.empty
         use_interpod = not interpod.empty
 
+        # the static pieces the steps would otherwise recompute
+        spr_static = sp.static_tables(spread.dom, spread.elig, spread.d_pad)
+        ipa_in_dom = _to_dev(interpod.in_dom, dev)
+        ipa_ex_dom = _to_dev(interpod.ex_dom, dev)
         tables = {
             "alloc": _to_dev(nodes.allocatable, dev),
             "max_pods": _to_dev(nodes.max_pods, dev),
@@ -329,7 +333,9 @@ class ExactSolver:
             # (ops/spread.py and ops/interpod.py module notes)
             "spr": {
                 "dom": _to_dev(spread.dom, dev),
-                "elig": _to_dev(spread.elig, dev),
+                **{k: _to_dev(v, dev) for k, v in spr_static.items()},
+                "n_dom_host": spr_static["n_dom"],
+                "launch": {},
                 "max_skew": np.asarray(spread.max_skew),
                 "min_domains": np.asarray(spread.min_domains),
                 "self_match": np.asarray(spread.self_match),
@@ -338,8 +344,10 @@ class ExactSolver:
                 "soft": np.asarray(spread.soft),
             },
             "ipa": {
-                "in_dom": _to_dev(interpod.in_dom, dev),
-                "ex_dom": _to_dev(interpod.ex_dom, dev),
+                "in_dom": ipa_in_dom,
+                "ex_dom": ipa_ex_dom,
+                **ip.static_tables(ipa_in_dom, ipa_ex_dom),
+                "launch": {},
                 "ex_anti": _to_dev(interpod.ex_anti, dev),
                 "in_pref_w": np.asarray(interpod.in_pref_w),
                 "cls_req_aff": np.asarray(interpod.cls_req_aff),

@@ -45,7 +45,8 @@ def _inputs(seed, t, n, d_pad, dev):
 
 @pytest.mark.parametrize(
     "t,n,d_pad",
-    [(8, 5120, 8192), (1, 5001, 8), (16, 5120, 8), (3, 777, 65536), (2, 100_000, 16384)],
+    [(8, 5120, 8192), (1, 5001, 8), (16, 5120, 8), (3, 777, 65536), (2, 100_000, 16384),
+     (2, 5120, 2**19)],
 )
 def test_kernel_equals_plain(cuda_device, t, n, d_pad):
     dom, cnt = _inputs(t + n, t, n, d_pad, cuda_device)
@@ -57,8 +58,90 @@ def test_kernel_equals_plain(cuda_device, t, n, d_pad):
 
 
 def test_both_paths_are_taken(cuda_device):
-    assert dc.uses_shared_memory(8192, cuda_device)
-    assert not dc.uses_shared_memory(65536, cuda_device)
+    """8,192 and 65,536 bins fit a cluster's shared memory; 2^19 do not and
+    take the global path."""
+    for t, n, d_pad, want in [(16, 5120, 8192, (8, False)), (8, 5120, 65536, (8, False)),
+                              (8, 600, 65536, (2, False)), (8, 5120, 2**19, (8, True))]:
+        dom, cnt = _inputs(t, t, n, d_pad, cuda_device)
+        agg = dc.Aggregation([(dom, cnt, None)], d_pad)
+        assert (agg.cluster, agg.is_global) == want
+
+
+def _check_sets(sets, d_pad, **kw):
+    want = dc.aggregate_plain(sets, d_pad)
+    before = dc.LAUNCHES
+    got = dc.aggregate(sets, d_pad, **kw)
+    torch.cuda.synchronize()
+    assert dc.LAUNCHES == before + 1
+    for (g_out, g_tot), (w_out, w_tot) in zip(got, want):
+        assert torch.equal(g_out, w_out)
+        assert torch.equal(g_tot, w_tot)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("d_pad", [8192, 2**19], ids=["shared", "global"])
+def test_each_cluster_size_and_path(cuda_device, cluster, d_pad):
+    """Every cluster size on both paths: the two-set form with its
+    gathered totals, and a separate gather row."""
+    rng = np.random.default_rng(cluster)
+    dev = cuda_device
+    zone = torch.from_numpy(rng.integers(-1, 3, (8, 5120)).astype(np.int32)).to(dev)
+    host = torch.from_numpy(
+        np.where(rng.random((8, 5120)) < 0.1, -1, np.arange(5120) % d_pad).astype(np.int32)
+    ).to(dev)
+    cnt = [torch.from_numpy(rng.integers(0, 4, (8, 5120)).astype(np.int32)).to(dev)
+           for _ in range(2)]
+    _check_sets([(zone, cnt[0], None), (host, cnt[1], None)], d_pad, cluster=cluster)
+    _check_sets([(zone, cnt[0], host)], d_pad, cluster=cluster)
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_random_shapes(cuda_device, seed):
+    """A sweep of shapes: d_pad in {8, 8192, 16384, 65536}, N not a
+    multiple of the vector width, all -1 rows, misaligned rows (the scalar
+    path), one or two sets."""
+    rng = np.random.default_rng(1000 + seed)
+    d_pad = int(rng.choice([8, 8192, 16384, 65536]))
+    n = int(rng.integers(1, 12_000))
+    if seed % 3 == 0:
+        n += -n % 4  # the vector path
+    sets = []
+    for _ in range(1 + seed % 2):
+        t = int(rng.integers(1, 20))
+        dom = rng.integers(-1, min(d_pad, int(rng.integers(2, 20_000))), (t, n)).astype(np.int32)
+        dom[rng.random(t) < 0.3] = -1
+        cnt = rng.integers(-3, 9, (t, n)).astype(np.int32)
+        if seed % 4 == 1:  # a row view 4 bytes off alignment
+            flat = torch.empty(t * n + 1, dtype=torch.int32, device=cuda_device)
+            cnt_d = flat[1:].view(t, n)
+            cnt_d.copy_(torch.from_numpy(cnt))
+        else:
+            cnt_d = torch.from_numpy(cnt).to(cuda_device)
+        gdom = None
+        if seed % 5 == 2:
+            gdom = torch.from_numpy(
+                rng.integers(-1, d_pad, (t, n)).astype(np.int32)
+            ).to(cuda_device)
+        sets.append((torch.from_numpy(dom).to(cuda_device), cnt_d, gdom))
+    _check_sets(sets, d_pad)
+
+
+def test_prepared_aggregation_follows_in_place_updates(cuda_device):
+    """The scan's prepared launch reads the counts' current contents and
+    rewrites its outputs on every call."""
+    dom, cnt = _inputs(11, 8, 5120, 8192, cuda_device)
+    ex_dom, ex_cnt = _inputs(12, 8, 5120, 8192, cuda_device)
+    sets = [(dom, cnt, None), (ex_dom, ex_cnt, None)]
+    agg = dc.Aggregation(sets, 8192, counts=False)
+    for step in range(3):
+        got = agg()
+        want = dc.aggregate_plain(sets, 8192, counts=False)
+        torch.cuda.synchronize()
+        for (_, g), (_, w) in zip(got, want):
+            assert torch.equal(g, w)
+        cnt[:, step::7] += step + 1
+        ex_cnt.index_add_(1, torch.tensor([step], device=cuda_device),
+                          torch.ones((8, 1), dtype=torch.int32, device=cuda_device))
 
 
 def test_wrapper_raises_instead_of_falling_back(cuda_device):
@@ -67,9 +150,10 @@ def test_wrapper_raises_instead_of_falling_back(cuda_device):
         dc.domain_counts(dom.t().contiguous().t(), cnt, 8)
     with pytest.raises(ValueError):
         dc.domain_counts(dom, cnt.cpu(), 8)
-    with pytest.raises(ValueError, match="65535"):
-        big = torch.zeros((65536, 1), dtype=torch.int32, device=cuda_device)
-        dc.domain_counts(big, big, 8)
+    with pytest.raises(ValueError):
+        dc.aggregate([(dom, cnt, None), (dom.cpu(), cnt.cpu(), None)], 8)
+    with pytest.raises(ValueError, match="cluster"):
+        dc.aggregate([(dom, cnt, None)], 65536, cluster=1)
 
 
 def _cluster(n_nodes, n_pods):

@@ -6,6 +6,7 @@ operations, and the result is truncated to an int)."""
 
 import jax.numpy as jnp
 import numpy as np
+from jax import ops as jops
 import pytest
 import torch
 
@@ -168,20 +169,46 @@ def _spread_tables(seed, d_pad=8, n_cls=4):
     return spr, cnt
 
 
-def _port_spr(spr):
+def _port_spr(spr, d_pad=8):
+    """The port's spread tables, as ExactSolver.solve builds them."""
     out = dict(spr)
-    out["dom"], out["elig"] = _t(spr["dom"]), _t(spr["elig"])
+    static = tsp.static_tables(spr["dom"], spr["elig"], d_pad)
+    out.update({k: _t(v) for k, v in static.items()})
+    out["dom"], out["n_dom_host"] = _t(spr["dom"]), static["n_dom"]
     return out
 
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_domain_aggregate(seed):
     spr, cnt = _spread_tables(seed)
+    port = _port_spr(spr)
     for j in range(spr["dom"].shape[0]):
-        got = tsp._domain_aggregate(_t(spr["dom"][j]), _t(spr["elig"][j]), _t(cnt[j]), 8)
+        got = tsp._domain_aggregate(port, j, _t(cnt), 8)
         want = jsp._domain_aggregate(spr["dom"][j], spr["elig"][j], cnt[j], 8)
         for g, w in zip(got, want):
             _eq(g, w)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("d_pad", [8, 64])
+def test_spread_static_tables(seed, d_pad):
+    """The presence and domain count hoisted out of the step equal the
+    segment sums of the JAX package's _domain_aggregate
+    (kubernetes_tpu/ops/spread.py:26-42), row by row."""
+    spr, _ = _spread_tables(seed, d_pad=d_pad)
+    got = tsp.static_tables(spr["dom"], spr["elig"], d_pad)
+    for j in range(spr["dom"].shape[0]):
+        dom, elig = spr["dom"][j], spr["elig"][j]
+        hk = dom >= 0
+        counted = elig & hk
+        present = jops.segment_sum(
+            jnp.asarray(counted, jnp.int32), jnp.where(hk, dom, 0), num_segments=d_pad
+        ) > 0
+        _eq(got["present"][j], present)
+        _eq(got["hk"][j], hk)
+        _eq(got["counted_dom"][j], np.where(counted, dom, -1))
+        # n_dom is what the reference's aggregate returns
+        _eq(got["n_dom"][j], jsp._domain_aggregate(dom, elig, np.zeros_like(dom), d_pad)[1])
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -254,14 +281,27 @@ def _interpod_tables(seed, ident, d_pad=8, n_cls=5):
     return ipa, in_cnt, ex_cnt, x, node_valid, d_pad
 
 
+def _port_ipa(ipa):
+    """The port's interpod tables, as ExactSolver.solve builds them."""
+    out = dict(ipa)
+    for k in ("in_dom", "ex_dom", "ex_anti"):
+        out[k] = _t(ipa[k])
+    out.update(tip.static_tables(out["in_dom"], out["ex_dom"]))
+    return out
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 @pytest.mark.parametrize("ident", [False, True])
 def test_interpod_domain_counts(seed, ident):
-    ipa, in_cnt, _, _, _, d_pad = _interpod_tables(seed, ident)
-    got = tip.domain_counts(_t(ipa["in_dom"]), _t(in_cnt), d_pad, ident)
-    want = jip.domain_counts(ipa["in_dom"], in_cnt, d_pad, ident)
-    for g, w in zip(got, want):
-        _eq(g, w)
+    """Both tables' per-node totals, from one two-set aggregation, equal
+    the JAX package's domain_counts of each table, has_key included."""
+    ipa, in_cnt, ex_cnt, _, _, d_pad = _interpod_tables(seed, ident)
+    port = _port_ipa(ipa)
+    got = tip.node_totals(port, _t(in_cnt), _t(ex_cnt), d_pad, ident)
+    for side, c, g in (("in", in_cnt, got[0]), ("ex", ex_cnt, got[1])):
+        tot, hk = jip.domain_counts(ipa[f"{side}_dom"], c, d_pad, ident)
+        _eq(g, tot)
+        _eq(port[f"{side}_hk"], hk)
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -269,9 +309,7 @@ def test_interpod_domain_counts(seed, ident):
 @pytest.mark.parametrize("score", [False, True])
 def test_filter_and_score(seed, ident, score):
     ipa, in_cnt, ex_cnt, x, node_valid, d_pad = _interpod_tables(seed, ident)
-    t_ipa = dict(ipa)
-    for k in ("in_dom", "ex_dom", "ex_anti"):
-        t_ipa[k] = _t(ipa[k])
+    t_ipa = _port_ipa(ipa)
     t_x = {k: torch.as_tensor(np.asarray(v)) for k, v in x.items()}
     for cls in range(ipa["cls_req_aff"].shape[0]):
         allowed, raw = tip.filter_and_score(
