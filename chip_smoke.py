@@ -10,24 +10,43 @@ Phases (a failure in any of them propagates and exits nonzero):
 2. Each kernel against its plain PyTorch version on the card, exactly (both
    outputs of domain_counts: the [T, d_pad] totals and the gathered
    per-node totals), at the main path's shapes -- InterPodAffinity's in
-   and ex rows as one two-set launch, a spread row -- and at the shapes
-   that take its other paths and cluster sizes (d_pad 16,384 at 10,240
-   nodes, 65,536, and 2^19 beyond a cluster); kernel, plain and library
-   times with CUDA events (per call over runs of back-to-back calls,
-   median of 20 runs after warm-up), and each one's own device time from
-   torch.profiler. Then every cluster size at the main path's launch,
-   and every cluster size on both paths, each exact.
-3. Card against CPU at reduced depth: 1,024 nodes and one batch of 512
-   pods of the workload below, solved by the port on the card and on the
-   CPU; assignments and written-back node state must be identical.
-4. Full width: the InterPodAffinity / anti-affinity configuration of
-   BASELINE.json ("5k pods x 5k nodes"), 5,120 nodes in 3 zones and 5,120
-   pods in 5 batches of 1,024, each batch tensorized against the pods the
-   earlier batches placed. Every pod must place and the cluster's
-   invariants must hold; the kernel launch counts are reset just before
-   and read just after.
-5. Torch kernel launches per scan step and the device's busy share,
-   from torch.profiler on two short solves.
+   and ex rows as one two-set launch, a spread row, and the grouped path's
+   rows: a zone-spread row (kind 2) and a hostname anti-affinity row
+   (kind 3, d_pad 8,192 at 5,120 nodes) -- and at the shapes that take its
+   other paths and cluster sizes (d_pad 16,384 at 10,240 nodes, 65,536,
+   and 2^19 beyond a cluster); kernel, plain and library times with CUDA
+   events (per call over runs of back-to-back calls, median of 20 runs
+   after warm-up), and each one's own device time from torch.profiler.
+   Then every cluster size at the main path's launch, and every cluster
+   size on both paths, each exact.
+3. Card against CPU at reduced depth, tie_break "first": 1,024 nodes and
+   512 pods of the mixed workload below, and of each grouped kind (plain,
+   zone spread, hostname anti-affinity) and the mixed one again, each
+   with and without a nominated set that holds nominated hostPorts;
+   assignments and written-back node state must be identical.
+4. Full width, each path with the kernel's launch count set to 0 just
+   before it and read just after:
+   a. the InterPodAffinity / anti-affinity configuration of BASELINE.json
+      ("5k pods x 5k nodes"), 5,120 nodes in 3 zones and 5,120 pods of the
+      mixed workload in 5 batches of 1,024 (the per-pod scan);
+   b. the grouped path on the BASELINE.json configurations it serves, in
+      "first" and "random" mode: "PodTopologySpread across 3 zones"
+      (10,240 pods with one hard zone constraint onto 5,120 nodes in 10
+      batches, kind 2), the anti-affinity half of "InterPodAffinity /
+      anti-affinity" (4,096 pods with a self-selecting hostname
+      anti-affinity onto 5,120 nodes in 4 batches, kind 3) and
+      "NodeResourcesFit + BalancedAllocation" (5,120 pods onto 1,024 nodes
+      in 5 batches, kind 1); each batch tensorized against the pods the
+      earlier batches placed. Every pod must place with the workload's
+      invariants holding, and in "first" mode the first batch's grouped
+      solve must equal the per-pod scan's bit for bit;
+   c. the kind-2 run again through the device session (the caller bumps
+      the version of every column it writes, so the heal runs), then with
+      deferred reads, then split into 4 chained sub-batches, then the
+      streaming carry across batches; each must equal (b)'s assignments.
+5. Torch kernel launches per scan step and the device's busy share, from
+   torch.profiler on two short solves; and torch launches per placed pod
+   on the grouped path, per kind and mode, by the same difference.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -50,6 +69,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from kubernetes_tpu_torch import build  # noqa: E402
 from kubernetes_tpu_torch.api.wrappers import MakeNode, MakePod  # noqa: E402
 from kubernetes_tpu_torch.ops import domain_counts as dc  # noqa: E402
+from kubernetes_tpu_torch.solver import grouped as gp  # noqa: E402
 from kubernetes_tpu_torch.solver.exact import (  # noqa: E402
     ExactSolver,
     ExactSolverConfig,
@@ -62,6 +82,7 @@ from kubernetes_tpu_torch.tensorize.plugins import (  # noqa: E402
 from kubernetes_tpu_torch.tensorize.schema import (  # noqa: E402
     ResourceVocab,
     build_node_batch,
+    build_nominated_tensors,
     build_pod_batch,
 )
 from kubernetes_tpu_torch.tensorize.spread import build_spread_tensors  # noqa: E402
@@ -112,23 +133,67 @@ def make_pod(i):
     return b.obj()
 
 
-def tensorize(nodes, pods, placed_by_node, vocab):
-    """The scheduler's tensorize of one batch against the placed pods."""
+def make_kind_pod(kind, i):
+    """One pod of a grouped configuration: 250m / 512Mi, plus one hard zone
+    constraint (maxSkew 1) selecting its own label ("spread"), or one
+    required hostname anti-affinity term selecting its own label ("anti")."""
+    b = MakePod().name(f"{kind}-{i:05}").label("app", f"g-{kind}").req(
+        {"cpu": "250m", "memory": "512Mi"}
+    )
+    if kind == "spread":
+        b = b.spread_constraint(1, ZONE, "DoNotSchedule", {"app": "g-spread"})
+    elif kind == "anti":
+        b = b.pod_anti_affinity(HOST, {"app": "g-anti"})
+    return b.obj()
+
+
+def tensorize(nodes, pods, placed_by_node, vocab, nominated=()):
+    """The scheduler's tensorize of one batch against the placed pods;
+    with ``nominated`` (pod, node slot) pairs, also the nominated load and
+    each batch pod's own nominated slot (as the JAX package's scheduler
+    builds them: foreign nominations count in spread and interpod, batch
+    pods' own do not)."""
     nb = build_node_batch(nodes, placed_by_node, vocab=vocab)
     pb = build_pod_batch(pods, vocab)
     slot_nodes = list(nodes) + [None] * (nb.padded - len(nodes))
     placed_by_slot = {
         i: placed_by_node[n.name] for i, n in enumerate(nodes) if n.name in placed_by_node
     }
+    keys = {p.key for p in pods}
+    peers = [(q, s) for q, s in nominated if q.key not in keys]
     static = build_static_tensors(pods, pb, slot_nodes, nb.padded)
-    ports = build_port_tensors(pods, pb, slot_nodes, placed_by_slot, nb.padded)
+    ports = build_port_tensors(pods, pb, slot_nodes, placed_by_slot, nb.padded,
+                               nominated=list(nominated))
     spread = build_spread_tensors(
-        pods, static.reps, pb, slot_nodes, placed_by_slot, nb.padded, static.c_pad
+        pods, static.reps, pb, slot_nodes, placed_by_slot, nb.padded, static.c_pad,
+        nominated=peers,
     )
     interpod = build_interpod_tensors(
-        pods, static.reps, pb, slot_nodes, placed_by_slot, nb.padded, static.c_pad
+        pods, static.reps, pb, slot_nodes, placed_by_slot, nb.padded, static.c_pad,
+        nominated=peers,
     )
-    return nb, pb, static, ports, spread, interpod
+    inputs = (nb, pb, static, ports, spread, interpod)
+    if not nominated:
+        return inputs
+    nom = build_nominated_tensors(list(nominated), vocab, nb.padded, ports=ports)
+    slot_by_key = {p.key: s for p, s in nominated}
+    slots = np.asarray([slot_by_key.get(p.key, -1) for p in pods], np.int32)
+    return inputs, {"nominated": nom, "nominated_slot": slots}
+
+
+def nominated_set(nodes, pods):
+    """24 foreign pods nominated to nodes across the cluster at priorities
+    5, 10 and 20, a third of them holding the mixed workload's hostPorts,
+    and every 64th batch pod carrying its own nomination."""
+    pairs = []
+    for i in range(24):
+        b = (MakePod().name(f"nom-{i:02}").req({"cpu": "2", "memory": "4Gi"})
+             .priority((5, 10, 20)[i % 3]).scheduler_name("other-scheduler"))
+        if i % 3 == 0:
+            b = b.host_port(8000 + i % 8)
+        pairs.append((b.obj(), (i * 37) % len(nodes)))
+    pairs += [(pods[i], (i * 11) % len(nodes)) for i in range(0, len(pods), 64)]
+    return pairs
 
 
 # -- phase 1 ---------------------------------------------------------------
@@ -343,7 +408,10 @@ def coverage(dev, rng):
     return ran
 
 
-def kernel_checks(dev, interpod):
+def kernel_checks(dev, interpod, kind2, kind3):
+    """``interpod``: the full-width mixed batch's interpod tensors;
+    ``kind2``/``kind3``: the spread and interpod tensors of the grouped
+    kind-2 and kind-3 runs' first batches."""
     rng = np.random.default_rng(SEED)
     # the main path's shapes: the full-width batch's real term rows, with
     # counts as a scan carries them
@@ -358,6 +426,26 @@ def kernel_checks(dev, interpod):
         kernel_case("interpod in_dom, counts only (the TPU kernel's function)",
                     ipa[:1], d, gather=False),
     ]
+    # the grouped path's launches: a zone-spread row over its counted lanes,
+    # gathered by its domain row (kind 2), and a hostname anti-affinity row
+    # (kind 3); counts as a chunk's iterations carry them
+    j = int(kind2.hard[kind2.hard[:, 0] >= 0][0, 0])
+    dom = np.asarray(kind2.dom[j : j + 1], np.int32)
+    counted = np.where(np.asarray(kind2.elig[j : j + 1]) & (dom >= 0), dom, -1).astype(np.int32)
+    n = dom.shape[1]
+    cases.append(kernel_case(
+        "grouped spread row (kind 2)",
+        [(_dev(counted, dev), _dev(rng.integers(0, 4, (1, n)).astype(np.int32), dev),
+          _dev(dom, dev))], kind2.d_pad,
+    ))
+    j = int(kind3.cls_req_anti[kind3.cls_req_anti[:, 0] >= 0][0, 0])
+    dom = np.ascontiguousarray(kind3.in_dom[j : j + 1], np.int32)
+    n = dom.shape[1]
+    cases.append(kernel_case(
+        "grouped anti row (kind 3)",
+        [(_dev(dom, dev), _dev(rng.integers(0, 2, (1, n)).astype(np.int32), dev), None)],
+        kind3.d_pad,
+    ))
     # one spread row at an untiled node count, gathered by its own domain row
     n = 5001
     dom = rng.integers(-1, 3, (1, n)).astype(np.int32)
@@ -387,25 +475,46 @@ def kernel_checks(dev, interpod):
 
 
 def reduced_depth(dev):
+    """The mixed workload and each grouped kind, with and without the
+    nominated set: the card's solve equals the CPU's."""
     nodes = make_nodes(1024)
-    pods = [make_pod(i) for i in range(512)]
-    vocab = ResourceVocab.build(pods, nodes)
+    workloads = {
+        "mixed": [make_pod(i) for i in range(512)],
+        **{k: [make_kind_pod(k, i) for i in range(512)] for k in ("plain", "spread", "anti")},
+    }
     cfg = ExactSolverConfig(tie_break="first", balanced_fdtype="float64")
-    out = {}
-    for where in (dev, torch.device("cpu")):
-        nb, *rest = tensorize(nodes, pods, {}, vocab)
-        t0 = time.perf_counter()
-        a = ExactSolver(cfg).solve(nb, *rest, device=where)
-        out[where.type] = (a, nb, time.perf_counter() - t0)
-    (a_gpu, nb_gpu, s_gpu), (a_cpu, nb_cpu, s_cpu) = out["cuda"], out["cpu"]
-    if not np.array_equal(a_gpu, a_cpu):
-        bad = np.flatnonzero(a_gpu != a_cpu)
-        raise AssertionError(f"card != CPU at {bad.size} pods, first {bad[:5]}")
-    for k in ("used", "nonzero_used", "pod_count"):
-        if not np.array_equal(getattr(nb_gpu, k), getattr(nb_cpu, k)):
-            raise AssertionError(f"card != CPU in written-back {k}")
-    log(f"reduced depth 1024 nodes x 512 pods: card == CPU "
-        f"({int((a_gpu >= 0).sum())} placed; card {s_gpu:.3f}s, CPU {s_cpu:.3f}s)")
+    rows = []
+    for name, pods in workloads.items():
+        vocab = ResourceVocab.build(pods, nodes)
+        for nominated in (False, True):
+            pairs = nominated_set(nodes, pods) if nominated else ()
+            out = []
+            for where in (dev, torch.device("cpu")):
+                got = tensorize(nodes, pods, {}, vocab, pairs)
+                inputs, extra = got if nominated else (got, {})
+                solver = ExactSolver(cfg)
+                t0 = time.perf_counter()
+                a = solver.solve(*inputs, device=where, **extra)
+                out.append((a, inputs[0], time.perf_counter() - t0,
+                            dict(solver.dispatch_counts)))
+            (a_gpu, nb_gpu, s_gpu, d_gpu), (a_cpu, nb_cpu, s_cpu, d_cpu) = out
+            label = f"{name}{' + nominated' if nominated else ''}"
+            if not np.array_equal(a_gpu, a_cpu):
+                bad = np.flatnonzero(a_gpu != a_cpu)
+                raise AssertionError(f"{label}: card != CPU at {bad.size} pods, first {bad[:5]}")
+            for k in ("used", "nonzero_used", "pod_count"):
+                if not np.array_equal(getattr(nb_gpu, k), getattr(nb_cpu, k)):
+                    raise AssertionError(f"{label}: card != CPU in written-back {k}")
+            if d_gpu != d_cpu:
+                raise AssertionError(f"{label}: dispatch {d_gpu} != {d_cpu}")
+            want = {"plain": "kind1", "spread": "kind2", "anti": "kind3"}.get(name, "scan")
+            if (want if not nominated else "scan") not in d_gpu:
+                raise AssertionError(f"{label}: expected {want} in the dispatch, got {d_gpu}")
+            row = {"workload": label, "placed": int((a_gpu >= 0).sum()), "dispatch": d_gpu,
+                   "card_s": s_gpu, "cpu_s": s_cpu}
+            rows.append(row)
+            log("reduced depth 1024 nodes x 512 pods: card == CPU " + json.dumps(row))
+    return rows
 
 
 def full_width(dev, n_nodes=5120, n_pods=5120, batch=1024):
@@ -483,6 +592,168 @@ def full_width(dev, n_nodes=5120, n_pods=5120, batch=1024):
     return res
 
 
+GROUPED_RUNS = (
+    # (kind, nodes, pods, batch)
+    ("spread", 5120, 10240, 1024),
+    ("anti", 5120, 4096, 1024),
+    ("plain", 1024, 5120, 1024),
+)
+
+
+def _check_grouped(kind, where, n_nodes, zones_after):
+    """The configuration's invariants over every placement so far."""
+    cnt = np.bincount(np.fromiter(where.values(), np.int64), minlength=n_nodes)
+    # 250m / 512Mi pods on 16 CPU / 64Gi / 110-pod nodes: cpu binds first
+    if (cnt * 250 > 16000).any() or (cnt * 512 > 64 * 1024).any() or (cnt > 110).any():
+        raise AssertionError(f"{kind}: a node is over its cpu, memory or pod capacity")
+    if kind == "anti" and cnt.max() > 1:
+        raise AssertionError("anti: a node holds two pods of the anti-affinity group")
+    for z in zones_after:
+        if z.max() - z.min() > 1:
+            raise AssertionError(f"spread: zone counts {z.tolist()} skew > 1 after a batch")
+
+
+def grouped_run(dev, kind, n_nodes, n_pods, batch, tie):
+    """One grouped configuration through the standalone solve, batch by
+    batch; the kernel's launch count and the random loop's device reads
+    are set to 0 just before and read just after."""
+    nodes = make_nodes(n_nodes)
+    pods = [make_kind_pod(kind, i) for i in range(n_pods)]
+    vocab = ResourceVocab.build(pods, nodes)
+    solver = ExactSolver(ExactSolverConfig(tie_break=tie, seed=SEED))
+    placed: dict[str, list] = {}
+    where: dict[int, int] = {}
+    zones_after, per_batch, tens_s, solve_s, h2d = [], [], [], [], []
+    dc.LAUNCHES = 0
+    gp.READS = 0
+    for lo in range(0, n_pods, batch):
+        bp = pods[lo : lo + batch]
+        t0 = time.perf_counter()
+        inputs = tensorize(nodes, bp, placed, vocab)
+        t1 = time.perf_counter()
+        h2d0 = solver.transfer_bytes["h2d"]
+        a = solver.solve(*inputs, device=dev)
+        t2 = time.perf_counter()
+        tens_s.append(t1 - t0)
+        solve_s.append(t2 - t1)
+        h2d.append(solver.transfer_bytes["h2d"] - h2d0)
+        per_batch.append(a)
+        for i, s_ in enumerate(a):
+            if s_ >= 0:
+                placed.setdefault(nodes[s_].name, []).append(bp[i])
+                where[lo + i] = int(s_)
+        if kind == "spread":
+            zones_after.append(np.bincount(np.fromiter(where.values(), np.int64) % 3,
+                                           minlength=3))
+    launches, reads = dc.LAUNCHES, gp.READS
+    if len(where) != n_pods:
+        raise AssertionError(f"{kind} {tie}: only {len(where)}/{n_pods} pods placed")
+    _check_grouped(kind, where, n_nodes, zones_after)
+    want = {"plain": "kind1", "spread": "kind2", "anti": "kind3"}[kind]
+    chunks = solver.dispatch_counts[want]
+    if chunks != n_pods // 64:
+        raise AssertionError(f"{kind} {tie}: dispatch {dict(solver.dispatch_counts)}")
+    if kind != "plain" and launches <= 0:
+        raise AssertionError(f"{kind} {tie}: the grouped path launched no domain_counts")
+    res = {
+        "kind": kind, "tie_break": tie, "nodes": n_nodes, "pods": n_pods, "batch": batch,
+        "placed": len(where), "pods_per_s": n_pods / (sum(tens_s) + sum(solve_s)),
+        "solve_pods_per_s": n_pods / sum(solve_s), "solve_s": solve_s, "tensorize_s": tens_s,
+        "domain_counts_launches": launches, "device_reads": reads,
+        "device_reads_per_chunk": reads / chunks, "h2d_bytes_per_batch": h2d,
+        "dispatch": dict(solver.dispatch_counts),
+    }
+    if tie == "first":
+        # the grouped solve of the first batch equals the per-pod scan's
+        scan = ExactSolver(ExactSolverConfig(tie_break="first", group_size=0)).solve(
+            *tensorize(nodes, pods[:batch], {}, vocab), device=dev)
+        if not np.array_equal(scan, per_batch[0]):
+            bad = np.flatnonzero(scan != per_batch[0])
+            raise AssertionError(f"{kind}: grouped != scan at {bad.size} pods, first {bad[:5]}")
+        res["first_batch_equals_scan"] = True
+    log("grouped " + json.dumps(res))
+    return res, per_batch
+
+
+def _gather(handles, n):
+    out = np.full(n, -1, np.int64)
+    for h in handles:
+        out[h.lo : h.lo + h.count] = h.get()
+    return out
+
+
+def session_run(dev, variant, want, n_nodes=5120, n_pods=10240, batch=1024):
+    """The kind-2 configuration through the device session, "first" mode:
+    ``variant`` "session" (blocking reads), "deferred" (DeferredAssignments),
+    "split" (4 chained sub-batches) or "stream" (the carry kept across
+    batches and chained on when ``can_chain``). The caller applies each
+    batch's placements and bumps the version of each column it writes, as
+    the scheduler's snapshot does. Every batch must equal ``want``."""
+    nodes = make_nodes(n_nodes)
+    pods = [make_kind_pod("spread", i) for i in range(n_pods)]
+    vocab = ResourceVocab.build(pods, nodes)
+    solver = ExactSolver(ExactSolverConfig(tie_break="first", seed=SEED))
+    placed: dict[str, list] = {}
+    versions = None
+    solve_s, get_s, h2d, chained = [], [], [], 0
+    dc.LAUNCHES = 0
+    for b, lo in enumerate(range(0, n_pods, batch)):
+        bp = pods[lo : lo + batch]
+        inputs = tensorize(nodes, bp, placed, vocab)
+        if versions is None:
+            versions = np.zeros(inputs[0].padded, np.int64)
+        kw = {"col_versions": versions.copy(), "device": dev}
+        h2d0 = solver.transfer_bytes["h2d"]
+        t1 = time.perf_counter()
+        if variant == "session":
+            a = solver.solve(*inputs, **kw)
+            t2 = t3 = time.perf_counter()
+        elif variant == "deferred":
+            h = solver.solve(*inputs, defer_read=True, **kw)
+            t2 = time.perf_counter()
+            a = h.get()
+            t3 = time.perf_counter()
+        elif variant == "split":
+            hs = solver.solve(*inputs, defer_read=True, split=4, **kw)
+            t2 = time.perf_counter()
+            a = _gather(hs, len(bp))
+            t3 = time.perf_counter()
+        else:
+            key = solver.stream_chain_key(*inputs)
+            chain = solver.can_chain(key, versions)
+            chained += chain
+            # a chained dispatch defers the heal: the carry holds the
+            # placements the applied columns record
+            hs = solver.solve(*inputs, defer_read=True, stream_carry_out=True, chain_key=key,
+                              chain_occupancy=chain, allow_heal=not chain, **kw)
+            t2 = time.perf_counter()
+            a = _gather(hs, len(bp))
+            t3 = time.perf_counter()
+        solve_s.append(t2 - t1)
+        get_s.append(t3 - t2)
+        h2d.append(solver.transfer_bytes["h2d"] - h2d0)
+        if not np.array_equal(a, want[b]):
+            bad = np.flatnonzero(np.asarray(a) != want[b])
+            raise AssertionError(f"session {variant} batch {b}: != standalone at {bad.size} pods")
+        for i, s_ in enumerate(a):
+            if s_ >= 0:
+                placed.setdefault(nodes[s_].name, []).append(bp[i])
+                versions[s_] += 1
+        if variant == "stream":
+            solver.note_stream_applied(versions)
+    launches = dc.LAUNCHES
+    if variant == "stream" and chained != n_pods // batch - 1:
+        raise AssertionError(f"stream: chained {chained} of {n_pods // batch - 1} batches")
+    if launches <= 0:
+        raise AssertionError(f"session {variant}: no domain_counts launch")
+    res = {"variant": variant, "solve_s": solve_s, "read_s": get_s,
+           "solve_pods_per_s": n_pods / (sum(solve_s) + sum(get_s)),
+           "domain_counts_launches": launches, "chained_batches": chained,
+           "h2d_bytes_per_batch": h2d, "dispatch": dict(solver.dispatch_counts)}
+    log("session " + json.dumps(res))
+    return res
+
+
 # -- phase 5 ---------------------------------------------------------------
 
 
@@ -525,6 +796,51 @@ def launches_per_step(dev, small=64, large=128):
     return res
 
 
+def grouped_launches(dev, small=128, large=256):
+    """Torch kernels the card runs per placed pod on the grouped path, per
+    kind and mode, by the difference of two solves of ``small`` and
+    ``large`` pods (2 and 4 chunks of 64) on the kind's node set; the
+    device's busy share of the larger solve; and the random loop's device
+    reads per chunk."""
+    from torch.profiler import ProfilerActivity, profile
+
+    res = {}
+    for kind, n_nodes, _, _ in GROUPED_RUNS:
+        nodes = make_nodes(n_nodes)
+        for tie in ("first", "random"):
+            out = {}
+            for n_pods in (small, large):
+                pods = [make_kind_pod(kind, i) for i in range(n_pods)]
+                inputs = tensorize(nodes, pods, {}, ResourceVocab.build(pods, nodes))
+                solver = ExactSolver(ExactSolverConfig(tie_break=tie, seed=SEED))
+                gp.READS = 0
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    a = solver.solve(*inputs, device=dev)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                if (a < 0).any():
+                    raise AssertionError(f"{kind} {tie}: a pod of the launch count went unplaced")
+                kernels = device_kernels(prof)
+                out[n_pods] = (len(kernels), sum(e.device_time_total for e in kernels) / 1e6,
+                               wall, gp.READS)
+            key = f"{kind}/{tie}"
+            if not out[large][0]:
+                res[key] = {"per_placed_pod": "not measured"}
+                continue
+            res[key] = {
+                "per_placed_pod": (out[large][0] - out[small][0]) / (large - small),
+                "kernels": {str(k): v[0] for k, v in out.items()},
+                "device_busy_s": out[large][1],
+                "wall_s": out[large][2],
+                "device_busy_share": out[large][1] / out[large][2],
+                "device_reads_per_chunk": out[large][3] / (large // 64),
+            }
+    log("grouped launches per placed pod " + json.dumps(res))
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU")
@@ -535,24 +851,42 @@ def main():
     smi = environment()
     log(smi)
 
-    # the full-width batch's interpod rows give the kernel its main-path shapes
+    # the full-width batches' tables give the kernel its main-path shapes
     nodes = make_nodes(5120)
     first = [make_pod(i) for i in range(1024)]
-    _, _, _, _, _, interpod = tensorize(
-        nodes, first, {}, ResourceVocab.build(first, nodes)
-    )
-    cases, sweep, ran = kernel_checks(dev, interpod)
-    reduced_depth(dev)
+    interpod = tensorize(nodes, first, {}, ResourceVocab.build(first, nodes))[5]
+    k2 = [make_kind_pod("spread", i) for i in range(1024)]
+    kind2 = tensorize(nodes, k2, {}, ResourceVocab.build(k2, nodes))[4]
+    k3 = [make_kind_pod("anti", i) for i in range(1024)]
+    kind3 = tensorize(nodes, k3, {}, ResourceVocab.build(k3, nodes))[5]
+    cases, sweep, ran = kernel_checks(dev, interpod, kind2, kind3)
+    reduced = reduced_depth(dev)
     full = full_width(dev)
+    grouped, spread_first = {}, None
+    for kind, n_nodes, n_pods, batch in GROUPED_RUNS:
+        for tie in ("first", "random"):
+            res, per_batch = grouped_run(dev, kind, n_nodes, n_pods, batch, tie)
+            grouped[f"{kind}/{tie}"] = res
+            if kind == "spread" and tie == "first":
+                spread_first = per_batch
+    sessions = {v: session_run(dev, v, spread_first)
+                for v in ("session", "deferred", "split", "stream")}
     per_step = launches_per_step(dev)
+    per_pod = grouped_launches(dev)
 
+    launches_by_path = {
+        "interpod full width (scan)": full["domain_counts_launches"],
+        **{f"grouped {k}": r["domain_counts_launches"] for k, r in grouped.items()},
+        **{f"session {k}": r["domain_counts_launches"] for k, r in sessions.items()},
+    }
     main_case = cases[0]
     record = {
         "name": "domain_counts",
         "route": "cuda",
         "source": "kubernetes_tpu_torch/csrc/domain_counts.cu",
         "replaces": "kubernetes_tpu/ops/pallas_kernels.py:96",
-        "launches": full["domain_counts_launches"],
+        "launches": sum(launches_by_path.values()),
+        "launches_by_path": launches_by_path,
         "exact": True,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"],
@@ -573,7 +907,14 @@ def main():
     log(json.dumps({"kernels": [record]}))
     log(json.dumps({
         "full_width": {k: full[k] for k in ("wall_s", "pods_per_s", "placed")},
+        "grouped": {k: {f: r[f] for f in ("pods_per_s", "solve_pods_per_s", "placed",
+                                           "device_reads_per_chunk")}
+                    for k, r in grouped.items()},
+        "session": {k: {f: r[f] for f in ("solve_pods_per_s", "chained_batches")}
+                    for k, r in sessions.items()},
+        "reduced_depth_cases": len(reduced),
         "torch_launches_per_step": per_step["per_step"],
+        "grouped_launches_per_placed_pod": {k: r["per_placed_pod"] for k, r in per_pod.items()},
         "card": smi,
     }))
     log(smi)  # the card's name and power limit, on the line before the last

@@ -12,7 +12,8 @@ Package map:
 - ``tensorize``  -- API objects -> padded numpy tables (copied)
 - ``ops``        -- plugin kernels as torch functions, and the hand-written
   CUDA kernel ``domain_counts`` (``csrc/domain_counts.cu``)
-- ``solver``     -- the exact-parity per-pod scan, standalone mode
+- ``solver``     -- the exact-parity solve: the per-pod scan, the grouped
+  path, nominated pods, the device session, the memory budget model
 - ``convert``    -- the JAX package's tensorized objects -> the port's
 - ``device``     -- device resolution: CUDA unless the caller asks for the CPU
 - ``build``      -- nvcc build of ``csrc/`` at first use, loaded with ctypes

@@ -2,9 +2,9 @@
 
 The counterpart of carrying weights across: ``NodeBatch``, ``PodBatch``,
 ``StaticPluginTensors``, ``PortTensors``, ``SpreadTensors``,
-``InterpodTensors`` and ``ExactSolverConfig`` made by ``kubernetes_tpu``
-become the port's objects of the same names, so both solvers can be fed
-the same arrays. The source objects are read by their field names (duck
+``InterpodTensors``, ``NominatedTensors`` and ``ExactSolverConfig`` made
+by ``kubernetes_tpu`` become the port's objects of the same names, so both
+solvers can be fed the same arrays. The source objects are read by their field names (duck
 typing): this module cannot import their classes. Every array is copied,
 so the port never aliases the reference's buffers.
 """
@@ -19,7 +19,7 @@ from .api.objects import NodeAffinity
 from .solver.exact import ExactSolverConfig
 from .tensorize.interpod import InterpodTensors
 from .tensorize.plugins import PortTensors, StaticPluginTensors
-from .tensorize.schema import NodeBatch, PodBatch, ResourceVocab
+from .tensorize.schema import NodeBatch, NominatedTensors, PodBatch, ResourceVocab
 from .tensorize.spread import SpreadTensors
 
 
@@ -88,3 +88,9 @@ def solve_inputs(nodes, pods, static=None, ports=None, spread=None, interpod=Non
         None if spread is None else spread_tensors(spread),
         None if interpod is None else interpod_tensors(interpod),
     )
+
+
+def nominated_tensors(src) -> NominatedTensors:
+    """The reference's NominatedTensors (levels, cumulative load and
+    counts, and the hostPort rows when it has them), copied."""
+    return _convert(NominatedTensors, src)

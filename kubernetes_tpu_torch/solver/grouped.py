@@ -1,0 +1,498 @@
+"""The grouped fast path: runs of identical pods placed in chunks.
+
+Counterpart of ``kubernetes_tpu/solver/exact.py`` ``_solve_grouped``
+(:434-627) and ``_chunk_kinds`` (:2409-2559); ``grouped_eligible`` (:146)
+stays in ``solver/exact.py`` beside the config it reads.
+
+The pod axis is cut into chunks of ``group`` consecutive pods and a host
+classification (``chunk_kinds``) picks each chunk's branch:
+
+  0  slow: the per-pod scan step over the chunk, bit-identical to the
+     ungrouped solver (mixed chunks, anything unproven);
+  1  plain: identical pods whose class is spread- and interpod-neutral --
+     node-local frontier stepping;
+  2  spread: identical pods with exactly one hard topology-spread
+     constraint and zero preference rows -- domain-quota placement;
+  3  anti: identical pods with exactly one required, self-selecting
+     anti-affinity term and zero preference rows -- the same machinery
+     with a quota of one pod per empty domain.
+
+The kind is host data, so the JAX package's ``lax.switch`` is a host
+branch. The JAX module note holds the proof that each fast branch is
+sequentially valid.
+
+``tie_break="first"`` places one pod per iteration by the lowest maximal
+index, for the chunk's valid pods, whose number the host knows: no
+iteration reads the device, and the result equals the per-pod scan bit for
+bit. ``"random"`` places up to a chunk of distinct tie nodes per iteration
+until the chunk is placed or proven infeasible; the loop's exit test
+reads the count placed from the card, one device-to-host read per
+iteration. Its water-fill branch (spread mode) is a data-dependent
+choice in the JAX package (``lax.cond``); here both branches run and
+``torch.where`` keeps one, so the iteration still reads the card once.
+
+Each iteration of a spread or anti chunk aggregates the per-node counts
+by domain through one launch of the ``domain_counts`` kernel: the counts
+``base + m`` (spread) or ``base + (v_in + v_ex) * m`` (anti) are written
+into one scratch row in place, and one prepared launch per chunk serves
+every iteration (``ops/domain_counts.py`` ``Aggregation``). The random
+mode's eligible-node count per domain is a plain ``index_add_``, and its
+per-domain maximum key a ``scatter_reduce`` "amax".
+
+Two JAX constructs have no torch counterpart: ``.at[...].set(...,
+mode="drop")`` scatters into a buffer one slot longer whose last slot is
+never read, and ``lax.associative_scan(jnp.maximum)`` is ``torch.cummax``.
+The capacity per node uses exact int64 floor division where the JAX
+package uses ``fastmath.floor_div_exact``; the result is clamped to
+[0, group] either way.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import domain_counts as dc
+from ..ops import noderesources as nr
+from ..ops import plugins as pl
+from ..tensorize.schema import MEM_IDX
+
+INF_COUNT = 2**30
+
+# device-to-host reads of the random mode's loop since the last reset (one
+# per iteration: the count placed, read for the exit test)
+READS = 0
+
+KIND_SLOW, KIND_PLAIN, KIND_SPREAD, KIND_ANTI = 0, 1, 2, 3
+
+
+def chunk_kinds(pods, static, ports, spread, interpod, group: int,
+                use_spread: bool, use_interpod: bool) -> np.ndarray:
+    """[P // group] int32 chunk dispatch: 0 slow / 1 plain / 2 spread /
+    3 anti (the JAX package's ``ExactSolver._chunk_kinds``, copied).
+
+    A fast kind requires ``group`` consecutive identical valid pods
+    (class, requests, port rows and, when active, the spread and interpod
+    per-pod rows); kinds 2 and 3 also require the single-constraint,
+    zero-preference-row shapes whose sequential validity the fast
+    branches rely on. All-padding chunks are kind 1 and place nothing."""
+    gn = pods.padded // group
+
+    def same(arr: np.ndarray) -> np.ndarray:
+        a = arr.reshape(gn, group, -1)
+        return (a == a[:, :1]).all(axis=(1, 2))
+
+    valid = pods.valid & pods.feasible_static
+    vchunk = valid.reshape(gn, group)
+    uniform = vchunk.all(axis=1)
+    arrays = [
+        np.asarray(static.class_of),
+        pods.req,
+        pods.req_mask,
+        pods.nonzero_req,
+        np.asarray(ports.pod_conflict),
+        np.asarray(ports.pod_takes),
+    ]
+    if use_spread:
+        arrays.append(np.asarray(spread.placed_match))
+    if use_interpod:
+        arrays += [
+            np.asarray(interpod.in_match),
+            np.asarray(interpod.ex_owned),
+            np.asarray(interpod.m_anti),
+            np.asarray(interpod.m_w),
+            np.asarray(interpod.self_aff)[:, None],
+        ]
+    for arr in arrays:
+        uniform &= same(arr)
+    padding = ~vchunk.any(axis=1)
+
+    kinds = np.zeros(gn, dtype=np.int32)
+    kinds[padding] = KIND_PLAIN
+    if not (use_spread or use_interpod):
+        kinds[uniform] = KIND_PLAIN
+        return kinds
+
+    class_of = np.asarray(static.class_of)
+    taint = np.asarray(static.taint_cnt)
+    nodeaff = np.asarray(static.nodeaff_pref)
+    if use_spread:
+        spr_hard = np.asarray(spread.hard)
+        spr_soft = np.asarray(spread.soft)
+        spr_placed = np.asarray(spread.placed_match)
+        spr_min_dom = np.asarray(spread.min_domains)
+    if use_interpod:
+        ipa_anti = np.asarray(interpod.cls_req_anti)
+        ipa_aff = np.asarray(interpod.cls_req_aff)
+        ipa_pref = np.asarray(interpod.cls_pref)
+        ipa_in_m = np.asarray(interpod.in_match)
+        ipa_ex_o = np.asarray(interpod.ex_owned)
+        ipa_m_anti = np.asarray(interpod.m_anti)
+        ipa_m_w = np.asarray(interpod.m_w)
+        ipa_ex_anti = np.asarray(interpod.ex_anti)
+        ipa_in_dom = np.asarray(interpod.in_dom)
+        ipa_ex_dom = np.asarray(interpod.ex_dom)
+    first = np.arange(gn) * group
+    for g in np.nonzero(uniform & ~padding)[0]:
+        i = int(first[g])
+        c = int(class_of[i])
+        no_pref_rows = not taint[c].any() and not nodeaff[c].any()
+
+        if use_spread:
+            hard_row = spr_hard[c]
+            soft_row = spr_soft[c]
+            placed_row = spr_placed[i]
+            spr_neutral = (
+                (hard_row < 0).all() and (soft_row < 0).all() and not placed_row.any()
+            )
+            j = int(hard_row[0])
+            spr_fast = (
+                j >= 0
+                and (hard_row[1:] < 0).all()
+                and (soft_row < 0).all()
+                and no_pref_rows
+                and bool(placed_row[j])
+                and not placed_row[np.arange(len(placed_row)) != j].any()
+                and int(spr_min_dom[j]) < 0
+            )
+        else:
+            spr_neutral, spr_fast = True, False
+
+        if use_interpod:
+            anti_row = ipa_anti[c]
+            aff_row = ipa_aff[c]
+            pref_row = ipa_pref[c]
+            in_m = ipa_in_m[i]
+            ex_o = ipa_ex_o[i]
+            m_anti = ipa_m_anti[i]
+            m_w = ipa_m_w[i]
+            ipa_neutral = (
+                (anti_row < 0).all()
+                and (aff_row < 0).all()
+                and (pref_row < 0).all()
+                and not in_m.any()
+                and not ex_o.any()
+                and not m_anti.any()
+                and not m_w.any()
+            )
+            j = int(anti_row[0])
+            ex_idx = np.nonzero(ex_o)[0]
+            ipa_fast = (
+                j >= 0
+                and (anti_row[1:] < 0).all()
+                and (aff_row < 0).all()
+                and (pref_row < 0).all()
+                and no_pref_rows
+                and not m_w.any()
+                and in_m[j] > 0
+                and not in_m[np.arange(len(in_m)) != j].any()
+                and len(ex_idx) == 1
+                and bool(m_anti[ex_idx[0]])
+                and m_anti.sum() == 1
+                and bool(ipa_ex_anti[ex_idx[0]])
+                and np.array_equal(ipa_in_dom[j], ipa_ex_dom[ex_idx[0]])
+            )
+        else:
+            ipa_neutral, ipa_fast = True, False
+
+        if spr_fast and ipa_neutral:
+            kinds[g] = KIND_SPREAD
+        elif ipa_fast and spr_neutral:
+            kinds[g] = KIND_ANTI
+        elif spr_neutral and ipa_neutral:
+            kinds[g] = KIND_PLAIN
+    return kinds
+
+
+class _DomainModel:
+    """The domain bookkeeping of one spread or anti chunk: the constraint's
+    rows, resolved on the host from the chunk's class, and one prepared
+    ``domain_counts`` launch over a scratch row that each iteration
+    rewrites in place."""
+
+    def __init__(self, mode: str, tables, st, x, h, group: int):
+        self.mode = mode
+        cls = int(h["class_of"])
+        if mode == "spread":
+            spr = tables["spr"]
+            j = max(int(spr["hard"][cls, 0]), 0)
+            dom = spr["dom"][j : j + 1]
+            counted_dom = spr["counted_dom"][j : j + 1]
+            self.hk = spr["hk"][j]
+            self.charged = counted_dom[0] >= 0  # counted: elig & has_key
+            self.base = st["spr_cnt"][j]
+            self.v = 1
+            self.skew_lim = int(spr["max_skew"][j])
+            self.present = spr["present"][j]
+            present_host = spr["present_host"][j]
+            d_pad = spr["present"].shape[1]
+            agg_dom, gather_dom = counted_dom, dom
+        else:
+            ipa = tables["ipa"]
+            j = max(int(ipa["cls_req_anti"][cls, 0]), 0)
+            dom = ipa["in_dom"][j : j + 1]
+            self.hk = ipa["in_hk"][j]
+            self.charged = self.hk
+            # the pod's own symmetric ex term (a host precondition of the
+            # kind: exactly one, on the same topology and domain row)
+            ex_owned = h["ipa_ex_owned"]
+            ee = int(np.argmax(ex_owned > 0))
+            self.v = int(h["ipa_in_match"][j]) + int(ex_owned[ee])
+            self.base = st["ipa_in"][j] + st["ipa_ex"][ee]
+            d_pad = tables["ipa_d_pad"]
+            agg_dom, gather_dom = dom, None
+        self.dd = torch.clamp(dom[0], min=0).to(torch.int64)
+        self.d_pad = d_pad
+        self.group = group
+        self.buf = torch.empty_like(dom)
+        self.agg = dc.Aggregation([(agg_dom, self.buf, gather_dom)], d_pad)
+        if mode == "spread":
+            # the water-fill's domain ranks: present domains in index order
+            self.d_present = int(present_host.sum())
+            self.d_rank = torch.as_tensor(
+                np.cumsum(present_host.astype(np.int64)) - 1, device=dom.device
+            )
+
+    def eval(self, m, quota: bool = True):
+        """(extra feasibility mask [N], quota per domain [d_pad], domain
+        counts [d_pad]) with ``m`` more pods placed per node; without
+        ``quota`` (first mode) only the mask."""
+        if self.v == 1:
+            torch.add(self.base, m, out=self.buf[0])
+        else:
+            torch.add(self.base, m, alpha=self.v, out=self.buf[0])
+        ((counts, node_dc),) = self.agg()
+        counts, node_dc = counts[0], node_dc[0]
+        if self.mode == "spread":
+            mn = torch.min(torch.where(self.present, counts, INF_COUNT))
+            ok = self.hk & (node_dc + 1 - mn <= self.skew_lim)
+            if not quota:
+                return ok, None, None
+            return ok, torch.clamp(mn + self.skew_lim - counts, 0, self.group), counts
+        ok = ~self.hk | (node_dc == 0)
+        if not quota:
+            return ok, None, None
+        return ok, (counts == 0).to(torch.int32), counts
+
+
+def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
+               generator, fit_scorer, fdtype, w_fit: int, w_balanced: int,
+               w_taint: int, w_nodeaff: int, w_image: int, use_extra: bool):
+    """Places ``vcnt`` identical pods (the chunk's representative rows:
+    ``x`` on the device, ``h`` on the host) and returns (assignments
+    [group] int64, per-node placements ``m`` [N] int32). ``mode``: None
+    (plain), "spread" or "anti". The caller adds ``m`` times the pod's
+    rows into the carried state."""
+    global READS
+    alloc = tables["alloc"]
+    alloc2 = alloc[: MEM_IDX + 1]
+    n = alloc.shape[1]
+    dev = alloc.device
+    req, nz = x["req"], x["nonzero_req"]
+    cls = int(h["class_of"])
+
+    # how many more identical pods each node can take
+    free = torch.clamp(alloc - st["used"], min=0)
+    cap_res = torch.where(
+        x["req_mask"][:, None],
+        torch.div(free, torch.clamp(req, min=1)[:, None], rounding_mode="floor"),
+        group,
+    )
+    cap = torch.minimum(
+        torch.min(cap_res, dim=0).values,
+        (tables["max_pods"] - st["pod_count"]).to(torch.int64),
+    )
+    takes = h["pod_takes"]
+    conflict = h["pod_conflict"]
+    if conflict.any():  # else the pod conflicts with nothing
+        conflict_now = pl.ports_conflict_mask(x["pod_conflict"], st["port_used"])
+        if (takes > 0).any():
+            cap = torch.where(conflict_now, 0, cap)
+        if ((takes > 0) & conflict).any():
+            cap = torch.where(~conflict_now, torch.clamp(cap, max=1), cap)
+    base_mask = tables["static_mask"][cls] & tables["node_valid"]
+    cap = torch.clamp(torch.where(base_mask, cap, 0), 0, group).to(torch.int32)
+
+    static_row = None
+    if w_image:
+        static_row = w_image * tables["image_score"][cls]
+    if use_extra:
+        extra = tables["extra_score"][cls]
+        static_row = extra if static_row is None else static_row + extra
+    alloc_g = {1: alloc2}
+
+    def frontier_rows(m, rows: int):
+        """fit + balanced (+ static rows) score of placing the (m+1)-th ..
+        (m+rows)-th identical pod on each node: [rows, N] int32."""
+        if rows == 1:
+            jj = (m + 1).to(torch.int64)[None]
+        else:
+            jj = torch.stack([m + 1 + i for i in range(rows)]).to(torch.int64)
+        req_g = (st["nonzero_used"][:, None, :] + nz[:, None, None] * jj[None]
+                 ).reshape(2, rows * n)
+        if rows not in alloc_g:
+            alloc_g[rows] = alloc2[:, None, :].expand(2, rows, n).reshape(2, rows * n)
+        s = w_fit * fit_scorer(req_g, alloc_g[rows], tables["fit_weights"])
+        s = s + w_balanced * nr.balanced_allocation_score(req_g, alloc_g[rows], fdtype=fdtype)
+        s = s.to(torch.int32).reshape(rows, n)
+        return s if static_row is None else s + static_row
+
+    taint_row = tables["taint_cnt"][cls]
+    nodeaff_row = tables["nodeaff_pref"][cls]
+
+    def scores_at(m, extra_ok, f):
+        mask_t = m < cap
+        if extra_ok is not None:
+            mask_t = mask_t & extra_ok
+        total = f
+        # in the quota modes the preference rows are all zero (a host
+        # precondition of the kind): a constant cannot move the argmax
+        if mode is None:
+            if w_taint:
+                total = total + w_taint * pl.normalize_score(taint_row, mask_t, reverse=True)
+            if w_nodeaff:
+                total = total + w_nodeaff * pl.normalize_score(nodeaff_row, mask_t, reverse=False)
+        return torch.where(mask_t, total, -1), mask_t
+
+    model = _DomainModel(mode, tables, st, x, h, group) if mode is not None else None
+    # m_ext / asg_ext: one slot longer than their use, the slot that the
+    # JAX package's mode="drop" scatters leave out
+    m_ext = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    m = m_ext[:n]
+    asg_ext = torch.full((group + 1,), -1, dtype=torch.int64, device=dev)
+    asg = asg_ext[:group]
+
+    if tie_break != "random":
+        for t in range(vcnt):
+            extra_ok = model.eval(m, quota=False)[0] if model is not None else None
+            total, _ = scores_at(m, extra_ok, frontier_rows(m, 1)[0])
+            best, pick = torch.max(total, dim=0)
+            feasible = best >= 0
+            m_ext.index_add_(0, pick.view(1), feasible.to(torch.int32).view(1))
+            asg[t] = torch.where(feasible, pick, -1)
+        return asg, m
+
+    iota_n = torch.arange(n, device=dev)
+    iota_g = torch.arange(group, device=dev)
+    ones_g = torch.ones(group, dtype=torch.int32, device=dev)
+    placed = torch.zeros((), dtype=torch.int64, device=dev)
+    placed_h = 0
+    while placed_h < vcnt:
+        if model is not None:
+            extra_ok, quota_d, dc_now = model.eval(m)
+        else:
+            extra_ok = quota_d = dc_now = None
+        # anti mode never reads the next frontier row
+        n_rows = 1 if mode == "anti" else 2
+        fr = frontier_rows(m, n_rows)
+        f_now, next_f = fr[0], fr[n_rows - 1]
+        total, mask_t = scores_at(m, extra_ok, f_now)
+        best = torch.max(total)
+        feasible = best >= 0
+        tie = (total == best) & mask_t
+        if mode is None:
+            eligible = tie & ((m + 1) < cap) & (next_f <= f_now)
+        elif mode == "spread":
+            eligible = tie & (next_f <= f_now)
+        else:
+            eligible = tie
+        remaining = vcnt - placed
+
+        if mode is None:
+            r = torch.rand(n, generator=generator, dtype=torch.float64, device=dev)
+            pick = torch.argmin(torch.where(tie, r, 2.0))
+            order = torch.argsort(torch.where(eligible, r, 2.0))
+            q = torch.minimum(torch.sum(eligible.to(torch.int64)), remaining)
+        else:
+            charged, dd = model.charged, model.dd
+            ec = eligible & charged
+            # unique per-node random keys
+            rb = torch.randint(0, 1 << 20, (n,), generator=generator, dtype=torch.int64,
+                               device=dev) * n + iota_n
+            accept, pos_iter = _winner_accept(model, m, cap, extra_ok, quota_d, f_now, best,
+                                              eligible, ec, rb)
+            if mode == "spread":
+                wf_acc, wf_pos, waterfill = _waterfill_accept(
+                    model, m, cap, extra_ok, dc_now, f_now, best, ec, remaining, iota_n,
+                    generator,
+                )
+                accept = torch.where(waterfill, wf_acc, accept)
+                pos_iter = torch.where(waterfill, wf_pos, pos_iter)
+            q = torch.minimum(torch.sum(accept.to(torch.int64)), remaining)
+            pick = torch.argmax(torch.where(tie, rb, -1))
+
+        multi = q > 0
+        n_placed = torch.where(feasible, torch.where(multi, q, 1), 0)
+        if mode is None:
+            chosen = torch.where(
+                multi,
+                torch.where(iota_g < q, order[:group], -1),
+                torch.where(iota_g < 1, pick, -1),
+            )
+            chosen = torch.where(feasible, chosen, -1)
+            asg_ext.scatter_(0, torch.where(chosen >= 0, placed + iota_g, group), chosen)
+            m_ext.index_add_(0, torch.where(chosen >= 0, chosen, n), ones_g)
+        else:
+            take = accept & (pos_iter < q) & multi & feasible
+            asg_ext.scatter_(0, torch.where(take, placed + pos_iter, group), iota_n)
+            single = ~multi & feasible
+            asg_ext.scatter_(0, torch.where(single, placed, group).view(1), pick.view(1))
+            m_ext[:n] += take.to(torch.int32)
+            m_ext.index_add_(0, pick.view(1), single.to(torch.int32).view(1))
+        placed = torch.where(feasible, placed + n_placed, vcnt)
+        placed_h = int(placed)  # the loop's exit test: one read per iteration
+        READS += 1
+    return asg, m
+
+
+def _winner_accept(model, m, cap, extra_ok, quota_d, f_now, best, eligible, ec, rb):
+    """Single-round selection: one winner per domain with quota (the
+    highest random key among its eligible charged nodes), plus every
+    eligible uncharged node; positions in index order."""
+    seg_key = torch.full((model.d_pad,), torch.iinfo(torch.int64).min,
+                         dtype=torch.int64, device=rb.device)
+    seg_key.scatter_reduce_(0, model.dd, torch.where(ec, rb, -1), "amax")
+    quota_eff = quota_d
+    if model.mode == "spread" and model.skew_lim > 1:
+        # re-entry gate for maxSkew > 1 (the minimum may rise mid-iteration)
+        blocked_high = torch.any((m < cap) & model.hk & ~extra_ok & (f_now >= best))
+        quota_eff = torch.where(blocked_high, 0, quota_d)
+    win = ec & (rb == seg_key[model.dd]) & (quota_eff[model.dd] >= 1)
+    acc = win | (eligible & ~model.charged)
+    return acc, torch.cumsum(acc.to(torch.int64), dim=0) - 1
+
+
+def _waterfill_accept(model, m, cap, extra_ok, dc_now, f_now, best, ec, remaining,
+                      iota_n, generator):
+    """The water-fill: when every present domain sits at one count and no
+    skew-blocked node could out-score today's best, k full rounds place at
+    once, interleaved round-robin across domains. Returns (accept, pos,
+    whether the water-fill applies)."""
+    present, dd, group = model.present, model.dd, model.group
+    seg_elig = torch.zeros(model.d_pad, dtype=torch.int64, device=dd.device)
+    seg_elig.index_add_(0, dd, ec.to(torch.int64))
+    mx_dc = torch.max(torch.where(present, dc_now, -1))
+    mn_dc = torch.min(torch.where(present, dc_now, INF_COUNT))
+    blocked_over = torch.any((m < cap) & model.hk & ~extra_ok & (f_now > best))
+    kk = torch.minimum(
+        torch.min(torch.where(present, seg_elig, INF_COUNT)),
+        torch.div(remaining, max(model.d_present, 1), rounding_mode="floor"),
+    )
+    waterfill = (mx_dc == mn_dc) & ~blocked_over & (kk >= 1)
+
+    # rank eligible nodes within their domain by a random key
+    u = torch.rand(dd.shape[0], generator=generator, dtype=torch.float32, device=dd.device)
+    keyf = torch.where(ec, dd.to(torch.float32) * 2.0 + u, float("inf"))
+    si = torch.argsort(keyf, stable=True)
+    sd = dd[si]
+    elig_s = ec[si]
+    is_start = elig_s & ((iota_n == 0) | (sd != torch.roll(sd, 1)))
+    start_pos = torch.cummax(torch.where(is_start, iota_n, -1), dim=0).values
+    rank = iota_n - start_pos
+    accept = torch.zeros_like(ec).scatter_(0, si, elig_s & (rank < kk))
+    # the rank is clamped to `group` before the position product (accepted
+    # ranks are below it; solver/budget.py assert_index_headroom polices
+    # the clamped bound)
+    rank_n = torch.zeros_like(iota_n).scatter_(0, si, torch.clamp(rank, max=group))
+    pos = rank_n * model.d_present + model.d_rank[dd]
+    return accept, pos, waterfill

@@ -223,3 +223,125 @@ def test_random_tie_break_on_the_card(cuda_device):
     for port in range(8000, 8008):
         on = [a[i] for i in range(0, len(pods), 4) if 8000 + i % 8 == port]
         assert len(set(on)) == len(on)
+
+
+# -- the grouped path, nominated pods and the session on the card ---------------
+
+
+def _kind_pods(kind, n, prefix="g"):
+    out = []
+    for i in range(n):
+        b = MakePod().name(f"{prefix}{kind}-{i:04}").label("app", f"g-{kind}").req(
+            {"cpu": "250m", "memory": "512Mi"})
+        if kind == "spread":
+            b = b.spread_constraint(1, ZONE, "DoNotSchedule", {"app": "g-spread"})
+        elif kind == "anti":
+            b = b.pod_anti_affinity(HOST, {"app": "g-anti"})
+        out.append(b.obj())
+    return out
+
+
+@pytest.mark.parametrize("kind,want", [("plain", "kind1"), ("spread", "kind2"),
+                                       ("anti", "kind3")])
+def test_grouped_first_equals_scan_on_the_card(cuda_device, kind, want):
+    nodes, _ = _cluster(300, 0)
+    pods = _kind_pods(kind, 256)
+    grouped = ExactSolver(ExactSolverConfig(tie_break="first"))
+    before = dc.LAUNCHES
+    a = grouped.solve(*_tensorize(nodes, pods), device=cuda_device)
+    if kind != "plain":
+        assert dc.LAUNCHES > before
+    assert grouped.dispatch_counts[want] == 4
+    b = ExactSolver(ExactSolverConfig(tie_break="first", group_size=0)).solve(
+        *_tensorize(nodes, pods), device=cuda_device)
+    np.testing.assert_array_equal(a, b)
+    c = ExactSolver(ExactSolverConfig(tie_break="first")).solve(*_tensorize(nodes, pods),
+                                                                device="cpu")
+    np.testing.assert_array_equal(a, c)
+
+
+@pytest.mark.parametrize("kind", ["plain", "spread", "anti"])
+def test_grouped_random_on_the_card(cuda_device, kind):
+    """Random mode places every pod with the workload's invariants held,
+    and one seed repeats on the card."""
+    nodes, _ = _cluster(300, 0)
+    pods = _kind_pods(kind, 256)
+    cfg = ExactSolverConfig(tie_break="random", seed=3)
+    a = ExactSolver(cfg).solve(*_tensorize(nodes, pods), device=cuda_device)
+    b = ExactSolver(cfg).solve(*_tensorize(nodes, pods), device=cuda_device)
+    np.testing.assert_array_equal(a, b)
+    assert (a >= 0).all()
+    if kind == "spread":
+        zones = np.bincount(a % 3, minlength=3)
+        assert zones.max() - zones.min() <= 1
+    if kind == "anti":
+        assert len(set(a.tolist())) == len(a)
+
+
+def test_nominated_card_equals_cpu(cuda_device):
+    from kubernetes_tpu_torch.tensorize.schema import build_nominated_tensors
+
+    nodes, pods = _cluster(300, 200)
+    foreign = [
+        MakePod().name(f"nom-{i}").req({"cpu": "2", "memory": "4Gi"}).priority(10 * (i % 3))
+        .host_port(8000 + i % 8).scheduler_name("other").obj()
+        for i in range(12)
+    ]
+    pairs = [(p, (i * 23) % 300) for i, p in enumerate(foreign)]
+    pairs += [(pods[i], (i * 7) % 300) for i in range(0, 200, 25)]
+    out = []
+    for dev in (cuda_device, "cpu"):
+        inputs = list(_tensorize(nodes, pods))
+        nb, pb, st = inputs[:3]
+        slots = list(nodes) + [None] * (nb.padded - len(nodes))
+        inputs[3] = build_port_tensors(pods, pb, slots, {}, nb.padded, nominated=pairs)
+        nom = build_nominated_tensors(pairs, nb.vocab, nb.padded, ports=inputs[3])
+        assert nom.port_takes is not None
+        slot_of = {p.key: s for p, s in pairs}
+        nslot = np.asarray([slot_of.get(p.key, -1) for p in pods], np.int32)
+        cfg = ExactSolverConfig(tie_break="first", balanced_fdtype="float64")
+        out.append((ExactSolver(cfg).solve(*inputs, nominated=nom, nominated_slot=nslot,
+                                           device=dev), nb))
+    np.testing.assert_array_equal(out[0][0], out[1][0])
+    for k in ("used", "nonzero_used", "pod_count"):
+        np.testing.assert_array_equal(getattr(out[0][1], k), getattr(out[1][1], k))
+
+
+def test_session_equals_standalone_on_the_card(cuda_device):
+    """Two batches through one session on the card, the caller applying the
+    first batch's placements (and bumping their columns) before the second:
+    each equals its standalone solve, and the deferred handle reads from
+    pinned host memory."""
+    from kubernetes_tpu_torch.solver.session import DeferredAssignments
+
+    nodes, _ = _cluster(300, 0)
+    cfg = ExactSolverConfig(tie_break="first")
+    solver = ExactSolver(cfg)
+    placed = {}
+    versions = np.zeros(512, np.int64)
+    for b in range(2):
+        pods = _kind_pods("spread", 128, prefix=f"b{b}")
+        vocab = ResourceVocab.build(pods, nodes)
+        nb = build_node_batch(nodes, placed, vocab=vocab)
+        pb = build_pod_batch(pods, vocab)
+        slots = list(nodes) + [None] * (nb.padded - len(nodes))
+        by_slot = {i: placed[n.name] for i, n in enumerate(nodes) if n.name in placed}
+        st = build_static_tensors(pods, pb, slots, nb.padded)
+
+        def inputs():
+            return (build_node_batch(nodes, placed, vocab=vocab), pb, st,
+                    build_port_tensors(pods, pb, slots, by_slot, nb.padded),
+                    build_spread_tensors(pods, st.reps, pb, slots, by_slot, nb.padded,
+                                         st.c_pad),
+                    build_interpod_tensors(pods, st.reps, pb, slots, by_slot, nb.padded,
+                                           st.c_pad))
+
+        want = ExactSolver(cfg).solve(*inputs(), device=cuda_device)
+        handle = solver.solve(*inputs(), col_versions=versions.copy(), defer_read=True,
+                              device=cuda_device)
+        assert isinstance(handle, DeferredAssignments) and handle._host.is_pinned()
+        got = handle.get()
+        np.testing.assert_array_equal(got, want)
+        for p, a in zip(pods, got):
+            placed.setdefault(nodes[a].name, []).append(p)
+            versions[a] += 1

@@ -90,19 +90,9 @@ def test_solve_without_device_raises_when_cuda_absent(monkeypatch):
     assert list(ExactSolver().solve(nb, pb, device="cpu")) == [0]
 
 
-@pytest.mark.parametrize(
-    "kwargs",
-    [
-        {"col_versions": np.zeros(128, np.int64)},
-        {"split": 2},
-        {"mesh": object()},
-        {"defer_read": True},
-        {"chain_occupancy": True},
-        {"stream_carry_out": True},
-    ],
-    ids=lambda kw: next(iter(kw)),
-)
-def test_unported_branches_raise(kwargs):
+def test_mesh_raises():
+    """The one branch of the JAX package's solve that the port does not
+    have: a node-axis mesh (the port runs on one device)."""
     from kubernetes_tpu_torch.api.wrappers import MakeNode, MakePod
     from kubernetes_tpu_torch.solver.exact import ExactSolver
     from kubernetes_tpu_torch.tensorize.schema import (
@@ -114,23 +104,5 @@ def test_unported_branches_raise(kwargs):
     pods = [MakePod().name("p0").req({"cpu": "100m"}).obj()]
     nb = build_node_batch(nodes)
     pb = build_pod_batch(pods, nb.vocab)
-    with pytest.raises(NotImplementedError, match=next(iter(kwargs))):
-        ExactSolver().solve(nb, pb, device="cpu", **kwargs)
-
-
-def test_nominated_pods_raise():
-    from kubernetes_tpu_torch.api.wrappers import MakeNode, MakePod
-    from kubernetes_tpu_torch.solver.exact import ExactSolver
-    from kubernetes_tpu_torch.tensorize.schema import (
-        build_node_batch,
-        build_nominated_tensors,
-        build_pod_batch,
-    )
-
-    nodes = [MakeNode().name("n0").capacity({"cpu": "1", "pods": "4"}).obj()]
-    pods = [MakePod().name("p0").req({"cpu": "100m"}).obj()]
-    nb = build_node_batch(nodes)
-    pb = build_pod_batch(pods, nb.vocab)
-    nom = build_nominated_tensors([(pods[0], 0)], nb.vocab, nb.padded)
-    with pytest.raises(NotImplementedError, match="nominated"):
-        ExactSolver().solve(nb, pb, nominated=nom, device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        ExactSolver().solve(nb, pb, device="cpu", mesh=object())

@@ -24,8 +24,9 @@ STATE = ("used", "nonzero_used", "pod_count")
 def _ref_solve(inputs, pallas):
     cfg = RefConfig(tie_break="first", balanced_fdtype="float64", pallas=pallas)
     nb = inputs[0]
-    got = RefSolver(cfg).solve(*inputs)
-    return got, {k: getattr(nb, k) for k in STATE}
+    solver = RefSolver(cfg)
+    got = solver.solve(*inputs)
+    return got, {k: getattr(nb, k) for k in STATE}, dict(solver.dispatch_counts)
 
 
 def _port_solve(inputs, cfg=None):
@@ -35,16 +36,18 @@ def _port_solve(inputs, cfg=None):
     before = dc.LAUNCHES
     got = solver.solve(*inputs, device="cpu")
     assert dc.LAUNCHES == before, "the CPU path launches no kernel"
-    assert solver.dispatch_counts["scan"] == 1
-    return got, {k: getattr(nb, k) for k in STATE}
+    return got, {k: getattr(nb, k) for k in STATE}, dict(solver.dispatch_counts)
 
 
 def _assert_identical(port, ref):
+    """Assignments, written-back node state and the executable-dispatch
+    counts (the scan, or the grouped path's chunk kinds) equal."""
     np.testing.assert_array_equal(port[0], ref[0])
     assert port[0].dtype == np.int32
     for k in STATE:
         assert port[1][k].dtype == ref[1][k].dtype, k
         np.testing.assert_array_equal(port[1][k], ref[1][k], err_msg=k)
+    assert port[2] == ref[2]
 
 
 def _check_against_reference(ref_inputs_fn, port_inputs_fn=None):
