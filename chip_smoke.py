@@ -47,6 +47,33 @@ Phases (a failure in any of them propagates and exits nonzero):
 5. Torch kernel launches per scan step and the device's busy share, from
    torch.profiler on two short solves; and torch launches per placed pod
    on the grouped path, per kind and mode, by the same difference.
+6. The Scheduler: pods created in a ClusterState, popped, solved, assumed
+   and bound by ``Scheduler.schedule_batch`` / ``run_until_settled``:
+   a. card == CPU at reduced depth: a mixed multi-batch run (hostPorts,
+      hard zone spread, hostname anti-affinity, preferred affinity, a
+      nominated pod; a node added and a pod deleted between batches, so
+      the session heals) and a preemption run, in "first" mode, must give
+      equal bindings, nominations and victims on both; the production
+      default config ("random", group 64) holds every invariant on both;
+   b. full width, parity mode: phase 4a's InterPodAffinity workload
+      (5,120 pods x 5,120 nodes) drained by run_until_settled in batches
+      of 1,024; every invariant held;
+   c. full width, the production default config: BASELINE.json's
+      north-star shape, 50,000 plain 250m / 512Mi pods on 10,000 nodes of
+      16 CPU / 64Gi / 110 pods in 3 zones;
+   d. full width, preemption: 5,120 nodes each full of 16 low-priority
+      pods (created bound), then 256 higher-priority pods that fit only by
+      preemption: every preemptor nominated, every victim of lower
+      priority, and every preemptor bound once the victims are gone;
+      dry-runs per second, and torch launches per dry-run from
+      torch.profiler.
+   Each reads pods bound per second (first schedule_batch to last bind),
+   the wall split into tensorize, solve, apply and commit, p50 / p99 of
+   each pod's time from queue add to bind, and domain_counts launches
+   (the count set to 0 just before the run and read just after). In every
+   run each batch must have solved at the top ladder tier: the solve-tier
+   gauge at the top rung, no breaker transition, no host rung, no bisection
+   or quarantine; otherwise the phase fails.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -67,8 +94,11 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from kubernetes_tpu_torch import build  # noqa: E402
+from kubernetes_tpu_torch import metrics  # noqa: E402
 from kubernetes_tpu_torch.api.wrappers import MakeNode, MakePod  # noqa: E402
 from kubernetes_tpu_torch.ops import domain_counts as dc  # noqa: E402
+from kubernetes_tpu_torch.scheduler import Scheduler, SchedulerConfig  # noqa: E402
+from kubernetes_tpu_torch.state.cluster import ClusterState  # noqa: E402
 from kubernetes_tpu_torch.solver import grouped as gp  # noqa: E402
 from kubernetes_tpu_torch.solver.exact import (  # noqa: E402
     ExactSolver,
@@ -631,12 +661,12 @@ def grouped_run(dev, kind, n_nodes, n_pods, batch, tie):
         t0 = time.perf_counter()
         inputs = tensorize(nodes, bp, placed, vocab)
         t1 = time.perf_counter()
-        h2d0 = solver.transfer_bytes["h2d"]
+        h2d0 = metrics.h2d_bytes_total.value()
         a = solver.solve(*inputs, device=dev)
         t2 = time.perf_counter()
         tens_s.append(t1 - t0)
         solve_s.append(t2 - t1)
-        h2d.append(solver.transfer_bytes["h2d"] - h2d0)
+        h2d.append(metrics.h2d_bytes_total.value() - h2d0)
         per_batch.append(a)
         for i, s_ in enumerate(a):
             if s_ >= 0:
@@ -703,7 +733,7 @@ def session_run(dev, variant, want, n_nodes=5120, n_pods=10240, batch=1024):
         if versions is None:
             versions = np.zeros(inputs[0].padded, np.int64)
         kw = {"col_versions": versions.copy(), "device": dev}
-        h2d0 = solver.transfer_bytes["h2d"]
+        h2d0 = metrics.h2d_bytes_total.value()
         t1 = time.perf_counter()
         if variant == "session":
             a = solver.solve(*inputs, **kw)
@@ -731,7 +761,7 @@ def session_run(dev, variant, want, n_nodes=5120, n_pods=10240, batch=1024):
             t3 = time.perf_counter()
         solve_s.append(t2 - t1)
         get_s.append(t3 - t2)
-        h2d.append(solver.transfer_bytes["h2d"] - h2d0)
+        h2d.append(metrics.h2d_bytes_total.value() - h2d0)
         if not np.array_equal(a, want[b]):
             bad = np.flatnonzero(np.asarray(a) != want[b])
             raise AssertionError(f"session {variant} batch {b}: != standalone at {bad.size} pods")
@@ -840,6 +870,359 @@ def grouped_launches(dev, small=128, large=256):
     log("grouped launches per placed pod " + json.dumps(res))
     return res
 
+# -- phase 6: the Scheduler ------------------------------------------------
+
+PROFILE = "default-scheduler"
+
+
+def _counter_total(counter):
+    return sum(child.value() for _, child in counter.children())
+
+
+class TopTier:
+    """Holds a Scheduler to its top ladder tier for a whole run: after
+    every batch the solve-tier gauge must read the top rung, no batch may
+    have taken the host rung or been quarantined, and at the end no
+    breaker transition, batch failure or fallback solve may have been
+    counted."""
+
+    def __init__(self, sched, label):
+        self.sched, self.label = sched, label
+        self.before = self._counts()
+
+    @staticmethod
+    def _counts():
+        return {
+            "breaker_transitions": _counter_total(metrics.breaker_transitions_total),
+            "batch_failures": _counter_total(metrics.batch_failure_total),
+            "fallback_solves": _counter_total(metrics.fallback_solves_total),
+            "quarantined": metrics.quarantined_pods_total.value(),
+        }
+
+    def batch(self, res):
+        s = self.sched
+        tier = metrics.solve_tier.labels(PROFILE).value()
+        if tier != 0:
+            raise AssertionError(f"{self.label}: a batch ran at ladder rung {tier}")
+        if any(t != s.resilience.ladder[0] for t in s._tier_last.values()):
+            raise AssertionError(f"{self.label}: a batch descended: {s._tier_last}")
+        if res.quarantined:
+            raise AssertionError(f"{self.label}: quarantined {res.quarantined[:4]}")
+
+    def close(self):
+        after = self._counts()
+        moved = {k: after[k] - self.before[k] for k in after if after[k] != self.before[k]}
+        if moved or self.sched.resilience.trips or self.sched.resilience.rebuilds:
+            raise AssertionError(f"{self.label}: left the top tier: {moved}, "
+                                 f"{self.sched.resilience.summary()}")
+        return {"ladder": list(self.sched.resilience.ladder), "top_tier_held": True}
+
+
+def drain(sched, label, max_batches=10_000):
+    """run_until_settled, batch by batch, with the readings of one run:
+    pods bound per second from the first schedule_batch to the last bind,
+    the wall split, each pod's time from queue add to bind, and the
+    kernel's launches (its count set to 0 just before and read just
+    after)."""
+    guard = TopTier(sched, label)
+    tens0 = metrics.tensorize_seconds.sum()
+    dc.LAUNCHES = 0
+    results = []
+    t0 = time.perf_counter()
+    idle_until = None
+    for _ in range(max_batches):
+        r = sched.schedule_batch()
+        guard.batch(r)
+        if not r.progressed:
+            # pods still in their backoff (preemptors whose victims just
+            # went): wait it out on the real clock, up to 10 s idle
+            if sched.queue.pending_counts()["backoff"]:
+                idle_until = idle_until or time.perf_counter() + 10.0
+                if time.perf_counter() < idle_until:
+                    time.sleep(0.02)
+                    continue
+            break
+        idle_until = None
+        results.append(r)
+    launches = dc.LAUNCHES
+    bound = sum(len(r.scheduled) for r in results)
+    last_bind = max((r.completed_at for r in results if r.scheduled), default=t0)
+    wall = max(last_bind - t0, 1e-9)
+    tens = metrics.tensorize_seconds.sum() - tens0
+    solve = sum(r.solve_seconds for r in results)
+    apply_ = sum(r.host_seconds for r in results) - tens
+    lat = np.asarray([x for r in results for x in r.e2e_latencies], np.float64)
+    reading = {
+        "batches": len(results), "bound": bound,
+        "unschedulable": sum(len(r.unschedulable) for r in results),
+        "wall_s": wall, "pods_bound_per_s": bound / wall,
+        "tensorize_s": tens, "solve_s": solve, "apply_s": apply_,
+        "commit_s": wall - tens - solve - apply_,
+        "latency_p50_s": float(np.percentile(lat, 50)) if lat.size else None,
+        "latency_p99_s": float(np.percentile(lat, 99)) if lat.size else None,
+        "domain_counts_launches": launches,
+        **guard.close(),
+    }
+    return results, reading
+
+
+def _cluster(nodes, pods=()):
+    cs = ClusterState()
+    cs.create_nodes(nodes)
+    cs.create_pods(pods)
+    return cs
+
+
+def _bindings(cs):
+    return {p.key: p.node_name for p in cs.list_pods()}
+
+
+def check_cluster(cs, label):
+    """The mixed workload's invariants over the bound pods of ``cs``:
+    capacity, hostPorts, the app=spread zone skew and the app=anti
+    hostname exclusivity."""
+    nodes = {n.name: n for n in cs.list_nodes()}
+    used, ports, anti, zones = {}, set(), set(), Counter()
+    for p in cs.list_pods():
+        if not p.node_name:
+            continue
+        for r, v in p.resource_request().items():
+            used[(p.node_name, r)] = used.get((p.node_name, r), 0) + v
+        used[(p.node_name, "count")] = used.get((p.node_name, "count"), 0) + 1
+        for hp in p.host_ports():
+            if (p.node_name, hp) in ports:
+                raise AssertionError(f"{label}: hostPort {hp} twice on {p.node_name}")
+            ports.add((p.node_name, hp))
+        app = p.labels.get("app")
+        if app == "anti":
+            if p.node_name in anti:
+                raise AssertionError(f"{label}: two app=anti pods on {p.node_name}")
+            anti.add(p.node_name)
+        elif app == "spread":
+            zones[nodes[p.node_name].labels[ZONE]] += 1
+    for (node, r), v in used.items():
+        cap = nodes[node].allowed_pod_number if r == "count" else nodes[node].allocatable.get(r)
+        if r != "pods" and cap is not None and v > cap:
+            raise AssertionError(f"{label}: {node} over its {r}")
+    if zones and max(zones.values()) - min(zones.get(f"z{z}", 0) for z in range(3)) > 1:
+        raise AssertionError(f"{label}: app=spread zone counts {dict(zones)} skew > 1")
+
+
+def scheduler_mixed(dev, n_nodes=240, n_pods=480, batch=128):
+    """6a, the mixed run: returns the bindings, nominations and batch
+    results on ``dev``."""
+    nodes = make_nodes(n_nodes)
+    nominee = (MakePod().name("nominee").req({"cpu": "1", "memory": "1Gi"}).priority(10)
+               .nominated_node_name(nodes[7].name).obj())
+    cs = _cluster(nodes, [nominee] + [make_pod(i) for i in range(n_pods // 2)])
+    sched = Scheduler(cs, SchedulerConfig(
+        batch_size=batch,
+        solver=ExactSolverConfig(tie_break="first", balanced_fdtype="float64")), device=dev)
+    guard = TopTier(sched, f"6a mixed {dev.type}")
+    views = []
+
+    def step():
+        r = sched.schedule_batch()
+        guard.batch(r)
+        views.append((list(r.scheduled), list(r.unschedulable), list(r.preemptions)))
+        return r
+
+    step()
+    extra = (MakeNode().name(f"node-{n_nodes:05}")
+             .capacity({"cpu": "16", "memory": "64Gi", "pods": "110"})
+             .label(ZONE, "z0").label(HOST, f"node-{n_nodes:05}").obj())
+    cs.create_node(extra)
+    cs.create_pods([make_pod(i) for i in range(n_pods // 2, 3 * n_pods // 4)])
+    step()
+    victim = sorted(k for k, v in _bindings(cs).items() if v and "/pod-" in k)[0]
+    cs.delete_pod(*victim.split("/"))
+    cs.create_pods([make_pod(i) for i in range(3 * n_pods // 4, n_pods)])
+    while step().progressed:
+        pass
+    guard.close()
+    check_cluster(cs, f"6a mixed {dev.type}")
+    if not cs.get_pod("default", "nominee").node_name:
+        raise AssertionError("6a mixed: the nominated pod did not bind")
+    noms = {p.key: p.nominated_node_name for p in cs.list_pods()}
+    return _bindings(cs), noms, views
+
+
+def _full_nodes(n_nodes, per_node):
+    """``n_nodes`` nodes each full of ``per_node`` low-priority pods,
+    created bound; the preemptor shape takes one of their slots."""
+    nodes = make_nodes(n_nodes)
+    cpu, mem = 16000 // per_node, 64 * 1024 // per_node
+    low = [
+        MakePod().name(f"low-{i:05}-{j}").node(n.name).priority(1 + (i + j) % 3)
+        .start_time(float(j)).label("app", "low").req({"cpu": f"{cpu}m", "memory": f"{mem}Mi"})
+        .obj()
+        for i, n in enumerate(nodes) for j in range(per_node)
+    ]
+    shape = {"cpu": f"{cpu}m", "memory": f"{mem}Mi"}
+    return nodes, low, shape
+
+
+def scheduler_preempt(dev, n_nodes, n_preemptors, per_node=16, batch=1024, time_dry_runs=False):
+    """The preemption run on ``dev``: returns (bindings, nominations,
+    preemptions, reading)."""
+    nodes, low, shape = _full_nodes(n_nodes, per_node)
+    cs = _cluster(nodes, low)
+    sched = Scheduler(cs, SchedulerConfig(
+        batch_size=batch,
+        solver=ExactSolverConfig(tie_break="first", balanced_fdtype="float64")), device=dev)
+    dry = {"n": 0, "s": 0.0}
+    evaluate = sched.preemptor.evaluate
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return evaluate(*a, **kw)
+        finally:
+            dry["n"] += 1
+            dry["s"] += time.perf_counter() - t0
+
+    sched.preemptor.evaluate = timed
+    cs.create_pods([MakePod().name(f"vip-{k:04}").priority(100).req(shape).obj()
+                    for k in range(n_preemptors)])
+    results, reading = drain(sched, f"6d preemption {dev.type}")
+    preemptions = [x for r in results for x in r.preemptions]
+    prio = {p.key: p.effective_priority for p in low}
+    if len(preemptions) != n_preemptors:
+        raise AssertionError(f"preemption: {len(preemptions)} of {n_preemptors} nominated")
+    for pod, node, victims in preemptions:
+        if not victims or any(prio[v] >= 100 for v in victims):
+            raise AssertionError(f"preemption: {pod} on {node} took victims {victims}")
+    vips = [p for p in cs.list_pods() if p.name.startswith("vip-")]
+    if not all(p.node_name for p in vips):
+        raise AssertionError("preemption: a preemptor was not bound after its victims went")
+    if any(p.node_name != node for p in vips for k, node, _ in preemptions if k == p.key):
+        raise AssertionError("preemption: a preemptor bound off its nominated node")
+    check_cluster(cs, f"preemption {dev.type}")
+    reading.update({
+        "nodes": n_nodes, "low_priority_pods": len(low), "preemptors": n_preemptors,
+        "victims": sum(len(v) for _, _, v in preemptions),
+        "dry_runs": dry["n"], "dry_run_s": dry["s"],
+        "dry_runs_per_s": dry["n"] / dry["s"] if dry["s"] else None,
+    })
+    if time_dry_runs:
+        (reading["torch_launches_per_dry_run"], reading["torch_launches_each_dry_run"],
+         reading["dry_run_kernels_that_varied"]) = dry_run_launches(dev, nodes, low, shape)
+    noms = {p.key: p.nominated_node_name for p in cs.list_pods()}
+    return _bindings(cs), noms, preemptions, reading
+
+
+def dry_run_launches(dev, nodes, low, shape, runs=4):
+    """Torch kernels the card runs per preemption dry-run, from
+    torch.profiler around each of ``runs`` dry-runs of a preemptor against
+    the full cluster (outside the main path: its kernel counts are not
+    read). Returns (mean, the count of each run, and the kernels whose
+    count differed between the runs, by name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubernetes_tpu_torch.solver.preemption import PreemptionEvaluator
+
+    cs = _cluster(nodes, low)
+    sched = Scheduler(cs, SchedulerConfig(), device=dev)
+    sched.snapshot.update(sched.cache)
+    placed = sched._placed_by_slot()
+    batch = sched.snapshot.batch
+    static_row = np.ones(batch.padded, bool)
+    ev = PreemptionEvaluator(device=dev)
+    pod = MakePod().name("probe").priority(100).req(shape).obj()
+    ev._dry_run(pod, batch, placed, static_row, [])  # warm-up
+    torch.cuda.synchronize()
+    per_run = []
+    for _ in range(runs):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ev._dry_run(pod, batch, placed, static_row, [])
+            torch.cuda.synchronize()
+        per_run.append(Counter(e.name for e in device_kernels(prof)))
+    counts = [sum(c.values()) for c in per_run]
+    names = set().union(*per_run)
+    differ = {k: [c[k] for c in per_run] for k in sorted(names)
+              if len({c[k] for c in per_run}) > 1}
+    mean = sum(counts) / runs if any(counts) else "not measured"
+    return mean, counts, differ
+
+
+def scheduler_random(dev, n_nodes, n_pods, batch=1024, label="6c"):
+    """The production default config (tie_break "random", group 64) over
+    plain 250m / 512Mi pods; returns the reading."""
+    nodes = make_nodes(n_nodes)
+    t0 = time.perf_counter()
+    cs = _cluster(nodes)
+    sched = Scheduler(cs, SchedulerConfig(batch_size=batch, solver=ExactSolverConfig(seed=SEED)),
+                      device=dev)
+    cs.create_pods([
+        MakePod().name(f"plain-{i:06}").req({"cpu": "250m", "memory": "512Mi"}).obj()
+        for i in range(n_pods)
+    ])
+    setup = time.perf_counter() - t0
+    if sched.solver.config.tie_break != "random" or sched.solver.config.group_size != 64:
+        raise AssertionError("the production default config is random, group 64")
+    results, reading = drain(sched, f"{label} {dev.type}")
+    if reading["bound"] != n_pods:
+        raise AssertionError(f"{label}: {reading['bound']} of {n_pods} bound")
+    check_cluster(cs, label)
+    reading.update({"nodes": n_nodes, "pods": n_pods, "setup_s": setup,
+                    "dispatch": dict(sched.solver.dispatch_counts)})
+    return reading
+
+
+def scheduler_phase(dev, full=(5120, 5120), north_star=(10_000, 50_000), preempt=(5120, 256)):
+    """6a-6d; the keyword sizes are the full-width shapes (smaller ones
+    rehearse the phase on the CPU)."""
+    cpu = torch.device("cpu")
+    out = {}
+    # 6a: card == CPU at reduced depth
+    b_dev, n_dev, v_dev = scheduler_mixed(dev)
+    b_cpu, n_cpu, v_cpu = scheduler_mixed(cpu)
+    if b_dev != b_cpu or n_dev != n_cpu or v_dev != v_cpu:
+        bad = [k for k in b_cpu if b_dev.get(k) != b_cpu[k]]
+        raise AssertionError(f"6a mixed: card != CPU ({len(bad)} bindings differ, first {bad[:4]})")
+    pb_dev, pn_dev, pp_dev, pr_dev = scheduler_preempt(dev, 64, 16, batch=64)
+    pb_cpu, pn_cpu, pp_cpu, _ = scheduler_preempt(cpu, 64, 16, batch=64)
+    if pb_dev != pb_cpu or pn_dev != pn_cpu or pp_dev != pp_cpu:
+        raise AssertionError("6a preemption: card != CPU in bindings, nominations or victims")
+    r_dev = scheduler_random(dev, 256, 4096, label="6a random")
+    r_cpu = scheduler_random(cpu, 256, 4096, label="6a random")
+    out["6a"] = {
+        "mixed": {"batches": len(v_dev), "bound": sum(1 for v in b_dev.values() if v),
+                  "card_equals_cpu": True},
+        "preemption": {"preemptions": len(pp_dev), "card_equals_cpu": True,
+                       "domain_counts_launches": pr_dev["domain_counts_launches"]},
+        "random": {"bound": r_dev["bound"], "invariants_held_card_and_cpu": True,
+                   "cpu_bound": r_cpu["bound"]},
+    }
+    log("scheduler 6a " + json.dumps(out["6a"]))
+    # 6b: full width, parity mode
+    (n_nodes, n_pods), batch = full, 1024
+    t0 = time.perf_counter()
+    cs = _cluster(make_nodes(n_nodes))
+    sched = Scheduler(cs, SchedulerConfig(
+        batch_size=batch,
+        solver=ExactSolverConfig(tie_break="first", balanced_fdtype="float64")), device=dev)
+    cs.create_pods([make_pod(i) for i in range(n_pods)])
+    setup = time.perf_counter() - t0
+    _, reading = drain(sched, "6b")
+    if reading["bound"] != n_pods:
+        raise AssertionError(f"6b: {reading['bound']} of {n_pods} bound")
+    check_cluster(cs, "6b")
+    if reading["domain_counts_launches"] <= 0:
+        raise AssertionError("6b: the Scheduler's solves launched no domain_counts kernel")
+    reading.update({"nodes": n_nodes, "pods": n_pods, "batch": batch, "setup_s": setup,
+                    "dispatch": dict(sched.solver.dispatch_counts)})
+    out["6b"] = reading
+    log("scheduler 6b " + json.dumps(reading))
+    # 6c: full width, the production default config
+    out["6c"] = scheduler_random(dev, *north_star)
+    log("scheduler 6c " + json.dumps(out["6c"]))
+    # 6d: full width, preemption
+    _, _, _, out["6d"] = scheduler_preempt(dev, *preempt, time_dry_runs=dev.type == "cuda")
+    log("scheduler 6d " + json.dumps(out["6d"]))
+    return out
+
+
 
 def main():
     if not torch.cuda.is_available():
@@ -873,11 +1256,13 @@ def main():
                 for v in ("session", "deferred", "split", "stream")}
     per_step = launches_per_step(dev)
     per_pod = grouped_launches(dev)
+    sched = scheduler_phase(dev)
 
     launches_by_path = {
         "interpod full width (scan)": full["domain_counts_launches"],
         **{f"grouped {k}": r["domain_counts_launches"] for k, r in grouped.items()},
         **{f"session {k}": r["domain_counts_launches"] for k, r in sessions.items()},
+        **{f"scheduler {k}": sched[k]["domain_counts_launches"] for k in ("6b", "6c", "6d")},
     }
     main_case = cases[0]
     record = {
@@ -917,6 +1302,17 @@ def main():
         "grouped_launches_per_placed_pod": {k: r["per_placed_pod"] for k, r in per_pod.items()},
         "card": smi,
     }))
+    keys = ("pods_bound_per_s", "wall_s", "tensorize_s", "solve_s", "apply_s", "commit_s",
+            "latency_p50_s", "latency_p99_s", "domain_counts_launches", "bound", "batches")
+    log(json.dumps({"scheduler": {
+        "6a": sched["6a"],
+        **{k: {f: sched[k][f] for f in keys} for k in ("6b", "6c", "6d")},
+        "6d_preemption": {f: sched["6d"][f] for f in (
+            "low_priority_pods", "preemptors", "victims", "dry_runs", "dry_runs_per_s",
+            "torch_launches_per_dry_run", "torch_launches_each_dry_run",
+            "dry_run_kernels_that_varied")},
+        "card": smi,
+    }}))
     log(smi)  # the card's name and power limit, on the line before the last
     print(json.dumps({
         "ok": True,

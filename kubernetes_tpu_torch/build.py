@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -26,6 +27,16 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}
+# called as fn(name, seconds) after each nvcc run that built a library
+# (obs/compile.py counts them); an already-built library calls nothing
+BUILD_LISTENERS: list = []
+
+
+class KernelError(RuntimeError):
+    """A kernel of the port did not build, load or launch. The scheduler's
+    resilience ladder never takes it (``resilience.card_fault``): a card
+    whose kernels cannot run is a fault to surface, not a reason to
+    schedule from the CPU."""
 
 
 def nvcc() -> str:
@@ -41,7 +52,7 @@ def nvcc() -> str:
     for c in cands:
         if os.path.isfile(c) and os.access(c, os.X_OK):
             return c
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (looked in $CUDA_HOME/bin, PATH, /usr/local/cuda/bin); "
         "the CUDA kernels are built from csrc/ on a machine with the toolkit"
     )
@@ -63,14 +74,18 @@ def compile_library(name: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
+        raise KernelError(
             f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
     os.replace(tmp, out)
+    for fn in list(BUILD_LISTENERS):
+        fn(name, seconds)
     return out
 
 
@@ -79,7 +94,11 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(compile_library(name)))
+            path = compile_library(name)
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise KernelError(f"cannot load {path.name}: {e}") from e
             _LOADED[name] = lib
         return lib
 

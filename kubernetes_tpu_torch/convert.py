@@ -4,7 +4,8 @@ The counterpart of carrying weights across: ``NodeBatch``, ``PodBatch``,
 ``StaticPluginTensors``, ``PortTensors``, ``SpreadTensors``,
 ``InterpodTensors``, ``NominatedTensors`` and ``ExactSolverConfig`` made
 by ``kubernetes_tpu`` become the port's objects of the same names, so both
-solvers can be fed the same arrays. The source objects are read by their field names (duck
+solvers can be fed the same arrays; ``cluster_state`` carries a whole
+``ClusterState`` across, so both schedulers start from the same cluster. The source objects are read by their field names (duck
 typing): this module cannot import their classes. Every array is copied,
 so the port never aliases the reference's buffers.
 """
@@ -15,6 +16,8 @@ import dataclasses
 
 import numpy as np
 
+from .api import dra as dra_mod
+from .api import objects as obj_mod
 from .api.objects import NodeAffinity
 from .solver.exact import ExactSolverConfig
 from .tensorize.interpod import InterpodTensors
@@ -94,3 +97,51 @@ def nominated_tensors(src) -> NominatedTensors:
     """The reference's NominatedTensors (levels, cumulative load and
     counts, and the hostPort rows when it has them), copied."""
     return _convert(NominatedTensors, src)
+
+
+def api_object(src, cls):
+    """One API object carried across through its wire form
+    (``cls.from_dict(src.to_dict())``), plus the scalar fields the wire
+    form does not hold (a pod's ``start_time``, for one), copied as they
+    are. Private caches (fields starting with ``_``) rebuild on use."""
+    dst = cls.from_dict(src.to_dict())
+    for f in dataclasses.fields(dst):
+        if f.name.startswith("_"):
+            continue
+        v = getattr(src, f.name)
+        if isinstance(v, (bool, int, float, str)) and getattr(dst, f.name) != v:
+            setattr(dst, f.name, v)
+    return dst
+
+
+# (ClusterState store attribute, the port's class) for every kind the
+# scheduler reads, in the order the stores are declared
+_STORES = (
+    ("_nodes", obj_mod.Node),
+    ("_pods", obj_mod.Pod),
+    ("_pdbs", obj_mod.PodDisruptionBudget),
+    ("_pvs", obj_mod.PersistentVolume),
+    ("_pvcs", obj_mod.PersistentVolumeClaim),
+    ("_services", obj_mod.Service),
+    ("_resource_slices", dra_mod.ResourceSlice),
+    ("_device_classes", dra_mod.DeviceClass),
+    ("_resource_claims", dra_mod.ResourceClaim),
+)
+
+
+def cluster_state(src, clock=None):
+    """The port's ``ClusterState`` holding the same objects as the JAX
+    package's ``src``, under the same keys, in the same order and at the
+    same resource versions (events, leases and fences are not carried).
+    ``clock``: the new state's clock (default a real ``Clock``)."""
+    from .state.cluster import ClusterState
+
+    dst = ClusterState(clock=clock)
+    with src.lock:
+        for attr, cls in _STORES:
+            store = getattr(dst, attr)
+            for key, obj in getattr(src, attr).items():
+                store[key] = api_object(obj, cls)
+        dst._rv = src._rv
+        dst.dra_generation = src.dra_generation
+    return dst

@@ -34,6 +34,8 @@ import ctypes
 
 import torch
 
+from ..build import KernelError
+
 # kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = 0
 
@@ -112,10 +114,10 @@ def device_limits(device: torch.device) -> tuple[int, int]:
         lib = _load()
         smem = lib.domain_counts_smem_limit(idx)
         if smem < 0:
-            raise RuntimeError(f"cannot query shared memory of cuda:{idx}")
+            raise KernelError(f"cannot query shared memory of cuda:{idx}")
         rc = lib.domain_counts_prepare(idx, smem)
         if rc != 0:
-            raise RuntimeError(f"domain_counts: cudaFuncSetAttribute failed: cudaError {rc}")
+            raise KernelError(f"domain_counts: cudaFuncSetAttribute failed: cudaError {rc}")
         lim = (smem, torch.cuda.get_device_properties(idx).multi_processor_count)
         _devices[idx] = lim
     return lim
@@ -251,7 +253,7 @@ class Aggregation:
         arr[16] = _raw_stream(idx)
         rc = _lib.domain_counts_launch(addr)
         if rc != 0:
-            raise RuntimeError(f"domain_counts kernel launch failed: cudaError {rc}")
+            raise KernelError(f"domain_counts kernel launch failed: cudaError {rc}")
         LAUNCHES += 1
         return self._result
 

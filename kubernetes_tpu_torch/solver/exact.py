@@ -42,10 +42,9 @@ from a ``torch.Generator`` seeded with ``seed + solve count`` (a chained
 sub-batch folds its index into that seed); it cannot reproduce the JAX
 package's threefry stream, and is held to the oracle's tie set.
 
-Left to later slices: the JAX package's telemetry ``capture_hook`` (it
-needs the port's ``obs/bundle.py``) and its h2d/d2h metric counters (the
-port has no metrics registry yet); the byte counts are kept on the solver
-as ``transfer_bytes``.
+Left to later slices: the JAX package's telemetry ``capture_hook``. The
+host-to-device and device-to-host bytes go to the registry's
+``scheduler_tpu_{h2d,d2h}_bytes_total``.
 """
 
 from __future__ import annotations
@@ -58,6 +57,7 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
+from .. import metrics
 from ..ops import interpod as ip
 from ..ops import noderesources as nr
 from ..ops import plugins as pl
@@ -453,9 +453,12 @@ class ExactSolver:
         # "compact_batches" compact-wire solves, "chained_subbatches" and
         # "stream_chained" the chained dispatches
         self.dispatch_counts: Counter = Counter()
-        # host-to-device and device-to-host bytes of every solve (the JAX
-        # package's transfer metric counters)
-        self.transfer_bytes: Counter = Counter()
+
+    def _transferred(self, direction: str, nbytes: int) -> None:
+        """Count a solve's host-to-device or device-to-host bytes into the
+        metrics registry's transfer counters, as the JAX package does."""
+        counter = metrics.h2d_bytes_total if direction == "h2d" else metrics.d2h_bytes_total
+        counter.inc(int(nbytes))
 
     def reset_session(self) -> None:
         """Drop the card-resident session so the next solve uploads node
@@ -726,7 +729,7 @@ class ExactSolver:
                 "(stale key or dirty columns)"
             )
         h2d += (0 if chain_occupancy else bstate.nbytes) + xs.nbytes()
-        self.transfer_bytes["h2d"] += int(h2d)
+        self._transferred("h2d", h2d)
 
         run = _Run(tables, nom_state, xs, valid, layout, kinds, vcnt, group, compact,
                    cfg.tie_break, kw, dev)
@@ -753,7 +756,7 @@ class ExactSolver:
         run(packed, 0, pods.padded, seed)
         if session:
             persist["pod_count"] = packed["i32"][0]
-            self.transfer_bytes["d2h"] += pods.padded * 8
+            self._transferred("d2h", pods.padded * 8)
             if defer_read:
                 handle = DeferredAssignments(run.assignments, pods.num_pods)
                 # split asked for but clamped to one: still a list
@@ -764,7 +767,7 @@ class ExactSolver:
         flat = torch.cat(
             [packed["i64"].reshape(-1), packed["i32"][0].to(torch.int64), run.assignments]
         ).cpu().numpy()
-        self.transfer_bytes["d2h"] += flat.nbytes
+        self._transferred("d2h", flat.nbytes)
         k = nodes.allocatable.shape[0]
         npad = nodes.padded
         nodes.used = flat[: k * npad].reshape(k, npad)
@@ -821,7 +824,7 @@ class ExactSolver:
             self.reset_session()
             raise
         persist["pod_count"] = carry.state["i32"][0]
-        self.transfer_bytes["d2h"] += pods.padded * 8
+        self._transferred("d2h", pods.padded * 8)
         if carry_out and chain_key is not None:
             self._session.stream_carry = carry.state
             self._session.stream_key = chain_key

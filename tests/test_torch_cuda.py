@@ -144,6 +144,29 @@ def test_prepared_aggregation_follows_in_place_updates(cuda_device):
                           torch.ones((8, 1), dtype=torch.int32, device=cuda_device))
 
 
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_repeated_launches_stay_exact(cuda_device, cluster):
+    """One prepared aggregation launched 50 times over the same inputs
+    gives the plain result every time: the scan's two-set shape (T 8 + 8,
+    N 5,120, d_pad 8,192, gathered) and a scalar-path shape with a
+    separate gather row (T 15, N 4,570, d_pad 16,384)."""
+    dom, cnt = _inputs(21, 8, 5120, 8192, cuda_device)
+    ex_dom, ex_cnt = _inputs(22, 8, 5120, 8192, cuda_device)
+    rng = np.random.default_rng(23)
+    r_dom, r_cnt = _inputs(24, 15, 4570, 16384, cuda_device)
+    r_gdom = torch.from_numpy(rng.integers(-1, 16384, (15, 4570)).astype(np.int32)).to(cuda_device)
+    for sets, d_pad in (([(dom, cnt, None), (ex_dom, ex_cnt, None)], 8192),
+                        ([(r_dom, r_cnt, r_gdom)], 16384)):
+        want = dc.aggregate_plain(sets, d_pad)
+        agg = dc.Aggregation(sets, d_pad, cluster=cluster)
+        for _ in range(50):
+            got = agg()
+            torch.cuda.synchronize()
+            for (g_out, g_tot), (w_out, w_tot) in zip(got, want):
+                assert torch.equal(g_out, w_out)
+                assert torch.equal(g_tot, w_tot)
+
+
 def test_wrapper_raises_instead_of_falling_back(cuda_device):
     dom, cnt = _inputs(0, 4, 256, 8, cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
@@ -345,3 +368,122 @@ def test_session_equals_standalone_on_the_card(cuda_device):
         for p, a in zip(pods, got):
             placed.setdefault(nodes[a].name, []).append(p)
             versions[a] += 1
+
+
+# -- the Scheduler and the preemption dry-run on the card --------------------
+
+
+def _sched_cluster(n_nodes, pods):
+    from kubernetes_tpu_torch.state.cluster import ClusterState
+
+    cs = ClusterState()
+    cs.create_nodes(
+        MakeNode().name(f"node-{i:04}").capacity({"cpu": "4", "memory": "8Gi", "pods": "20"})
+        .label(ZONE, f"z{i % 3}").label(HOST, f"node-{i:04}").obj()
+        for i in range(n_nodes)
+    )
+    cs.create_pods(pods)
+    return cs
+
+
+def _sched_pod(i):
+    b = MakePod().name(f"m{i:03}").req({"cpu": f"{150 + 50 * (i % 4)}m", "memory": "256Mi"})
+    kind = i % 5
+    if kind == 0:
+        b = b.label("app", "lb").host_port(8080)
+    elif kind == 1:
+        b = b.label("app", "spread").spread_constraint(1, ZONE, "DoNotSchedule", {"app": "spread"})
+    elif kind == 2:
+        b = b.label("app", "anti").pod_anti_affinity(HOST, match_labels={"app": "anti"})
+    elif kind == 3:
+        b = b.label("app", "web").preferred_pod_affinity(50, ZONE, {"app": "spread"})
+    return b.obj()
+
+
+def _drive(dev, build, script):
+    """Run ``script`` (a list of callables on the cluster, between
+    batches) through a Scheduler on ``dev``; returns the batch results,
+    bindings and nominations."""
+    from kubernetes_tpu_torch.scheduler import Scheduler, SchedulerConfig
+    from kubernetes_tpu_torch.utils.clock import FakeClock
+
+    cs = build()
+    clock = FakeClock()
+    sched = Scheduler(cs, SchedulerConfig(
+        batch_size=16,
+        solver=ExactSolverConfig(tie_break="first", balanced_fdtype="float64")),
+        clock=clock, device=dev)
+    views = []
+    for change in script + [None] * 8:
+        r = sched.schedule_batch()
+        views.append((r.scheduled, r.unschedulable, r.preemptions))
+        assert not r.quarantined and set(sched._tier_last.values()) <= {"single"}
+        if change is not None:
+            change(cs)
+        clock.advance(2.0)
+    assert sched.resilience.trips == 0 and sched.resilience.rebuilds == 0
+    pods = cs.list_pods()
+    return views, {p.key: p.node_name for p in pods}, {p.key: p.nominated_node_name for p in pods}
+
+
+def test_scheduler_card_equals_cpu_mixed(cuda_device):
+    def add_node(cs):
+        cs.create_node(MakeNode().name("node-0099").capacity({"cpu": "4", "memory": "8Gi",
+                       "pods": "20"}).label(ZONE, "z0").label(HOST, "node-0099").obj())
+        cs.create_pods(_sched_pod(i) for i in range(40, 52))
+
+    def delete_one(cs):
+        cs.delete_pod(*sorted(p.key for p in cs.list_pods() if p.node_name)[0].split("/"))
+        cs.create_pods(_sched_pod(i) for i in range(52, 64))
+
+    def build():
+        nominee = (MakePod().name("nominee").req({"cpu": "1"}).priority(10)
+                   .nominated_node_name("node-0003").obj())
+        return _sched_cluster(12, [nominee] + [_sched_pod(i) for i in range(40)])
+
+    card = _drive(cuda_device, build, [add_node, delete_one])
+    cpu = _drive(torch.device("cpu"), build, [add_node, delete_one])
+    assert card == cpu
+    assert sum(1 for v in card[1].values() if v) >= 50
+
+
+def test_scheduler_card_equals_cpu_preemption(cuda_device):
+    def build():
+        low = [
+            MakePod().name(f"low-{i}-{j}").node(f"node-{i:04}").req({"cpu": "2"})
+            .priority(1 + (i + j) % 3).start_time(float(j)).obj()
+            for i in range(6) for j in range(2)
+        ]
+        vips = [MakePod().name(f"vip-{k}").req({"cpu": "2"}).priority(100).obj()
+                for k in range(4)]
+        return _sched_cluster(6, low + vips)
+
+    card = _drive(cuda_device, build, [])
+    cpu = _drive(torch.device("cpu"), build, [])
+    assert card == cpu
+    assert sum(len(v[2]) for v in card[0]) == 4
+    assert all(card[1][f"default/vip-{k}"] for k in range(4))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_preempt_scan_card_equals_cpu(cuda_device, seed):
+    from kubernetes_tpu_torch.solver.preemption import _preempt_scan
+
+    rng = np.random.default_rng(seed)
+    s, k, n = 16, 3, 5120
+    alloc = rng.integers(2_000, 8_000, (k, n)).astype(np.int64)
+    xs = (
+        alloc, rng.integers(2, 6, n).astype(np.int32),
+        (alloc * rng.random((k, n)) * 0.8).astype(np.int64),
+        rng.integers(0, 3, n).astype(np.int32), rng.random(n) > 0.15,
+        rng.integers(200, 2_500, k).astype(np.int64),
+        rng.integers(0, 2_000, (s, k, n)).astype(np.int64),
+        rng.random((s, n)) > 0.3, rng.random((s, n)) > 0.7,
+        rng.integers(-3, 4, (s, n)).astype(np.int32),
+        rng.choice(np.float32([0.0, 0.5, 1.25, 2.0]), (s, n)),
+    )
+    cpu = _preempt_scan(*(torch.from_numpy(x) for x in xs))
+    card = _preempt_scan(*(torch.from_numpy(x).to(cuda_device) for x in xs))
+    for a, b in zip(card, cpu):
+        assert a.dtype == b.dtype
+        assert torch.equal(a.cpu(), b)
