@@ -62,7 +62,7 @@ Phases (a failure in any of them propagates and exits nonzero):
       north-star shape, 50,000 plain 250m / 512Mi pods on 10,000 nodes of
       16 CPU / 64Gi / 110 pods in 3 zones;
    d. full width, preemption: 5,120 nodes each full of 16 low-priority
-      pods (created bound), then 256 higher-priority pods that fit only by
+      pods (created bound), then 128 higher-priority pods that fit only by
       preemption: every preemptor nominated, every victim of lower
       priority, and every preemptor bound once the victims are gone;
       dry-runs per second, and torch launches per dry-run from
@@ -74,6 +74,29 @@ Phases (a failure in any of them propagates and exits nonzero):
    run each batch must have solved at the top ladder tier: the solve-tier
    gauge at the top rung, no breaker transition, no host rung, no bisection
    or quarantine; otherwise the phase fails.
+7. The Scheduler's other loops (``run_pipelined``, ``run_streaming``,
+   ``drain_backlog``):
+   a. reduced depth, "first" mode: 6a's mixed scenario through each loop
+      on the card and on the CPU must bind as ``run_until_settled`` does;
+      a drain whose budget forces an auto-split binds as the unsplit one;
+      a fence case (a bound pod deleted while the first flight is in the
+      ring) discards the flight, on the card as on the CPU;
+   b. full width, parity mode: 6b's workload through ``run_pipelined``
+      and ``run_streaming``, between two ``run_until_settled`` runs (the
+      same call's baseline for the share of the wall each loop hides);
+      every run's bindings must equal 6b's;
+   c. full width, the production default config: 6c's north-star shape
+      as a backlog through each loop, between two ``run_until_settled``
+      runs as in (b), then with arrivals: waves of 1,024
+      pods at half the rate ``run_streaming`` sustained, ``run_streaming``
+      after each wave; p50 / p99 from queue add to bind;
+   d. full width: ``drain_backlog`` of 100,000 pods (three in four plain,
+      one in four with a hard 3-zone spread) on 20,000 nodes of 6c's
+      shape with the default budget; the planned chunk, auto-splits, the
+      estimated and measured h2d bytes, and each chunk's peak allocated
+      memory against the budget model's estimate.
+   Every run holds 6's top-tier rule, and no batch may take the
+   synchronous cycle, nor (outside the fence case) be discarded.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -1169,7 +1192,7 @@ def scheduler_random(dev, n_nodes, n_pods, batch=1024, label="6c"):
     return reading
 
 
-def scheduler_phase(dev, full=(5120, 5120), north_star=(10_000, 50_000), preempt=(5120, 256)):
+def scheduler_phase(dev, full=(5120, 5120), north_star=(10_000, 50_000), preempt=(5120, 128)):
     """6a-6d; the keyword sizes are the full-width shapes (smaller ones
     rehearse the phase on the CPU)."""
     cpu = torch.device("cpu")
@@ -1213,6 +1236,7 @@ def scheduler_phase(dev, full=(5120, 5120), north_star=(10_000, 50_000), preempt
     reading.update({"nodes": n_nodes, "pods": n_pods, "batch": batch, "setup_s": setup,
                     "dispatch": dict(sched.solver.dispatch_counts)})
     out["6b"] = reading
+    out["6b_bindings"] = _bindings(cs)
     log("scheduler 6b " + json.dumps(reading))
     # 6c: full width, the production default config
     out["6c"] = scheduler_random(dev, *north_star)
@@ -1220,6 +1244,404 @@ def scheduler_phase(dev, full=(5120, 5120), north_star=(10_000, 50_000), preempt
     # 6d: full width, preemption
     _, _, _, out["6d"] = scheduler_preempt(dev, *preempt, time_dry_runs=dev.type == "cuda")
     log("scheduler 6d " + json.dumps(out["6d"]))
+    return out
+
+
+# -- phase 7: the pipelined and streaming loops, the backlog drain -----------
+
+MODES = ("overlap", "carry", "sync", "stream")
+
+
+def _loop_counts():
+    return {
+        **{f"mode_{m}": metrics.pipeline_mode_total.labels(m).value() for m in MODES},
+        "fallbacks": metrics.pipeline_fallback_total.value(),
+        "slot_discards": metrics.stream_slot_discard_total.value(),
+        "discarded": metrics.solves_discarded_total.value(),
+        "unhidden_reads": metrics.stream_unhidden_reads_total.value(),
+        "subbatches": metrics.pipeline_subbatches_total.value(),
+    }
+
+
+class LoopGuard(TopTier):
+    """TopTier over one run of a loop, and the loops' own degraded paths:
+    no batch may have been routed to the synchronous cycle (by
+    resilience.should_sync or the livelock backstop), and, outside the
+    fence case, no solve or stream slot discarded."""
+
+    def __init__(self, sched, label, fence_case=False):
+        super().__init__(sched, label)
+        self.fence_case = fence_case
+        self.loop0 = _loop_counts()
+
+    def close(self):
+        out = super().close()
+        now = _loop_counts()
+        delta = {k: now[k] - self.loop0[k] for k in now}
+        if delta["mode_sync"] or delta["fallbacks"]:
+            raise AssertionError(f"{self.label}: a batch took the synchronous cycle: {delta}")
+        if not self.fence_case and (delta["slot_discards"] or delta["discarded"]):
+            raise AssertionError(f"{self.label}: a solve was discarded: {delta}")
+        out["loop_counters"] = delta
+        return out
+
+
+def run_loop(sched, loop, **kw):
+    """One call of ``loop``: its BatchResults and the drain report, if any."""
+    if loop == "settled":
+        return sched.run_until_settled(), None
+    if loop == "pipelined":
+        return sched.run_pipelined(), None
+    if loop == "streaming":
+        return sched.run_streaming(), None
+    rep = sched.drain_backlog(**kw)
+    return rep.results, rep
+
+
+def loop_reading(sched, loop, label, **kw):
+    """One run of ``loop`` with its readings: pods bound per second (call
+    to last bind), p50 / p99 from queue add to bind, the modes taken,
+    chained slots, paid and hidden reads, the blocking read and dispatch
+    seconds of the deferred flights, and the kernel's launches (its count
+    set to 0 just before the run and read just after)."""
+    import gc
+
+    gc.collect()  # each run starts from the same collector state
+    guard = LoopGuard(sched, label)
+    timing = {"read_s": 0.0, "dispatch_s": 0.0, "flights": 0}
+    note = sched._note_flight_timing
+
+    def timed(flight, n_pods):
+        timing["read_s"] += flight.read_seconds
+        timing["dispatch_s"] += flight.dispatch_seconds
+        timing["flights"] += 1
+        note(flight, n_pods)
+
+    sched._note_flight_timing = timed
+    chained0 = sched.solver.dispatch_counts.get("stream_chained", 0)
+    paid0, hidden0 = sched._reads_paid, sched._reads_hidden
+    tens0 = metrics.tensorize_seconds.sum()
+    dc.LAUNCHES = 0
+    t0 = time.perf_counter()
+    results, report = run_loop(sched, loop, **kw)
+    launches = dc.LAUNCHES
+    del sched._note_flight_timing
+    for r in results:
+        guard.batch(r)
+    bound = sum(len(r.scheduled) for r in results)
+    last_bind = max((r.completed_at for r in results if r.scheduled), default=t0)
+    wall = max(last_bind - t0, 1e-9)
+    lat = np.asarray([x for r in results for x in r.e2e_latencies], np.float64)
+    reading = {
+        "loop": loop, "batches": len(results), "bound": bound,
+        "unschedulable": sum(len(r.unschedulable) for r in results),
+        "wall_s": wall, "pods_bound_per_s": bound / wall,
+        "tensorize_s": metrics.tensorize_seconds.sum() - tens0,
+        "solve_s": sum(r.solve_seconds for r in results), **timing,
+        "latency_p50_s": float(np.percentile(lat, 50)) if lat.size else None,
+        "latency_p99_s": float(np.percentile(lat, 99)) if lat.size else None,
+        "chained_slots": sched.solver.dispatch_counts.get("stream_chained", 0) - chained0,
+        "reads_paid": sched._reads_paid - paid0, "reads_hidden": sched._reads_hidden - hidden0,
+        "domain_counts_launches": launches,
+        **guard.close(),
+    }
+    reading["modes"] = {m: reading["loop_counters"][f"mode_{m}"] for m in MODES}
+    return results, report, reading
+
+
+def parity_config(batch, **kw):
+    return SchedulerConfig(batch_size=batch, solver=ExactSolverConfig(
+        tie_break="first", balanced_fdtype="float64", **kw))
+
+
+def loop_mixed(dev, loop, n_nodes=240, n_pods=480, batch=128, tight=False):
+    """7a: 6a's mixed scenario through ``loop`` on ``dev`` (a backlog, then
+    a node added with more pods, then a bound pod deleted with more pods,
+    each followed by one call of the loop); returns the bindings,
+    nominations and the drains' budget splits."""
+    from kubernetes_tpu_torch.solver import budget as hbm
+
+    nodes = make_nodes(n_nodes)
+    nominee = (MakePod().name("nominee").req({"cpu": "1", "memory": "1Gi"}).priority(10)
+               .nominated_node_name(nodes[7].name).obj())
+    cs = _cluster(nodes, [nominee] + [make_pod(i) for i in range(n_pods // 2)])
+    sched = Scheduler(cs, parity_config(batch, group_size=64), device=dev)
+    label = f"7a {loop}{' tight' if tight else ''} {dev.type}"
+    guard = LoopGuard(sched, label)
+    splits = []
+
+    def go():
+        budget = 8 << 30
+        if tight:
+            budget = hbm.estimate(sched.drain_shape(batch)).per_device_bytes - 1
+        results, rep = run_loop(sched, loop, chunk_pods=batch, budget_bytes=budget)
+        if rep is not None:
+            splits.append(rep.budget_splits)
+        for r in results:
+            guard.batch(r)
+
+    go()
+    cs.create_node(MakeNode().name(f"node-{n_nodes:05}")
+                   .capacity({"cpu": "16", "memory": "64Gi", "pods": "110"})
+                   .label(ZONE, "z0").label(HOST, f"node-{n_nodes:05}").obj())
+    cs.create_pods([make_pod(i) for i in range(n_pods // 2, 3 * n_pods // 4)])
+    go()
+    victim = sorted(k for k, v in _bindings(cs).items() if v and "/pod-" in k)[0]
+    cs.delete_pod(*victim.split("/"))
+    cs.create_pods([make_pod(i) for i in range(3 * n_pods // 4, n_pods)])
+    go()
+    guard.close()
+    check_cluster(cs, label)
+    if not cs.get_pod("default", "nominee").node_name:
+        raise AssertionError(f"{label}: the nominated pod did not bind")
+    return _bindings(cs), {p.key: p.nominated_node_name for p in cs.list_pods()}, splits
+
+
+def loop_fence(dev, loop, n_nodes=60, n_pods=96, batch=32):
+    """7a's fence case: a bound app=anti pod is deleted while the first
+    flight is in the ring (after its solve computed, before its apply); the
+    flight must be discarded and every pod bound on the retry."""
+    nodes = make_nodes(n_nodes)
+    old = MakePod().name("old").label("app", "anti").node(nodes[0].name).req(
+        {"cpu": "250m", "memory": "512Mi"}).obj()
+    cs = _cluster(nodes, [old] + [make_pod(i) for i in range(n_pods)])
+    sched = Scheduler(cs, parity_config(batch), device=dev)
+    fired = []
+
+    def hook(flight):
+        if not fired:
+            fired.append(True)
+            flight.handle.wait()
+            cs.delete_pod("default", "old")
+
+    sched._post_dispatch_hook = hook
+    guard = LoopGuard(sched, f"7a fence {loop} {dev.type}", fence_case=True)
+    results, _ = run_loop(sched, loop)
+    for r in results:
+        guard.batch(r)
+    delta = guard.close()["loop_counters"]
+    if delta["discarded"] < 1 or (loop == "streaming" and delta["slot_discards"] != 1):
+        raise AssertionError(f"7a fence {loop} {dev.type}: the stale flight was not discarded: {delta}")
+    check_cluster(cs, f"7a fence {loop}")
+    if sum(1 for v in _bindings(cs).values() if v) != n_pods:
+        raise AssertionError(f"7a fence {loop} {dev.type}: not every pod bound")
+    return _bindings(cs), delta
+
+
+def loops_parity_run(dev, loop, n_nodes, n_pods, batch):
+    """7b: phase 6b's InterPodAffinity workload through ``loop``."""
+    cs = _cluster(make_nodes(n_nodes))
+    sched = Scheduler(cs, parity_config(batch), device=dev)
+    cs.create_pods([make_pod(i) for i in range(n_pods)])
+    _, _, reading = loop_reading(sched, loop, f"7b {loop}")
+    if reading["bound"] != n_pods:
+        raise AssertionError(f"7b {loop}: {reading['bound']} of {n_pods} bound")
+    check_cluster(cs, f"7b {loop}")
+    return _bindings(cs), reading
+
+
+def plain_pod(i, prefix="plain"):
+    return MakePod().name(f"{prefix}-{i:06}").req({"cpu": "250m", "memory": "512Mi"}).obj()
+
+
+def north_star_backlog(dev, loop, n_nodes, n_pods, batch=1024):
+    """7c: the north-star shape queued at once, drained by ``loop`` under
+    the production default config."""
+    cs = _cluster(make_nodes(n_nodes))
+    sched = Scheduler(cs, SchedulerConfig(batch_size=batch, solver=ExactSolverConfig(seed=SEED)),
+                      device=dev)
+    cs.create_pods([plain_pod(i) for i in range(n_pods)])
+    _, _, reading = loop_reading(sched, loop, f"7c {loop}")
+    if reading["bound"] != n_pods:
+        raise AssertionError(f"7c {loop}: {reading['bound']} of {n_pods} bound")
+    check_cluster(cs, f"7c {loop}")
+    return reading
+
+
+def north_star_arrivals(dev, n_nodes, n_pods, rate, wave=1024, batch=1024):
+    """7c with arrivals: waves of ``wave`` pods every ``wave / rate``
+    seconds, run_streaming after each wave; p50 / p99 from queue add to
+    bind over every pod."""
+    cs = _cluster(make_nodes(n_nodes))
+    sched = Scheduler(cs, SchedulerConfig(batch_size=batch, solver=ExactSolverConfig(seed=SEED)),
+                      device=dev)
+    guard = LoopGuard(sched, "7c arrivals")
+    interval = wave / rate
+    results, late = [], 0
+    dc.LAUNCHES = 0
+    t0 = time.perf_counter()
+    for w in range(-(-n_pods // wave)):
+        delay = t0 + w * interval - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        elif w:
+            late += 1
+        cs.create_pods([plain_pod(i, "arrival") for i in range(w * wave, min((w + 1) * wave, n_pods))])
+        got = sched.run_streaming()
+        for r in got:
+            guard.batch(r)
+        results += got
+    wall = time.perf_counter() - t0
+    bound = sum(len(r.scheduled) for r in results)
+    if bound != n_pods:
+        raise AssertionError(f"7c arrivals: {bound} of {n_pods} bound")
+    check_cluster(cs, "7c arrivals")
+    lat = np.asarray([x for r in results for x in r.e2e_latencies], np.float64)
+    return {
+        "offered_pods_per_s": rate, "wave": wave, "waves": -(-n_pods // wave),
+        "waves_behind_schedule": late, "bound": bound, "wall_s": wall,
+        "pods_bound_per_s": bound / wall,
+        "latency_p50_s": float(np.percentile(lat, 50)),
+        "latency_p99_s": float(np.percentile(lat, 99)),
+        "domain_counts_launches": dc.LAUNCHES, **guard.close(),
+    }
+
+
+def drain_pod(i):
+    """7d: three pods in four plain, one in four with a hard 3-zone spread,
+    in blocks of 64 so every grouped chunk holds one kind."""
+    if (i // 64) % 4 == 3:
+        return (MakePod().name(f"spread-{i:06}").label("app", "spread")
+                .req({"cpu": "250m", "memory": "512Mi"})
+                .spread_constraint(1, ZONE, "DoNotSchedule", {"app": "spread"}).obj())
+    return plain_pod(i, "drain")
+
+
+def backlog_drain(dev, n_nodes, n_pods, batch=1024):
+    """7d: drain_backlog with the default budget and the production config;
+    the peak memory of each chunk's dispatch (reset before, read after,
+    less what the process held before the drain) against the budget
+    model's estimate for the chunk."""
+    import gc
+
+    from kubernetes_tpu_torch.solver import budget as hbm
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cs = _cluster(make_nodes(n_nodes))
+    sched = Scheduler(cs, SchedulerConfig(batch_size=batch, solver=ExactSolverConfig(seed=SEED)),
+                      device=dev)
+    cs.create_pods([drain_pod(i) for i in range(n_pods)])
+    setup = time.perf_counter() - t0
+    est = hbm.estimate(sched.drain_shape(batch))
+    peaks = []
+    base = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    dispatch = sched._dispatch_stream
+
+    def measured(prep, **kw):
+        if dev.type != "cuda":
+            return dispatch(prep, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        out = dispatch(prep, **kw)
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        return out
+
+    sched._dispatch_stream = measured
+    _, report, reading = loop_reading(sched, "drain", "7d")
+    del sched._dispatch_stream
+    if report.drained != n_pods:
+        raise AssertionError(f"7d: {report.drained} of {n_pods} bound")
+    check_cluster(cs, "7d")
+    if dev.type == "cuda" and reading["domain_counts_launches"] <= 0:
+        raise AssertionError("7d: the drain launched no domain_counts kernel")
+    raw = est.sharded_bytes + est.replicated_bytes
+    reading.update({
+        "nodes": n_nodes, "pods": n_pods, "setup_s": setup,
+        "planned_chunk": report.chunk_pods, "chunks": report.chunks,
+        "auto_splits": report.budget_splits, "budget_bytes": report.budget_bytes,
+        "chain_fraction": report.chain_fraction,
+        "estimated_h2d_bytes": report.estimated_h2d_bytes,
+        "measured_h2d_bytes": report.measured_h2d_bytes,
+        "drain_pods_per_s": report.pods_per_sec,
+        "estimate_per_device_bytes": est.per_device_bytes,
+        "estimate_resident_bytes": raw,
+        "workspace_factor": hbm.WORKSPACE_FACTOR,
+        "peak_bytes_each_chunk": peaks,
+        "peak_bytes_max": max(peaks) if peaks else "not measured",
+        "peak_over_resident_estimate": max(peaks) / raw if peaks else "not measured",
+        "dispatch": dict(sched.solver.dispatch_counts),
+    })
+    return reading
+
+
+# the loops between two runs of run_until_settled: each loop's wall is
+# compared with the mean of the two, taken in the same call
+BASELINE_ORDER = ("settled", "pipelined", "streaming", "settled again")
+
+
+def hidden_share(out, cell):
+    """1 - a loop's wall / the mean wall of the two run_until_settled runs
+    of ``cell``: the share of the synchronous wall the loop hides."""
+    base = (out[f"{cell} settled"]["wall_s"] + out[f"{cell} settled again"]["wall_s"]) / 2
+    return {loop: 1.0 - out[f"{cell} {loop}"]["wall_s"] / base
+            for loop in ("pipelined", "streaming")}
+
+
+def loops_phase(dev, want_6b, mixed=(240, 480, 128), full=(5120, 5120, 1024),
+                north_star=(10_000, 50_000), backlog=(20_000, 100_000)):
+    """7a-7d; the keyword sizes are the full-width shapes (smaller ones
+    rehearse the phase on the CPU, with ``want_6b`` None)."""
+    cpu = torch.device("cpu")
+    out = {}
+    # 7a: card == CPU, loop == run_until_settled, at reduced depth
+    want, want_noms, _ = loop_mixed(cpu, "settled", *mixed)
+    runs = {}
+    for loop in ("pipelined", "streaming", "drain"):
+        for d in (dev, cpu):
+            b, n, splits = loop_mixed(d, loop, *mixed)
+            if b != want or n != want_noms:
+                bad = [k for k in want if b.get(k) != want[k]]
+                raise AssertionError(f"7a {loop} {d.type}: bindings differ from run_until_settled "
+                                     f"({len(bad)}, first {bad[:4]})")
+            runs[f"{loop}/{d.type}"] = splits
+    for d in (dev, cpu):
+        b, _, splits = loop_mixed(d, "drain", *mixed, tight=True)
+        if not splits or min(splits) < 1:
+            raise AssertionError(f"7a tight drain {d.type}: the budget forced no auto-split {splits}")
+        if b != want:
+            raise AssertionError(f"7a tight drain {d.type}: bindings differ from the unsplit drain")
+        runs[f"drain tight/{d.type}"] = splits
+    fences = {}
+    for loop in ("pipelined", "streaming"):
+        fb_dev, delta = loop_fence(dev, loop)
+        fb_cpu, _ = loop_fence(cpu, loop)
+        if fb_dev != fb_cpu:
+            raise AssertionError(f"7a fence {loop}: card != CPU")
+        fences[loop] = {k: delta[k] for k in ("discarded", "slot_discards")}
+    out["7a"] = {"bound": sum(1 for v in want.values() if v), "loops_equal_settled": True,
+                 "card_equals_cpu": True, "drain_splits": runs, "fence": fences}
+    log("loops 7a " + json.dumps(out["7a"]))
+    # 7b: full width, parity mode, equal to 6b's bindings; run_until_settled
+    # before and after the loops gives the same call's sync baseline
+    if want_6b is None:
+        cs = _cluster(make_nodes(full[0]))
+        s = Scheduler(cs, parity_config(full[2]), device=dev)
+        cs.create_pods([make_pod(i) for i in range(full[1])])
+        s.run_until_settled()
+        want_6b = _bindings(cs)
+    for key in BASELINE_ORDER:
+        loop = key.split()[0]
+        b, reading = loops_parity_run(dev, loop, *full)
+        if b != want_6b:
+            bad = [k for k in want_6b if b.get(k) != want_6b[k]]
+            raise AssertionError(f"7b {key}: bindings differ from 6b ({len(bad)}, first {bad[:4]})")
+        if dev.type == "cuda" and reading["domain_counts_launches"] <= 0:
+            raise AssertionError(f"7b {key}: no domain_counts launch")
+        out[f"7b {key}"] = reading
+        log(f"loops 7b {key} " + json.dumps(reading))
+    # 7c: the north-star shape, production config: backlogs (between two
+    # run_until_settled baselines), then arrivals
+    for key in BASELINE_ORDER:
+        out[f"7c {key}"] = north_star_backlog(dev, key.split()[0], *north_star)
+        log(f"loops 7c {key} " + json.dumps(out[f"7c {key}"]))
+    rate = 0.5 * out["7c streaming"]["pods_bound_per_s"]
+    out["7c arrivals"] = north_star_arrivals(dev, *north_star, rate=rate)
+    log("loops 7c arrivals " + json.dumps(out["7c arrivals"]))
+    # 7d: drain_backlog at full width
+    out["7d"] = backlog_drain(dev, *backlog)
+    log("loops 7d " + json.dumps(out["7d"]))
     return out
 
 
@@ -1257,12 +1679,15 @@ def main():
     per_step = launches_per_step(dev)
     per_pod = grouped_launches(dev)
     sched = scheduler_phase(dev)
+    loops = loops_phase(dev, sched.pop("6b_bindings"))
 
     launches_by_path = {
         "interpod full width (scan)": full["domain_counts_launches"],
         **{f"grouped {k}": r["domain_counts_launches"] for k, r in grouped.items()},
         **{f"session {k}": r["domain_counts_launches"] for k, r in sessions.items()},
         **{f"scheduler {k}": sched[k]["domain_counts_launches"] for k in ("6b", "6c", "6d")},
+        **{f"loops {k}": r["domain_counts_launches"] for k, r in loops.items()
+           if k != "7a" and "settled" not in k},
     }
     main_case = cases[0]
     record = {
@@ -1311,6 +1736,20 @@ def main():
             "low_priority_pods", "preemptors", "victims", "dry_runs", "dry_runs_per_s",
             "torch_launches_per_dry_run", "torch_launches_each_dry_run",
             "dry_run_kernels_that_varied")},
+        "card": smi,
+    }}))
+    keys7 = ("pods_bound_per_s", "wall_s", "tensorize_s", "solve_s", "read_s", "dispatch_s",
+             "flights", "latency_p50_s", "latency_p99_s", "modes", "chained_slots",
+             "reads_paid", "reads_hidden", "domain_counts_launches", "bound", "batches",
+             "loop_counters")
+    log(json.dumps({"loops": {
+        "7a": loops["7a"],
+        **{k: {f: r[f] for f in keys7} for k, r in loops.items() if k.startswith(("7b", "7c "))
+           and k != "7c arrivals"},
+        "7c arrivals": loops["7c arrivals"],
+        "7d": loops["7d"],
+        "overlap_hidden_share_7b": hidden_share(loops, "7b"),
+        "overlap_hidden_share_7c": hidden_share(loops, "7c"),
         "card": smi,
     }}))
     log(smi)  # the card's name and power limit, on the line before the last

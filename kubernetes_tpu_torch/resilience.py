@@ -169,7 +169,7 @@ class _ProfileState:
 
     __slots__ = (
         "rebuilt", "episode_fails", "open_until", "open_count",
-        "probing",
+        "probing", "async_fail",
     )
 
     def __init__(self) -> None:
@@ -178,6 +178,7 @@ class _ProfileState:
         self.open_until: dict[int, float] = {}  # tier idx -> half-open at
         self.open_count: dict[int, int] = {}  # tier idx -> trips (backoff)
         self.probing: int | None = None  # tier idx under probe
+        self.async_fail = False  # a deferred solve failed post-dispatch
 
 
 class SolveResilience:
@@ -285,6 +286,7 @@ class SolveResilience:
         their windows keep counting down toward their own probes."""
         st = self._st(profile)
         st.rebuilt = False
+        st.async_fail = False
         st.episode_fails.pop(tier_idx, None)
         was_degraded = bool(st.open_until)
         if st.probing == tier_idx or tier_idx in st.open_until:
@@ -357,6 +359,26 @@ class SolveResilience:
         metrics.breaker_transitions_total.labels("trip").inc()
         if not was_degraded and self.on_degraded:
             self.on_degraded(True)
+
+    # -- pipelined-loop integration --
+
+    def note_async_failure(self, profile: str) -> None:
+        """A deferred solve failed after dispatch (read error / corrupt
+        output): route the retry through the synchronous resilient path
+        (``should_sync``), where the ladder can handle it."""
+        self._st(profile).async_fail = True
+
+    def should_sync(self) -> bool:
+        """True when the pipelined and streaming loops must route popped
+        batches through the synchronous resilient cycle: a tier is
+        degraded or probing, an async failure is pending, or the ladder
+        is pinned."""
+        if self.config.force_tier is not None:
+            return True
+        return any(
+            st.async_fail or st.open_until
+            for st in self._state.values()
+        )
 
     # -- introspection (sim footer / metrics / tests) --
 

@@ -10,9 +10,19 @@ group-aligned, and ``assert_index_headroom``, the index-width audit that
 - ``device_budget_bytes`` reads the card's memory from
   ``torch.cuda.mem_get_info`` where the JAX package asks the runtime for
   its ``bytes_limit``;
-- ``WORKSPACE_FACTOR`` is the JAX package's margin for XLA scratch. The
-  port runs eagerly and its temporaries come from PyTorch's caching
-  allocator, so the factor is carried across unmeasured on the card.
+- ``WORKSPACE_FACTOR`` is re-derived on the card, and kept at the JAX
+  package's 1.5: ``chip_smoke.py`` phase 7d (``drain_backlog`` of 100,000
+  pods on 20,000 nodes, 1,024-pod chunks, NVIDIA H100 80GB HBM3 at 700 W)
+  reads each chunk dispatch's peak allocated bytes
+  (``torch.cuda.max_memory_allocated`` after ``reset_peak_memory_stats``,
+  less what the process held before the drain) at 25,160,192 B in steady
+  state and 25,291,264 B at most, 1.40 times the model's resident set
+  (``sharded_bytes + replicated_bytes`` = 18,109,396 B), so 1.5 leaves a
+  7 % margin over the reading. The factor covers the eager solve's
+  temporaries that the caching allocator hands out; it does not cover
+  what the allocator reserves beyond them, the CUDA context or a
+  kernel's build, none of which ``device_budget_bytes`` (the card's total
+  memory) subtracts either.
 """
 
 from __future__ import annotations
@@ -29,11 +39,9 @@ from ..tensorize.spread import DOM_PAD, INST_PAD as SPREAD_INST_PAD
 # (CPU backends, older PJRT): one conservative accelerator-die floor.
 DEFAULT_DEVICE_BUDGET_BYTES = 8 << 30
 
-# Workspace multiplier over the analytic resident set, the JAX package's
-# margin for XLA scratch (scan carries, fused temporaries, donation
-# double-buffers). Not measured on the card: the port's temporaries come
-# from PyTorch's caching allocator, and the factor is kept as it is until
-# a measurement replaces it.
+# Workspace multiplier over the analytic resident set: the eager solve's
+# temporaries from PyTorch's caching allocator. Measured on the card at
+# 1.40 (the module note); 1.5 keeps a 7 % margin over that reading.
 WORKSPACE_FACTOR = 1.5
 
 

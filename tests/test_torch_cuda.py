@@ -487,3 +487,100 @@ def test_preempt_scan_card_equals_cpu(cuda_device, seed):
     for a, b in zip(card, cpu):
         assert a.dtype == b.dtype
         assert torch.equal(a.cpu(), b)
+
+
+# -- the pipelined and streaming loops and the backlog drain on the card -----
+
+
+def _loop_bindings(dev, loop, **kw):
+    """The mixed scenario through one of the Scheduler's loops on ``dev``:
+    a backlog, then a node added with more pods, then a bound pod deleted
+    with more pods, each followed by one call of ``loop``."""
+    from kubernetes_tpu_torch.scheduler import Scheduler, SchedulerConfig
+    from kubernetes_tpu_torch.solver import budget as hbm
+    from kubernetes_tpu_torch.utils.clock import FakeClock
+
+    nominee = (MakePod().name("nominee").req({"cpu": "1"}).priority(10)
+               .nominated_node_name("node-0003").obj())
+    cs = _sched_cluster(12, [nominee] + [_sched_pod(i) for i in range(40)])
+    sched = Scheduler(cs, SchedulerConfig(
+        batch_size=16,
+        solver=ExactSolverConfig(tie_break="first", balanced_fdtype="float64", group_size=8)),
+        clock=FakeClock(), device=dev)
+    splits = []
+
+    def run():
+        if loop == "settled":
+            return sched.run_until_settled()
+        if loop == "pipelined":
+            return sched.run_pipelined()
+        if loop == "streaming":
+            return sched.run_streaming()
+        budget = kw.get("budget_bytes") or 8 << 30
+        if budget == "tight":
+            budget = hbm.estimate(sched.drain_shape(16)).per_device_bytes - 1
+        rep = sched.drain_backlog(chunk_pods=16, budget_bytes=budget)
+        splits.append(rep.budget_splits)
+        return rep.results
+
+    results = list(run())
+    cs.create_node(MakeNode().name("node-0099").capacity({"cpu": "4", "memory": "8Gi",
+                   "pods": "20"}).label(ZONE, "z0").label(HOST, "node-0099").obj())
+    cs.create_pods(_sched_pod(i) for i in range(40, 52))
+    results += run()
+    cs.delete_pod(*sorted(p.key for p in cs.list_pods() if p.node_name)[0].split("/"))
+    cs.create_pods(_sched_pod(i) for i in range(52, 64))
+    results += run()
+    assert not any(r.quarantined for r in results)
+    assert set(sched._tier_last.values()) <= {"single"}
+    assert sched.resilience.trips == 0 and sched.resilience.rebuilds == 0
+    return {p.key: p.node_name for p in cs.list_pods()}, splits
+
+
+@pytest.mark.parametrize("loop", ["pipelined", "streaming", "drain"])
+def test_loops_equal_run_until_settled_on_the_card(cuda_device, loop):
+    want, _ = _loop_bindings(torch.device("cpu"), "settled")
+    got, _ = _loop_bindings(cuda_device, loop)
+    assert got == want
+    assert sum(1 for v in got.values() if v) >= 50
+
+
+def test_forced_auto_split_drain_binds_as_unsplit_on_the_card(cuda_device):
+    wide, wide_splits = _loop_bindings(cuda_device, "drain")
+    tight, splits = _loop_bindings(cuda_device, "drain", budget_bytes="tight")
+    assert wide_splits == [0, 0, 0] and min(splits) >= 1
+    assert tight == wide
+
+
+def test_completion_wait_releases_the_gil(cuda_device):
+    """The completion thread parks in DeferredAssignments.wait on a CUDA
+    event; the driver thread must keep running Python meanwhile."""
+    import threading
+    import time
+
+    from kubernetes_tpu_torch.solver.session import DeferredAssignments
+
+    a = torch.randn(4096, 4096, device=cuda_device)
+    stop = threading.Event()
+    ticks = []
+
+    def driver():
+        while not stop.is_set():
+            ticks.append(time.perf_counter())
+
+    x = a
+    for _ in range(40):  # well over 100 ms of queued device work
+        x = x @ a
+        x = x / x.norm()
+    handle = DeferredAssignments(x.flatten()[:16].to(torch.int32), 16)
+    t = threading.Thread(target=driver)
+    t.start()
+    t0 = time.perf_counter()
+    handle.wait()  # this thread parks on the event
+    waited = time.perf_counter() - t0
+    during = sum(1 for v in ticks if t0 <= v <= t0 + waited)
+    stop.set()
+    t.join()
+    assert waited > 0.02, "the queued work finished before the wait began"
+    # a GIL-holding wait would starve the driver for the whole wait
+    assert during > 1000, (during, waited)

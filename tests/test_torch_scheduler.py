@@ -412,7 +412,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
     [
         ("fleet", object(), "item 8"),
         ("rebalance", object(), "item 9"),
-        ("tuning", object(), "item 5"),
+        ("backlog_warm_start", True, "item 10"),
         ("incarnation", 2, "item 8"),
         ("mesh_devices", 2, "item 11"),
         ("mesh_slice", (0, 2), "item 11"),
