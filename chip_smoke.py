@@ -5,6 +5,7 @@
 Phases (a failure in any of them propagates and exits nonzero):
 
 1. Environment: the card's name and power limit, torch and CUDA versions,
+   whether the optional packages ``aiohttp``, ``grpc`` and ``yaml`` import,
    and the build of every kernel under kubernetes_tpu_torch/csrc (one nvcc
    per source, all started together).
 2. Each kernel against its plain PyTorch version on the card, exactly (both
@@ -97,6 +98,28 @@ Phases (a failure in any of them propagates and exits nonzero):
       memory against the budget model's estimate.
    Every run holds 6's top-tier rule, and no batch may take the
    synchronous cycle, nor (outside the fence case) be discarded.
+8. The extender webhook (``server/extender.py`` over the batched
+   ``solver/evaluate.py``), restart incarnations and replay bundles:
+   a. reduced depth, parity mode, card == CPU: every verb's JSON reply
+      (``run_many`` filter / prioritize, preempt, bind) on 240 nodes; a
+      restart: incarnation 1 runs ``run_pipelined`` over 6a's workload until
+      the commit seam raises mid-batch, four pods that fit only by
+      preemption arrive, incarnation 2 settles the cluster; bindings,
+      ``recovered`` records and victims equal, every invariant held;
+   b. full width: BASELINE.json's "InterPodAffinity / anti-affinity 5k pods
+      x 5k nodes" behind the webhook: 5,120 nodes holding 6b's 5,120 bound
+      pods, 1,024 further mixed pods as wire-JSON filter / prioritize
+      requests over every node, through ``ExtenderCore.run_many`` in
+      micro-batches of 256, then all at once through ``MicroBatcher``;
+      requests/s, micro-batch p50 / p99 split into the host build and the
+      card's evaluation, and domain_counts launches per evaluation (the
+      same for every batch size); the first micro-batch's [256, 5,120]
+      matrix equals the CPU's, 8 of its rows equal the NumPy oracle's
+      feasible set and totals, and the kernel at each of its launches
+      equals its plain version;
+   c. full width: 6b's workload through ``run_until_settled`` with the
+      anomaly sentinel and a bundle directory; a manual capture after the
+      first batch replays bit-identically on the card and on the CPU.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -257,8 +280,11 @@ def environment():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
+    import importlib.util
+
+    optional = {m: importlib.util.find_spec(m) is not None for m in ("aiohttp", "grpc", "yaml")}
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)}")
+        f"device {torch.cuda.get_device_name(0)} optional packages {json.dumps(optional)}")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=max(1, len(build.sources()))) as ex:
         libs = list(ex.map(build.compile_library, build.sources()))
@@ -353,26 +379,41 @@ def _library(sets, d_pad, counts, gather):
 
 
 def _max_err(got, want):
-    err = 0
-    for g_pair, w_pair in zip(got, want):
-        for g, w in zip(g_pair, w_pair):
+    """(max abs error, the first mismatch as text or None) over every
+    output of every set."""
+    err, first = 0, None
+    for s, (g_pair, w_pair) in enumerate(zip(got, want)):
+        for name, g, w in zip(("totals", "per-node"), g_pair, w_pair):
             if w is None:
                 continue
             if g is None or g.shape != w.shape:
                 raise AssertionError("kernel output missing or misshaped")
-            err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-                      if g.numel() else 0)
-    return err
+            if not g.numel():
+                continue
+            diff = (g.to(torch.int64) - w.to(torch.int64)).abs()
+            e = int(diff.max())
+            if e and first is None:
+                at = tuple(int(i) for i in (diff > 0).nonzero()[0])
+                first = (f"set {s} {name} {tuple(g.shape)} first differs at {at}: "
+                         f"kernel {int(g[at])}, plain {int(w[at])}, "
+                         f"{int((diff > 0).sum())} elements differ")
+            err = max(err, e)
+    return err, first
 
 
 def check_exact(label, sets, d_pad, cluster=None):
-    """Both outputs of one launch against the plain versions; exact."""
+    """Both outputs of one launch against the plain versions; exact. A
+    mismatch names the seed, the shapes, the first differing index and
+    both values."""
     got = dc.aggregate(sets, d_pad, cluster=cluster)
     want = dc.aggregate_plain(sets, d_pad)
     torch.cuda.synchronize()
-    err = _max_err(got, want)
+    err, first = _max_err(got, want)
     if err:
-        raise AssertionError(f"domain_counts {label}: kernel != plain (max err {err})")
+        shapes = [tuple(x[0].shape) for x in sets]
+        raise AssertionError(f"domain_counts {label} (seed {SEED}, T x N {shapes}, d_pad "
+                             f"{d_pad}, cluster {cluster}): kernel != plain (max err {err}); "
+                             f"{first}")
     return err
 
 
@@ -1646,11 +1687,349 @@ def loops_phase(dev, want_6b, mixed=(240, 480, 128), full=(5120, 5120, 1024),
 
 
 
+# -- phase 8: the extender webhook, restart incarnations, replay bundles -----
+
+
+class _Crash(Exception):
+    """The scheduler process died at the commit seam (8a)."""
+
+
+def _placed_cluster(n_nodes, n_placed, bindings=None):
+    """``make_nodes(n_nodes)`` with ``make_pod(i)`` for i < n_placed bound:
+    to ``bindings[key]`` when given, else pod i on node i % n_nodes."""
+    nodes = make_nodes(n_nodes)
+    pods = []
+    for i in range(n_placed):
+        p = make_pod(i)
+        p.node_name = bindings[p.key] if bindings is not None else nodes[i % n_nodes].name
+        pods.append(p)
+    return _cluster(nodes, pods)
+
+
+def extender_requests(first, n, names):
+    """``n`` webhook requests in wire JSON (``Pod.to_dict``) for the mixed
+    pods ``make_pod(first + i)``: filter and prioritize alternating, by
+    ``nodenames`` over ``names``."""
+    return [("filter" if i % 2 == 0 else "prioritize",
+             {"pod": make_pod(first + i).to_dict(), "nodenames": names}) for i in range(n)]
+
+
+def extender_verbs(dev, n_nodes=240, n_requests=64):
+    """8a: every verb's reply through ExtenderCore on ``dev``, parity
+    config: ``run_many`` over filter and prioritize requests, a preempt
+    whose candidates fit only by eviction, and a bind and its conflict."""
+    from kubernetes_tpu_torch.server.extender import ExtenderCore
+
+    cs = _placed_cluster(n_nodes, n_nodes)
+    core = ExtenderCore(cs, node_cache_capable=True, device=dev, solver_config=ExactSolverConfig(
+        tie_break="first", balanced_fdtype="float64"))
+    names = [n.name for n in cs.list_nodes()]
+    replies = core.run_many(extender_requests(n_nodes, n_requests, names))
+    vip = MakePod().name("vip").priority(100).req({"cpu": "16", "memory": "8Gi"}).obj()
+    preempt = core.preempt({"pod": vip.to_dict(),
+                            "nodeNameToVictims": {n: {"pods": []} for n in names[::8]}})
+    if not preempt["nodeNameToMetaVictims"]:
+        raise AssertionError(f"8a {dev.type}: preempt offered no candidate")
+    cs.create_pod(make_pod(10_000))
+    args = {"podName": "pod-10000", "podNamespace": "default", "node": names[3]}
+    bind = [core.bind(args), core.bind({**args, "node": names[4]})]
+    if bind[0] != {} or "Conflict" not in bind[1].get("error", ""):
+        raise AssertionError(f"8a {dev.type}: bind replies {bind}")
+    return json.dumps([replies, preempt, bind], sort_keys=True)
+
+
+def restart_run(dev, n_nodes=240, n_pods=480, batch=128):
+    """8a: incarnation 1 runs ``run_pipelined`` over 6a's mixed workload
+    until ``_pre_commit_hook`` raises on its second batch (pods assumed and
+    approved, nothing bound); four priority-100 pods, each pinned to one of
+    the fullest nodes, arrive during the outage; incarnation 2 on the same
+    ClusterState settles it. Returns the bindings at the crash, the
+    recovered records, the victims and the final bindings."""
+    from kubernetes_tpu_torch.obs import ObsConfig
+
+    cs = _cluster(make_nodes(n_nodes), [make_pod(i) for i in range(n_pods)])
+    s1 = Scheduler(cs, parity_config(batch), device=dev)
+    calls = []
+
+    def die(pending):
+        calls.append(len(pending))
+        if len(calls) == 2:
+            raise _Crash()
+
+    s1._pre_commit_hook = die
+    try:
+        s1.run_pipelined()
+    except _Crash:
+        pass
+    else:
+        raise AssertionError(f"8a restart {dev.type}: the commit seam never fired")
+    cs.unsubscribe(s1._on_event)
+    at_crash = _bindings(cs)
+    orphans = sorted(k for k, v in at_crash.items() if not v)
+    # each pinned to one of the four fullest nodes, which it fits only empty
+    load = Counter(v for v in at_crash.values() if v)
+    full = sorted(load, key=lambda n: (-load[n], n))[:4]
+    cs.create_pods([MakePod().name(f"vip-{k}").priority(100).node_affinity_in(HOST, [n])
+                    .req({"cpu": "16", "memory": "8Gi"}).obj() for k, n in enumerate(full)])
+    s2 = Scheduler(cs, SchedulerConfig(
+        batch_size=batch, incarnation=2, obs=ObsConfig(journal=True),
+        solver=ExactSolverConfig(tie_break="first", balanced_fdtype="float64")), device=dev)
+    recovered = [json.loads(x) for x in s2.journal.lines]
+    got = sorted(r["pod"] for r in recovered if r["outcome"] == "recovered")
+    if got != sorted(orphans + [f"default/vip-{k}" for k in range(4)]):
+        raise AssertionError(f"8a restart {dev.type}: recovered {len(got)}, "
+                             f"orphans {len(orphans)} + 4")
+    if {r["incarnation"] for r in recovered} != {2}:
+        raise AssertionError(f"8a restart {dev.type}: records not tagged with incarnation 2")
+    results, reading = drain(s2, f"8a restart {dev.type}")
+    victims = [(p, n, list(v)) for r in results for p, n, v in r.preemptions]
+    final = _bindings(cs)
+    if len(victims) != 4 or not all(final.values()):
+        raise AssertionError(f"8a restart {dev.type}: {len(victims)} preemptions, "
+                             f"{sum(1 for v in final.values() if not v)} unbound")
+    check_cluster(cs, f"8a restart {dev.type}")
+    return at_crash, [(r["pod"], r["outcome"], r["incarnation"]) for r in recovered], victims, final
+
+
+def _first_mismatch(got, want):
+    bad = np.argwhere(got != want)
+    if not bad.size:
+        return None
+    at = tuple(int(i) for i in bad[0])
+    return f"{len(bad)} cells differ, first at {at}: card {got[at]}, CPU {want[at]}"
+
+
+def extender_full(dev, bindings, n_nodes=5120, n_requests=1024, micro=256):
+    """8b: BASELINE.json's InterPodAffinity configuration behind the
+    webhook: 5,120 nodes holding 6b's 5,120 bound mixed pods; ``n_requests``
+    further mixed pods as filter / prioritize requests over every node,
+    through ``ExtenderCore.run_many`` in micro-batches of ``micro``, then
+    all at once through ``MicroBatcher.submit`` on one asyncio loop."""
+    import asyncio
+
+    from kubernetes_tpu_torch.ops.oracle.profile import FullOracle, make_oracle_nodes
+    from kubernetes_tpu_torch.server.extender import ExtenderCore, MicroBatcher
+    from kubernetes_tpu_torch.solver.evaluate import BatchEvaluator
+
+    cfg = ExactSolverConfig(tie_break="first", balanced_fdtype="float64")
+    t0 = time.perf_counter()
+    cs = _placed_cluster(n_nodes, len(bindings), bindings)
+    core = ExtenderCore(cs, node_cache_capable=True, solver_config=cfg, device=dev)
+    names = [n.name for n in cs.list_nodes()]
+    reqs = extender_requests(n_nodes, n_requests, names)
+    setup = time.perf_counter() - t0
+    ev = core.evaluator
+    evals, batches, first, launch_sets = [], [], {}, []
+    evaluate, evaluate_tensors, run_many = ev.evaluate, ev.evaluate_tensors, core.run_many
+    call = dc.Aggregation.__call__
+    # the host's per-request work around the evaluation: resolving each
+    # request's node names, and writing each reply's per-node entries
+    host = {"resolve_s": 0.0, "reply_s": 0.0}
+
+    def host_timed(fn, key):
+        def timed(*a):
+            t = time.perf_counter()
+            out = fn(*a)
+            host[key] += time.perf_counter() - t
+            return out
+        return timed
+
+    core._resolve_nodes = host_timed(core._resolve_nodes, "resolve_s")
+    core._filter_result = host_timed(core._filter_result, "reply_s")
+    core._prioritize_result = host_timed(core._prioritize_result, "reply_s")
+
+    def timed_tensors(*a):
+        t = time.perf_counter()
+        out = evaluate_tensors(*a)
+        evals[-1]["card_s"] = time.perf_counter() - t
+        return out
+
+    def timed_evaluate(pods, nodes, by_node, **kw):
+        evals.append({"pods": len(pods)})
+        t = time.perf_counter()
+        out = evaluate(pods, nodes, by_node, **kw)
+        evals[-1]["wall_s"] = time.perf_counter() - t
+        evals[-1]["build_s"] = evals[-1]["wall_s"] - evals[-1]["card_s"]
+        if not first:
+            first.update(matrix=out, pods=list(pods), nodes=nodes, by_node=by_node)
+        return out
+
+    def timed_run_many(requests):
+        t = time.perf_counter()
+        out = run_many(requests)
+        batches.append({"requests": len(requests), "wall_s": time.perf_counter() - t})
+        return out
+
+    def recording(self):
+        if not first:  # the first evaluation's launches, checked below
+            launch_sets.append((self.sets, self.d_pad, self.counts, self.gather))
+        return call(self)
+
+    ev.evaluate, ev.evaluate_tensors, core.run_many = timed_evaluate, timed_tensors, timed_run_many
+    dc.Aggregation.__call__ = recording
+    try:
+        dc.LAUNCHES = 0
+        t0 = time.perf_counter()
+        replies = []
+        for lo in range(0, n_requests, micro):
+            replies += core.run_many(reqs[lo: lo + micro])
+        wall1 = time.perf_counter() - t0
+        launches1, evals1, batches1 = dc.LAUNCHES, list(evals), list(batches)
+        host1 = dict(host)
+        evals.clear()
+        batches.clear()
+        host.update(resolve_s=0.0, reply_s=0.0)
+        batcher = MicroBatcher(core)
+
+        async def submit_all():
+            return await asyncio.gather(*[batcher.submit(v, a) for v, a in reqs])
+
+        dc.LAUNCHES = 0
+        t0 = time.perf_counter()
+        replies2 = asyncio.run(submit_all())
+        wall2 = time.perf_counter() - t0
+        launches2, evals2, batches2 = dc.LAUNCHES, list(evals), list(batches)
+        host2 = dict(host)
+    finally:
+        dc.Aggregation.__call__ = call
+        del ev.evaluate, ev.evaluate_tensors, core.run_many
+        del core._resolve_nodes, core._filter_result, core._prioritize_result
+    if json.dumps(replies2, sort_keys=True) != json.dumps(replies, sort_keys=True):
+        raise AssertionError("8b: the micro-batcher's replies differ from run_many's")
+    per_eval = {launches1 / len(evals1), launches2 / len(evals2)}
+    if len(per_eval) != 1 or launches1 == 0:
+        raise AssertionError(f"8b: domain_counts launches per evaluation depend on the batch: "
+                             f"{launches1} over {len(evals1)}, {launches2} over {len(evals2)}")
+    # the first micro-batch's matrix == the CPU port's
+    want = BatchEvaluator(cfg, device="cpu").evaluate(first["pods"], first["nodes"],
+                                                      first["by_node"])
+    got = first["matrix"]
+    if got.shape != (micro, n_nodes) or (why := _first_mismatch(got, want)):
+        raise AssertionError(f"8b: the first micro-batch on the card != CPU: {got.shape} {why}")
+    # 8 pods' rows against the NumPy oracle: the feasible set and the totals on it
+    oracle = FullOracle(make_oracle_nodes(first["nodes"], first["by_node"]))
+    for i, pod in enumerate(first["pods"][:8]):
+        feasible = sorted(oracle.feasible_set(pod))
+        totals = oracle.score_totals(pod, feasible)
+        row = got[i]
+        if feasible != sorted(np.nonzero(row >= 0)[0].tolist()):
+            raise AssertionError(f"8b: {pod.key}'s feasible set differs from the oracle's")
+        bad = [j for j in feasible if int(totals[j]) != int(row[j])]
+        if bad:
+            raise AssertionError(f"8b: {pod.key}'s totals differ from the oracle's at "
+                                 f"node {bad[0]}: card {row[bad[0]]}, oracle {totals[bad[0]]}")
+    # the kernel at this path's shapes == its plain version
+    shapes = []
+    for sets, d_pad, _, _ in launch_sets:
+        check_exact("extender 8b", sets, d_pad)
+        shapes.append({"T": [x[0].shape[0] for x in sets], "N": sets[0][0].shape[1],
+                       "d_pad": d_pad})
+
+    def pct(xs, q):
+        return float(np.percentile(np.asarray(xs, np.float64), q)) if xs else None
+
+    def run_reading(wall, launches, ev_list, b_list, host_s):
+        return {
+            "requests": n_requests, "wall_s": wall, "requests_per_s": n_requests / wall,
+            "evaluate_s": sum(e["wall_s"] for e in ev_list), **host_s,
+            "micro_batches": [b["requests"] for b in b_list],
+            "micro_batch_p50_s": pct([b["wall_s"] for b in b_list], 50),
+            "micro_batch_p99_s": pct([b["wall_s"] for b in b_list], 99),
+            "host_build_p50_s": pct([e["build_s"] for e in ev_list], 50),
+            "host_build_p99_s": pct([e["build_s"] for e in ev_list], 99),
+            "card_eval_p50_s": pct([e["card_s"] for e in ev_list], 50),
+            "card_eval_p99_s": pct([e["card_s"] for e in ev_list], 99),
+            "evaluations": len(ev_list), "domain_counts_launches": launches,
+            "launches_per_evaluation": launches / len(ev_list),
+        }
+
+    return {
+        "nodes": n_nodes, "bound_pods": len(bindings), "setup_s": setup,
+        "run_many": run_reading(wall1, launches1, evals1, batches1, host1),
+        "micro_batcher": run_reading(wall2, launches2, evals2, batches2, host2),
+        "first_batch_card_equals_cpu": True, "oracle_rows_checked": 8,
+        "kernel_shapes_checked": shapes,
+        "feasible_per_request_first_batch": int((got >= 0).sum()) / micro,
+    }, launch_sets
+
+
+def capture_replay(dev, n_nodes=5120, n_pods=5120, batch=1024):
+    """8c: 6b's workload through ``run_until_settled`` with the anomaly
+    sentinel and a bundle directory; one manual capture after the first
+    batch, replayed on the card and on the CPU."""
+    import tempfile
+
+    from kubernetes_tpu_torch.obs import ObsConfig, SentinelConfig
+    from kubernetes_tpu_torch.obs.bundle import replay_bundle
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cs = _cluster(make_nodes(n_nodes))
+        sched = Scheduler(cs, SchedulerConfig(
+            batch_size=batch, obs=ObsConfig(sentinel=SentinelConfig(), bundle_dir=tmp),
+            solver=ExactSolverConfig(tie_break="first", balanced_fdtype="float64")), device=dev)
+        cs.create_pods([make_pod(i) for i in range(n_pods)])
+        guard = TopTier(sched, "8c")
+        dc.LAUNCHES = 0
+        t0 = time.perf_counter()
+        guard.batch(sched.schedule_batch())
+        path = sched.telemetry.capture("manual")
+        for r in sched.run_until_settled():
+            guard.batch(r)
+        wall = time.perf_counter() - t0
+        launches = dc.LAUNCHES
+        guard.close()
+        check_cluster(cs, "8c")
+        bound = sum(1 for v in _bindings(cs).values() if v)
+        if path is None or bound != n_pods:
+            raise AssertionError(f"8c: capture {path}, {bound} of {n_pods} bound")
+        replays = {}
+        for d in (dev, torch.device("cpu")):
+            t = time.perf_counter()
+            rep = replay_bundle(path, device=d)
+            rep["seconds"] = time.perf_counter() - t
+            if not (rep["ok"] and rep["detail"] == "assignments bit-identical"):
+                raise AssertionError(f"8c: replay on {d.type}: {rep}")
+            replays[d.type] = rep
+        snap = sched.telemetry.snapshot()
+        return {"wall_s": wall, "bound": bound, "domain_counts_launches": launches,
+                "replays": replays, "bundles": {k: snap["bundles"][k] for k in (
+                    "captures", "missed", "by_trigger")},
+                "sentinel_fired": snap["sentinel"]["fired_total"]}
+
+
+def extender_phase(dev, bindings_6b, mixed=(240, 480, 128), full=(5120, 1024, 256),
+                   capture=(5120, 5120, 1024)):
+    """8a-8c; the keyword sizes are the full-width shapes (smaller ones
+    rehearse the phase on the CPU)."""
+    cpu = torch.device("cpu")
+    out = {}
+    t0 = time.perf_counter()
+    verbs = {d.type: extender_verbs(d, mixed[0]) for d in (dev, cpu)}
+    if len(set(verbs.values())) != 1:
+        raise AssertionError("8a: a verb's reply on the card differs from the CPU's")
+    restarts = {d.type: restart_run(d, *mixed) for d in (dev, cpu)}
+    if restarts[dev.type] != restarts["cpu"]:
+        raise AssertionError("8a restart: card != CPU in bindings, recovered records or victims")
+    at_crash, recovered, victims, _ = restarts["cpu"]
+    out["8a"] = {"verbs_card_equals_cpu": True, "restart_card_equals_cpu": True,
+                 "unbound_at_crash": sum(1 for v in at_crash.values() if not v),
+                 "recovered_records": len(recovered), "preemptions": len(victims),
+                 "victims": sum(len(v) for _, _, v in victims)}
+    log("extender 8a " + json.dumps(out["8a"]))
+    out["8b"], out["8b_launch_sets"] = extender_full(dev, bindings_6b, *full)
+    log("extender 8b " + json.dumps(out["8b"]))
+    out["8c"] = capture_replay(dev, *capture)
+    log("extender 8c " + json.dumps(out["8c"]))
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU")
         return 2
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = environment()
@@ -1679,7 +2058,15 @@ def main():
     per_step = launches_per_step(dev)
     per_pod = grouped_launches(dev)
     sched = scheduler_phase(dev)
-    loops = loops_phase(dev, sched.pop("6b_bindings"))
+    bindings_6b = sched.pop("6b_bindings")
+    loops = loops_phase(dev, bindings_6b)
+    ext = extender_phase(dev, bindings_6b)
+    # the kernel at the evaluator's launches: exact, and timed as the others
+    for i, (sets, d_pad, counts, gather) in enumerate(ext.pop("8b_launch_sets")):
+        rows = "+".join(str(x[0].shape[0]) for x in sets)
+        cases.append(kernel_case(f"extender 8b evaluation, launch {i}: T {rows}, N "
+                                 f"{sets[0][0].shape[1]}, d_pad {d_pad}", sets, d_pad,
+                                 counts=counts, gather=gather))
 
     launches_by_path = {
         "interpod full width (scan)": full["domain_counts_launches"],
@@ -1688,6 +2075,9 @@ def main():
         **{f"scheduler {k}": sched[k]["domain_counts_launches"] for k in ("6b", "6c", "6d")},
         **{f"loops {k}": r["domain_counts_launches"] for k, r in loops.items()
            if k != "7a" and "settled" not in k},
+        "extender 8b": ext["8b"]["run_many"]["domain_counts_launches"],
+        "extender 8b micro-batcher": ext["8b"]["micro_batcher"]["domain_counts_launches"],
+        "capture 8c": ext["8c"]["domain_counts_launches"],
     }
     main_case = cases[0]
     record = {
@@ -1752,6 +2142,7 @@ def main():
         "overlap_hidden_share_7c": hidden_share(loops, "7c"),
         "card": smi,
     }}))
+    log(json.dumps({"extender": ext, "script_s": time.perf_counter() - t_start, "card": smi}))
     log(smi)  # the card's name and power limit, on the line before the last
     print(json.dumps({
         "ok": True,

@@ -239,8 +239,10 @@ def generate_latest(registry: CollectorRegistry) -> bytes:
     for m in registry.collect():
         base = m._name
         doc = m._documentation.replace("\\", "\\\\").replace("\n", "\\n")
-        lines.append(f"# HELP {base} {doc}")
-        lines.append(f"# TYPE {base} {m._type}")
+        # prometheus_client names a counter's family by its sample name
+        family = f"{base}_total" if m._type == "counter" else base
+        lines.append(f"# HELP {family} {doc}")
+        lines.append(f"# TYPE {family} {m._type}")
         for values, child in m.children():
             if m._type == "counter":
                 lines.append(

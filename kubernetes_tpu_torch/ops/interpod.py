@@ -120,9 +120,9 @@ def filter_and_score(
 
 def normalize(raw, mask):
     """scoring.go#NormalizeScore: 100*(s-min)/(max-min) over the feasible
-    set; all-equal -> 0."""
-    mx = torch.max(torch.where(mask, raw, -INF))
-    mn = torch.min(torch.where(mask, raw, INF))
+    set; all-equal -> 0. raw, mask: [..., N]; each row on its own."""
+    mx = torch.amax(torch.where(mask, raw, -INF), dim=-1, keepdim=True)
+    mn = torch.amin(torch.where(mask, raw, INF), dim=-1, keepdim=True)
     diff = mx - mn
     norm = torch.div(
         MAX_NODE_SCORE * (raw - mn), torch.clamp(diff, min=1), rounding_mode="floor"

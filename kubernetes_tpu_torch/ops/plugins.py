@@ -17,10 +17,11 @@ MAX_NODE_SCORE = 100
 def normalize_score(raw: torch.Tensor, mask: torch.Tensor, reverse: bool) -> torch.Tensor:
     """DefaultNormalizeScore over the feasible (masked) set.
 
-    raw: [N] int32 non-negative, mask: [N] bool. Returns [N] int32; values
-    on masked-out lanes are unspecified (the caller masks the total)."""
+    raw: [..., N] int32 non-negative, mask: [..., N] bool; each row (one
+    pod's nodes) normalizes on its own. Returns [..., N] int32; values on
+    masked-out lanes are unspecified (the caller masks the total)."""
     s = torch.where(mask, raw, 0).to(torch.int32)
-    max_count = torch.max(s)
+    max_count = torch.amax(s, dim=-1, keepdim=True)
     scaled = torch.div(
         MAX_NODE_SCORE * s, torch.clamp(max_count, min=1), rounding_mode="floor"
     )

@@ -83,6 +83,17 @@ def _domain_aggregate(spr, j: int, cnt, d_pad: int):
     return node_cnt[0], n_dom, min_match, hk
 
 
+def aggregate_rows(spr, cnt, d_pad: int):
+    """(per-node domain count [J, N], min over registered domains [J]) of
+    every constraint row at once: ``_domain_aggregate`` over all J rows in
+    one launch of the kernel (the batched evaluator's state-only part)."""
+    ((dom_counts, node_cnt),) = dc.aggregate(
+        [(spr["counted_dom"], cnt, spr["dom"])], d_pad
+    )
+    min_match = torch.amin(torch.where(spr["present"], dom_counts, INF_COUNT), dim=1)
+    return node_cnt, min_match
+
+
 def hard_violations(spr, cnt, cls: int, d_pad: int):
     """[N] bool -- any hard spread constraint of class ``cls`` violated.
 

@@ -20,16 +20,19 @@ Ported from ``kubernetes_tpu/scheduler.py`` on one device: ``schedule_batch``
 and ``run_until_settled``, the pipelined and streaming loops
 (``run_pipelined``, ``run_streaming``, with the conflict and occupancy
 fences and the completion thread), the budgeted ``drain_backlog`` and the
-auto-tuning runtime (``SchedulerConfig.tuning``), with everything they
+auto-tuning runtime (``SchedulerConfig.tuning``), restart incarnations
+(``SchedulerConfig.incarnation > 1``: the recovery pass of ``_recover``)
+and the flight telemetry with its anomaly sentinel and replay-bundle
+capture (``ObsConfig.sentinel`` / ``bundle_dir``), with everything they
 reach. The ``Scheduler`` takes ``device`` (None = the card, raising
 without CUDA) and hands it to every solve — deferred, split, chained and
 streamed ones too — and to every preemption dry-run; the resilience
 ladder's CPU rung solves on the CPU, after an injected solve fault or an
 output that failed validation; a kernel or card failure is raised instead.
 Not ported yet, and refused at construction with NotImplementedError
-naming the ROADMAP item: fleet mode and restart incarnations (item 8),
-the rebalancer (item 9), telemetry bundles (item 8), the backlog warm
-start (item 10), and a multi-device mesh or mesh slice (item 11).
+naming the ROADMAP item: fleet mode (item 8c), the rebalancer (item 9b),
+the backlog warm start (item 10), and a multi-device mesh or mesh slice
+(item 11).
 """
 
 from __future__ import annotations
@@ -468,29 +471,17 @@ def _refuse_unported(config: SchedulerConfig) -> None:
     cfg = config
     if cfg.fleet is not None:
         raise NotImplementedError(
-            "fleet mode is not ported (ROADMAP queue 1 item 8)"
+            "fleet mode is not ported (ROADMAP queue 1 item 8c)"
         )
     if cfg.rebalance is not None:
         raise NotImplementedError(
             "the rebalancer is not ported: it needs the auction "
-            "(ROADMAP queue 1 item 9)"
+            "(ROADMAP queue 1 item 9b)"
         )
     if cfg.backlog_warm_start:
         raise NotImplementedError(
             "the backlog warm start is not ported: it needs the relax "
             "planner (ROADMAP queue 1 item 10)"
-        )
-    if cfg.incarnation > 1:
-        raise NotImplementedError(
-            "restart incarnations (crash recovery) are not ported "
-            "(ROADMAP queue 1 item 8)"
-        )
-    if cfg.obs is not None and (
-        cfg.obs.bundle_dir is not None or cfg.obs.sentinel is not None
-    ):
-        raise NotImplementedError(
-            "telemetry bundles are not ported: the port's ExactSolver has "
-            "no capture_hook yet (ROADMAP queue 1 item 8)"
         )
     # mesh_devices > 1 and mesh_slice raise in resolve_mesh (item 11)
 
@@ -556,14 +547,19 @@ class Scheduler:
 
             self.slo = SloEngine(self.config.obs.slo, self.clock)
             self.slo.on_health_change.append(self._on_slo_health)
-        # flight telemetry (obs/profile): the continuous per-stage
-        # profiler, ticked from the commit seam (the JAX package's
-        # sentinel and bundle capture are refused above). None = off
-        # (the production default): the hot path then pays a single
-        # attribute check per seam.
+        # flight telemetry (obs/{profile,timeseries,sentinel,bundle}):
+        # continuous per-stage profiler + anomaly sentinel + capture-
+        # on-anomaly replay bundles, one coordinator ticked from the
+        # commit seam. None = off (the production default) — the hot
+        # path then pays a single attribute check per seam.
         from .obs import build_telemetry
 
-        self.telemetry = build_telemetry(self.config.obs, self.clock)
+        self.telemetry = build_telemetry(
+            self.config.obs,
+            self.clock,
+            journal=self.journal,
+            recorder=self.flight,
+        )
         # high-volume span-family sampling state (see _on_event and
         # _commit_all): deterministic counters, first occurrence
         # always sampled
@@ -589,6 +585,14 @@ class Scheduler:
         # tags every batch root span carries (drain_backlog adds its
         # drain_trace while a drain is active)
         self._span_tags: dict = {}
+        if self.config.incarnation > 1:
+            # restarted incarnations tag every record/span so a merged
+            # cross-incarnation journal attributes each record to the
+            # process that wrote it (first starts stay tag-free: their
+            # journal bytes must not change under a config default)
+            self._span_tags["incarnation"] = self.config.incarnation
+            if self.journal is not None:
+                self.journal.tags["incarnation"] = self.config.incarnation
         from .utils.featuregate import FeatureGates
 
         self.feature_gates = self.config.feature_gates or FeatureGates()
@@ -729,6 +733,7 @@ class Scheduler:
             self.config.resilience,
             self.clock,
             build_ladder(self.device),
+            on_degraded=self._on_breaker_degraded,
         )
         # poison-batch quarantine: pod key -> (QueuedPodInfo, release
         # time). Entries re-admit through _release_quarantine at the
@@ -782,6 +787,13 @@ class Scheduler:
             name: ExactSolver(cfg) for name, cfg in profile_cfgs.items()
         }
         self.solver = next(iter(self.solvers.values()))
+        if self.telemetry is not None and self.telemetry.bundles is not None:
+            # telemetry input-snapshot hook: every profile solver hands
+            # its resolved solve inputs to the bundle capturer (the
+            # capturer only retains them for batches the scheduler
+            # armed, so host-tier/bisection solves don't capture)
+            for s in self.solvers.values():
+                s.capture_hook = self.telemetry.bundles.on_solve_input
         self.preemptor = PreemptionEvaluator(device=self.device)
 
         # nominated-pod index (the reference's nominator map): unbound pods
@@ -794,24 +806,59 @@ class Scheduler:
         self._fence_role = self.config.fence_role
         self._fence_token = 0
         self._fenced_commits = 0  # ktpu: guarded-by(cluster.lock)
-        # the cold-start pass: initial informer sync (WaitForCacheSync
-        # equivalent) — atomic with the subscription so a concurrent
-        # writer can't slip an object between the list and the watch
-        # start. One root span + one structured log line +
-        # scheduler_restart_recovery_seconds.
+        # fault-injection seam: called with the approved pending list
+        # right before the binding cycle of a batch commits — the
+        # "after assume, before bind" point a crash-restart drive kills
+        # the process at
+        self._pre_commit_hook = None
+        # the cold-start recovery pass: initial informer sync
+        # (WaitForCacheSync equivalent) — atomic with the subscription
+        # so a concurrent writer can't slip an object between the list
+        # and the watch start — plus, on a RESTART (incarnation > 1),
+        # orphan re-adoption, half-committed occupancy rollback, and
+        # terminal `recovered` journaling. One root span + one
+        # structured log line + scheduler_restart_recovery_seconds.
         self._recover()
 
     def _recover(self) -> None:
-        """Cold start: rebuild every piece of scheduler state from
-        ``ClusterState`` truth — cache/queue/nominator sync + watch
-        subscription, exactly the WaitForCacheSync contract. (The JAX
-        package's restart pass for ``incarnation > 1`` is not ported.)"""
+        """Cold-start recovery: rebuild every piece of incarnation-local
+        scheduler state from ``ClusterState`` truth.
+
+        All starts: cache/queue/nominator sync + watch subscription,
+        exactly the WaitForCacheSync contract.
+
+        Restarts (``config.incarnation > 1``) additionally treat truth
+        as a predecessor's wreck:
+
+        - every unbound routed pod is RE-ADOPTED and terminally
+          journaled ``recovered`` — a pod the dead incarnation left
+          mid-flight (assumed, Permit-parked, popped, deferred-solved)
+          has a dangling non-terminal journal history that no process
+          will ever continue; the recovered record closes it so journal
+          completeness holds across incarnations;
+        - half-committed occupancy rolls back: resource-claim
+          reservations naming unbound routed pods (a crash between the
+          PreBind claim write and the bind commit) are released exactly
+          like the deallocating controller would on pod delete, and a
+          pod group left partly bound is evicted back to Pending;
+        - quarantine and breaker state deliberately RESET rather than
+          re-derive: both guard against *this process's* observed
+          hardware/data failures, the restart may be on healed hardware
+          or a fixed build, and the cost of being wrong is one cheap
+          re-discovery (a poison pod re-quarantines via bisection in
+          its first batch — tested in tests/test_torch_restart.py),
+          while persisting them would let a stale breaker pin a healthy
+          scheduler to its degraded ladder rung indefinitely.
+        """
         cluster = self.cluster
+        restart = self.config.incarnation > 1
         t_rec = self.clock.perf()
-        adopted = 0
+        adopted = recovered = claims_rolled = 0
+        span_tags = dict(self._span_tags)
+        span_tags.setdefault("incarnation", self.config.incarnation)
         with cluster.lock, self.obs.span(
-            "recover", trace_id=self._trace_step, restart=False,
-            incarnation=self.config.incarnation,
+            "recover", trace_id=self._trace_step, restart=restart,
+            **span_tags,
         ) as rsp:
             if self._fence_role is not None:
                 self._fence_token = cluster.grant_fence(
@@ -820,6 +867,19 @@ class Scheduler:
                 )
             for node in cluster.list_nodes():
                 self.cache.add_node(node)
+            gangs_rolled = 0
+            if restart and self._gang is not None:
+                # half-staged gang rollback BEFORE pod adoption: a crash
+                # between a gang's member binds can leave a STRICT SUBSET
+                # of a pod group bound — exactly the partial gang the
+                # all-or-nothing contract forbids. Evict the stranded
+                # members we own (delete+recreate collapses to unbound
+                # under the same identity), so the adoption loop below
+                # re-queues them and the gang reassembles whole. Runs
+                # before `subscribe`, so the eviction's DELETED/ADDED
+                # pair reaches no one — adoption sees post-rollback
+                # truth directly.
+                gangs_rolled = self._rollback_partial_gangs()
             for pod in cluster.list_pods():
                 if pod.node_name:
                     self.cache.add_pod(pod)
@@ -829,18 +889,139 @@ class Scheduler:
                     if pod.scheduler_name in self.solvers:
                         self.queue.add(pod)
                         adopted += 1
+                        if restart:
+                            recovered += 1
+                            if self.journal is not None:
+                                self.journal.record(
+                                    self._trace_step, 0, pod, "recovered",
+                                    reason=(
+                                        "re-adopted by incarnation "
+                                        f"{self.config.incarnation} after "
+                                        "a crash orphaned the pod"
+                                        + (
+                                            "; orphaned nomination on "
+                                            + pod.nominated_node_name
+                                            if pod.nominated_node_name
+                                            else ""
+                                        )
+                                    ),
+                                )
+            if restart and self._dra:
+                claims_rolled = self._rollback_orphan_claims()
             cluster.subscribe(self._on_event)
             rsp.set(
-                adopted=adopted, recovered=0, claims_rolled_back=0,
-                gangs_rolled_back=0,
+                adopted=adopted, recovered=recovered,
+                claims_rolled_back=claims_rolled,
+                gangs_rolled_back=gangs_rolled,
             )
         dt = self.clock.perf() - t_rec
         metrics.restart_recovery_seconds.observe(dt)
         self._log.info(
-            "recovery pass complete: incarnation %d adopted %d pod(s) "
-            "in %.3fs", self.config.incarnation, adopted, dt,
+            "recovery pass complete: incarnation %d %s %d pod(s), "
+            "journaled %d recovered record(s), rolled back %d "
+            "half-committed claim reservation(s) in %.3fs",
+            self.config.incarnation,
+            "re-adopted" if restart else "adopted",
+            adopted, recovered, claims_rolled, dt,
             extra={"step": self._trace_step},
         )
+
+    # runs inside _recover's locked region: ktpu: holds(cluster.lock)
+    def _rollback_orphan_claims(self) -> int:
+        """Release resource-claim reservations naming unbound pods this
+        scheduler routes: only a crash between the PreBind claim write
+        (``bind_pod_claims``) and the bind commit can produce one, so
+        the reservation is half-committed occupancy — roll it back the
+        way the deallocating controller would on pod delete. Pods this
+        scheduler does not own are never touched: pods of FOREIGN
+        schedulers (``spec.schedulerName`` outside our profiles — their
+        scheduler may be between its own PreBind claim write and bind
+        this instant)."""
+        rolled = 0
+        for c in list(self.cluster.list_resource_claims()):
+            if not c.reserved_for:
+                continue
+            stale = []
+            for key in c.reserved_for:
+                ns, name = key.split("/", 1)
+                try:
+                    pod = self.cluster.get_pod(ns, name)
+                except ApiError:
+                    stale.append(key)  # reserved for a deleted pod
+                    continue
+                if pod.node_name:
+                    continue  # bound: the reservation is legitimate
+                if pod.scheduler_name not in self.solvers:
+                    continue  # a foreign scheduler's pod: not ours
+                stale.append(key)
+            if not stale:
+                continue
+            c.reserved_for = tuple(
+                k for k in c.reserved_for if k not in stale
+            )
+            if not c.reserved_for:
+                c.allocated_node = ""
+                c.results = ()
+            self.cluster.update_resource_claim(c)
+            rolled += 1
+        return rolled
+
+    # runs inside _recover's locked region: ktpu: holds(cluster.lock)
+    def _rollback_partial_gangs(self) -> int:
+        """Restart-only: find pod groups where 0 < bound members <
+        min-member — a predecessor crashed mid-gang (between member
+        binds) — and evict the stranded bound members, so the whole
+        gang returns to Pending and reassembles atomically. PDB-gated
+        evictions (429) are tolerated per pod — the gang then completes
+        on a later pass rather than losing protected members."""
+        from .gang import GangTracker
+
+        groups: dict[str, list] = {}
+        for pod in self.cluster.list_pods():
+            gid = GangTracker.gang_of(pod)
+            if gid is not None:
+                groups.setdefault(gid, []).append(pod)
+        rolled = 0
+        for gid in sorted(groups):
+            members = groups[gid]
+            bound = [p for p in members if p.node_name]
+            if not bound:
+                continue
+            need = max(GangTracker.min_member(p) for p in members)
+            if len(bound) >= need:
+                continue  # complete (or over-satisfied): legitimate
+            evicted = 0
+            for p in bound:
+                try:
+                    self.cluster.evict(
+                        p.namespace,
+                        p.name,
+                        fence=(self._fence_role, self._fence_token)
+                        if self._fence_role is not None
+                        else None,
+                    )
+                    evicted += 1
+                except ApiError as e:
+                    self._log.warning(
+                        "gang rollback: could not evict stranded "
+                        "member %s of %s: %s", p.key, gid, e,
+                    )
+            if evicted:
+                rolled += 1
+                metrics.gang_incomplete_total.inc()
+                self._log.info(
+                    "gang rollback: pod group %s had %d/%d members "
+                    "bound at restart; evicted %d stranded member(s) "
+                    "back to Pending", gid, len(bound), need, evicted,
+                )
+        return rolled
+
+    def _on_breaker_degraded(self, degraded: bool) -> None:
+        """SolveResilience transition hook: the first breaker trip /
+        last re-close. A trip is a forensic capture point: the batch that
+        tripped the breaker is the newest complete solve record."""
+        if degraded and self.telemetry is not None:
+            self.telemetry.capture("breaker")
 
     # -- degraded-health hooks (breaker state, SLO health) --
 
@@ -1322,6 +1503,20 @@ class Scheduler:
             with self.cluster.lock:
                 if self._gang_rounds:
                     gang_ready = self._resolve_gang_rounds(res)
+        hook = self._pre_commit_hook
+        hook_pending = pending
+        if gang_ready:
+            # the crash seam must see the gang's staged entries too:
+            # killing the process here is exactly the "assumed + staged
+            # but nothing committed" window the restart rollback covers
+            hook_pending = pending + [
+                e for _gid, rd in gang_ready for e in rd["staged"]
+            ]
+        if hook is not None and hook_pending:
+            # fault-injection seam: the batch has assumed + approved its
+            # pods but committed nothing — the exact point a
+            # crash-restart drive kills the process
+            hook(hook_pending)
         first_err = None
         bind_wall = 0.0
         for entry in pending:
@@ -2081,6 +2276,10 @@ class Scheduler:
         metrics.gang_quarantined_total.inc()
         if self._gang is not None:
             self._gang.note_quarantined(gid)
+        if self.telemetry is not None:
+            # forensic capture: the batch whose solve failure
+            # quarantined the gang is the newest complete record
+            self.telemetry.capture("quarantine", note=f"gang {gid}: {exc!r}")
         self._log.warning(
             "pod group %s quarantined whole (%d member(s)): %r",
             gid, len(members), exc, extra={"step": self._trace_step},
@@ -2719,6 +2918,10 @@ class Scheduler:
             f"{prep.profile}:p{prep.pbatch.padded}xn{prep.batch.padded}"
             f":split{split}:{tier_name}"
         )
+        if self.telemetry is not None and self.telemetry.bundles is not None:
+            # telemetry capture arm: the solver's capture_hook payload
+            # that fires inside solve() below belongs to this batch step
+            self.telemetry.bundles.arm(prep.step, prep.profile)
         with self.obs.span(
             "dispatch", trace_id=prep.step, profile=prep.profile,
             defer=defer, healed=heal_stale, split=split,
@@ -2892,6 +3095,13 @@ class Scheduler:
                 if why is not None:
                     raise SolveCorruptError(why)
             t_apply = self.clock.perf()
+            if self.telemetry is not None and self.telemetry.bundles is not None:
+                # the flight applied (fence passed, output validated):
+                # its assignment slice is what a bundle replay of this
+                # batch must reproduce bit-identically
+                self.telemetry.bundles.note_assignments(
+                    prep.step, flight.lo, assignments
+                )
             # phase 2b: apply assignments — assume / Reserve / Permit /
             # PostFilter — atomically with the watch-event consumers
             preempt_placed: dict[int, list[Pod]] | None = None
@@ -3957,6 +4167,8 @@ class Scheduler:
                 "fence_wait",
                 flight.dispatch_seconds + (flight.read_seconds or 0.0),
             )
+            if self.telemetry.bundles is not None:
+                self.telemetry.bundles.drop(prep.step)
         self._note_drain_chunk(prep.step)
         if prep.step != self._last_discard_step:
             self._discard_streak += 1
@@ -4938,7 +5150,8 @@ class Scheduler:
         (solver/budget.py) computes the chunk shape's per-device
         footprint from the same pad_multiple/LANE discipline the
         tensorizers use and asserts it against ``budget_bytes``
-        (default: the card's total memory, ``device_budget_bytes``).
+        (default: what this process can still allocate on its device,
+        ``device_budget_bytes``).
         An over-budget chunk AUTO-SPLITS — the planner halves
         group-aligned, ``scheduler_backlog_budget_splits_total`` counts
         it — instead of OOMing mid-drain; a shape that cannot fit at any chunk size
@@ -4969,7 +5182,7 @@ class Scheduler:
             or self.config.batch_size
         )
         budget = hbm.device_budget_bytes(
-            budget_bytes or self.config.hbm_budget_bytes
+            budget_bytes or self.config.hbm_budget_bytes, self.device
         )
         try:
             shape = self.drain_shape(base_chunk)

@@ -7,9 +7,13 @@ padding discipline, the chunk planner that halves an over-budget chunk
 group-aligned, and ``assert_index_headroom``, the index-width audit that
 ``solve`` runs before every dispatch. Two things differ from the copy:
 
-- ``device_budget_bytes`` reads the card's memory from
-  ``torch.cuda.mem_get_info`` where the JAX package asks the runtime for
-  its ``bytes_limit``;
+- ``device_budget_bytes`` returns what this process can still allocate
+  on the card, where the JAX package asks its allocator for
+  ``bytes_limit``: the card's free memory (``torch.cuda.mem_get_info``)
+  plus what the caching allocator reserves and does not hand out now
+  (``memory_reserved - memory_allocated``), capped by the per-process
+  memory fraction when one is set. The CUDA context, other processes'
+  memory and tensors this process holds outside the drain are not in it;
 - ``WORKSPACE_FACTOR`` is re-derived on the card, and kept at the JAX
   package's 1.5: ``chip_smoke.py`` phase 7d (``drain_backlog`` of 100,000
   pods on 20,000 nodes, 1,024-pod chunks, NVIDIA H100 80GB HBM3 at 700 W)
@@ -19,10 +23,9 @@ group-aligned, and ``assert_index_headroom``, the index-width audit that
   state and 25,291,264 B at most, 1.40 times the model's resident set
   (``sharded_bytes + replicated_bytes`` = 18,109,396 B), so 1.5 leaves a
   7 % margin over the reading. The factor covers the eager solve's
-  temporaries that the caching allocator hands out; it does not cover
-  what the allocator reserves beyond them, the CUDA context or a
-  kernel's build, none of which ``device_budget_bytes`` (the card's total
-  memory) subtracts either.
+  temporaries that the caching allocator hands out; the memory already
+  taken when the drain starts (the CUDA context, a kernel's build, other
+  tensors) is what ``device_budget_bytes`` leaves out.
 """
 
 from __future__ import annotations
@@ -296,17 +299,35 @@ def relax_estimate(
     )
 
 
-def device_budget_bytes(override: int = 0) -> int:
-    """The per-device memory budget: an explicit override, else the
-    card's total memory as ``torch.cuda.mem_get_info`` reports it, else
-    (no card) the conservative DEFAULT_DEVICE_BUDGET_BYTES floor."""
+def device_budget_bytes(override: int = 0, device=None) -> int:
+    """The per-device memory budget: an explicit override; else, on a
+    CUDA ``device`` (None: the current card, when CUDA is available), the
+    bytes this process can still allocate there -- the card's free memory
+    plus the caching allocator's reserved bytes not allocated now, capped
+    by the per-process memory fraction's limit on the allocator's
+    reserve (the counterpart of the JAX package's ``bytes_limit``); else
+    the conservative DEFAULT_DEVICE_BUDGET_BYTES floor."""
     if override > 0:
         return override
     import torch
 
-    if torch.cuda.is_available():
-        return int(torch.cuda.mem_get_info()[1])
-    return DEFAULT_DEVICE_BUDGET_BYTES
+    if device is None:
+        if not torch.cuda.is_available():
+            return DEFAULT_DEVICE_BUDGET_BYTES
+        device = "cuda"
+    device = torch.device(device)
+    if device.type != "cuda":
+        return DEFAULT_DEVICE_BUDGET_BYTES
+    if device.index is None:  # the memory-fraction query wants an index
+        device = torch.device("cuda", torch.cuda.current_device())
+    free, total = torch.cuda.mem_get_info(device)
+    reserved = torch.cuda.memory_reserved(device)
+    allocated = torch.cuda.memory_allocated(device)
+    limit = free + reserved
+    fraction = getattr(torch.cuda, "get_per_process_memory_fraction", None)
+    if fraction is not None:
+        limit = min(limit, int(fraction(device) * total))
+    return max(int(limit - allocated), 0)
 
 
 def split_fleet_budget(

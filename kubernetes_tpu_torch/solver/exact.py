@@ -42,9 +42,11 @@ from a ``torch.Generator`` seeded with ``seed + solve count`` (a chained
 sub-batch folds its index into that seed); it cannot reproduce the JAX
 package's threefry stream, and is held to the oracle's tie set.
 
-Left to later slices: the JAX package's telemetry ``capture_hook``. The
-host-to-device and device-to-host bytes go to the registry's
-``scheduler_tpu_{h2d,d2h}_bytes_total``.
+``capture_hook`` (set by the Scheduler's flight telemetry) receives each
+solve's resolved inputs before the generator's seed is derived from the
+solve count, as the JAX package's does, so a replay bundle re-runs the
+exact solve. The host-to-device and device-to-host bytes go to the
+registry's ``scheduler_tpu_{h2d,d2h}_bytes_total``.
 """
 
 from __future__ import annotations
@@ -440,6 +442,14 @@ def _compact_rows(host: dict, valid: np.ndarray, group: int):
     return rows, vc
 
 
+def _capture_config_fingerprint(cfg: "ExactSolverConfig") -> dict:
+    """JSON-safe config snapshot for the telemetry capture hook (lazy
+    import: the solver must not pull the obs layer in at module load)."""
+    from ..obs.bundle import config_fingerprint
+
+    return config_fingerprint(cfg)
+
+
 class ExactSolver:
     """Host-facing wrapper: NodeBatch/PodBatch (+ plugin tensors) in,
     assignments out, node state written back (the device-side assume)."""
@@ -448,6 +458,12 @@ class ExactSolver:
         self.config = config or ExactSolverConfig()
         self._step_count = 0
         self._session = _DeviceSession()
+        # flight-telemetry input snapshot hook (obs/bundle.py): when set,
+        # solve() hands over its resolved inputs -- before the seed is
+        # derived and before the trivial tensors are filled in -- so a
+        # replay bundle can re-run the exact solve offline. A host-side
+        # callable; it never touches device state.
+        self.capture_hook = None
         # executable-dispatch histogram, as the JAX package keeps it:
         # "scan" counts per-pod-scan solves, "kindK" grouped chunks by kind,
         # "compact_batches" compact-wire solves, "chained_subbatches" and
@@ -592,6 +608,27 @@ class ExactSolver:
             raise NotImplementedError("mesh is not ported; the port runs on one device")
         dev = device_mod.resolve(device)
         cfg = self.config
+        if self.capture_hook is not None:
+            # step_count is exactly what a replay must restore, and None
+            # containers stay None (the replayed solve fills in the same
+            # trivial tensors); raw references, which the hook copies
+            self.capture_hook(
+                nodes=nodes,
+                pods=pods,
+                static=static,
+                ports=ports,
+                spread=spread,
+                interpod=interpod,
+                nominated=nominated,
+                nominated_slot=nominated_slot,
+                step_count=self._step_count,
+                split=split,
+                defer_read=defer_read,
+                session=col_versions is not None,
+                allow_heal=allow_heal,
+                chain_occupancy=chain_occupancy,
+                config=_capture_config_fingerprint(cfg),
+            )
         fdtype = torch.float64 if cfg.balanced_fdtype == "float64" else torch.float32
         seed = cfg.seed + self._step_count
         self._step_count += 1

@@ -169,3 +169,44 @@ def test_device_budget_bytes_without_a_card_is_the_floor(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert hbm.device_budget_bytes() == hbm.DEFAULT_DEVICE_BUDGET_BYTES
     assert hbm.device_budget_bytes(12345) == 12345
+
+
+@pytest.mark.parametrize(
+    "fraction,want",
+    [
+        (None, 30 + 12 - 4),  # free + (reserved - allocated)
+        (1.0, 30 + 12 - 4),  # the fraction's limit (80) is above free + reserved
+        (0.25, 20 - 4),  # the allocator may reserve at most a quarter of 80
+    ],
+)
+def test_device_budget_bytes_is_what_the_process_can_allocate(monkeypatch, fraction, want):
+    """The budget on a card: its free memory plus the allocator's reserved
+    bytes not in use, less nothing else, capped by the per-process memory
+    fraction -- never the card's total (the readings are faked)."""
+    import torch
+
+    gib = 1 << 30
+    seen = []
+
+    def reading(value):
+        def read(device=None):
+            seen.append(torch.device(device))
+            return value
+        return read
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", reading((30 * gib, 80 * gib)))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", reading(12 * gib))
+    monkeypatch.setattr(torch.cuda, "memory_allocated", reading(4 * gib))
+    if fraction is None:
+        monkeypatch.delattr(torch.cuda, "get_per_process_memory_fraction", raising=False)
+    else:
+        monkeypatch.setattr(torch.cuda, "get_per_process_memory_fraction", reading(fraction),
+                            raising=False)
+    assert hbm.device_budget_bytes() == want * gib
+    assert hbm.device_budget_bytes(device="cuda:0") == want * gib
+    assert hbm.device_budget_bytes(device="cuda") == want * gib  # read at the current index
+    assert set(seen) == {torch.device("cuda", 0)}
+    assert hbm.device_budget_bytes(device="cpu") == hbm.DEFAULT_DEVICE_BUDGET_BYTES
+    assert hbm.device_budget_bytes(7, device="cuda:0") == 7

@@ -36,6 +36,21 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def assert_exact(got, want, case: str) -> None:
+    """Kernel output == plain version, exactly; a mismatch names the case
+    (its seed), the shape, the first differing index, both values and
+    how many elements differ."""
+    assert got.shape == want.shape and got.dtype == want.dtype, (
+        f"{case}: kernel {tuple(got.shape)} {got.dtype}, plain {tuple(want.shape)} {want.dtype}")
+    if torch.equal(got, want):
+        return
+    bad = (got != want).nonzero()
+    first = tuple(int(i) for i in bad[0])
+    raise AssertionError(
+        f"{case}: kernel != plain at {first} of shape {tuple(got.shape)}: "
+        f"kernel {int(got[first])}, plain {int(want[first])} ({len(bad)} elements differ)")
+
+
 def _inputs(seed, t, n, d_pad, dev):
     rng = np.random.default_rng(seed)
     dom = torch.from_numpy(rng.integers(-1, d_pad, (t, n)).astype(np.int32)).to(dev)
@@ -54,7 +69,8 @@ def test_kernel_equals_plain(cuda_device, t, n, d_pad):
     got = dc.domain_counts(dom, cnt, d_pad)
     torch.cuda.synchronize()
     assert dc.LAUNCHES == before + 1
-    assert torch.equal(got, dc.domain_counts_plain(dom, cnt, d_pad))
+    assert_exact(got, dc.domain_counts_plain(dom, cnt, d_pad),
+                 f"seed {t + n}, T {t}, N {n}, d_pad {d_pad}")
 
 
 def test_both_paths_are_taken(cuda_device):
@@ -67,15 +83,15 @@ def test_both_paths_are_taken(cuda_device):
         assert (agg.cluster, agg.is_global) == want
 
 
-def _check_sets(sets, d_pad, **kw):
+def _check_sets(sets, d_pad, case="", **kw):
     want = dc.aggregate_plain(sets, d_pad)
     before = dc.LAUNCHES
     got = dc.aggregate(sets, d_pad, **kw)
     torch.cuda.synchronize()
     assert dc.LAUNCHES == before + 1
-    for (g_out, g_tot), (w_out, w_tot) in zip(got, want):
-        assert torch.equal(g_out, w_out)
-        assert torch.equal(g_tot, w_tot)
+    for i, ((g_out, g_tot), (w_out, w_tot)) in enumerate(zip(got, want)):
+        assert_exact(g_out, w_out, f"{case} d_pad {d_pad} {kw} set {i} totals")
+        assert_exact(g_tot, w_tot, f"{case} d_pad {d_pad} {kw} set {i} per-node")
 
 
 @pytest.mark.parametrize("cluster", [1, 2, 4, 8])
@@ -91,8 +107,9 @@ def test_each_cluster_size_and_path(cuda_device, cluster, d_pad):
     ).to(dev)
     cnt = [torch.from_numpy(rng.integers(0, 4, (8, 5120)).astype(np.int32)).to(dev)
            for _ in range(2)]
-    _check_sets([(zone, cnt[0], None), (host, cnt[1], None)], d_pad, cluster=cluster)
-    _check_sets([(zone, cnt[0], host)], d_pad, cluster=cluster)
+    case = f"seed {cluster}"
+    _check_sets([(zone, cnt[0], None), (host, cnt[1], None)], d_pad, case, cluster=cluster)
+    _check_sets([(zone, cnt[0], host)], d_pad, case, cluster=cluster)
 
 
 @pytest.mark.parametrize("seed", range(12))
@@ -123,7 +140,8 @@ def test_random_shapes(cuda_device, seed):
                 rng.integers(-1, d_pad, (t, n)).astype(np.int32)
             ).to(cuda_device)
         sets.append((torch.from_numpy(dom).to(cuda_device), cnt_d, gdom))
-    _check_sets(sets, d_pad)
+    shapes = [tuple(d.shape) for d, _, _ in sets]
+    _check_sets(sets, d_pad, f"seed {1000 + seed}, shapes {shapes}")
 
 
 def test_prepared_aggregation_follows_in_place_updates(cuda_device):
@@ -137,8 +155,8 @@ def test_prepared_aggregation_follows_in_place_updates(cuda_device):
         got = agg()
         want = dc.aggregate_plain(sets, 8192, counts=False)
         torch.cuda.synchronize()
-        for (_, g), (_, w) in zip(got, want):
-            assert torch.equal(g, w)
+        for i, ((_, g), (_, w)) in enumerate(zip(got, want)):
+            assert_exact(g, w, f"seeds 11/12, T 8 + 8, N 5120, step {step}, set {i}")
         cnt[:, step::7] += step + 1
         ex_cnt.index_add_(1, torch.tensor([step], device=cuda_device),
                           torch.ones((8, 1), dtype=torch.int32, device=cuda_device))
@@ -159,12 +177,13 @@ def test_repeated_launches_stay_exact(cuda_device, cluster):
                         ([(r_dom, r_cnt, r_gdom)], 16384)):
         want = dc.aggregate_plain(sets, d_pad)
         agg = dc.Aggregation(sets, d_pad, cluster=cluster)
-        for _ in range(50):
+        for call in range(50):
             got = agg()
             torch.cuda.synchronize()
-            for (g_out, g_tot), (w_out, w_tot) in zip(got, want):
-                assert torch.equal(g_out, w_out)
-                assert torch.equal(g_tot, w_tot)
+            for i, ((g_out, g_tot), (w_out, w_tot)) in enumerate(zip(got, want)):
+                case = f"seeds 21-24, cluster {cluster}, d_pad {d_pad}, call {call}, set {i}"
+                assert_exact(g_out, w_out, case + " totals")
+                assert_exact(g_tot, w_tot, case + " per-node")
 
 
 def test_wrapper_raises_instead_of_falling_back(cuda_device):
@@ -584,3 +603,173 @@ def test_completion_wait_releases_the_gil(cuda_device):
     assert waited > 0.02, "the queued work finished before the wait began"
     # a GIL-holding wait would starve the driver for the whole wait
     assert during > 1000, (during, waited)
+
+
+# -- the extender's evaluator, restarts, bundles and the drain budget --------
+
+
+def _eval_view(n_nodes=48, n_placed=96):
+    """A cluster with placed pods of the mixed kinds (hostPorts, spread
+    and anti-affinity owners, preferred affinity) and its evaluator view."""
+    from kubernetes_tpu_torch.state.cluster import ClusterState
+
+    cs = ClusterState()
+    cs.create_nodes(
+        MakeNode().name(f"e{i:03}").capacity({"cpu": "8", "memory": "16Gi", "pods": "20"})
+        .label(ZONE, f"z{i % 3}").label(HOST, f"e{i:03}").obj()
+        for i in range(n_nodes)
+    )
+    for i in range(n_placed):
+        pod = _sched_pod(i)
+        pod.node_name = f"e{(i * 7) % n_nodes:03}"
+        cs.create_pod(pod)
+    by_node = {}
+    for p in cs.list_pods():
+        by_node.setdefault(p.node_name, []).append(p)
+    return cs.list_nodes(), by_node
+
+
+def _requests(n):
+    out = []
+    for i in range(n):
+        b = MakePod().name(f"r{i:03}").req({"cpu": "300m", "memory": "256Mi"})
+        kind = i % 6
+        if kind == 0:
+            b = b.host_port(8080)
+        elif kind == 1:
+            b = b.spread_constraint(1, ZONE, "DoNotSchedule", {"app": "spread"})
+        elif kind == 2:
+            b = b.spread_constraint(2, HOST, "ScheduleAnyway", {"app": "web"})
+        elif kind == 3:
+            b = b.pod_anti_affinity(HOST, {"app": "anti"})
+        elif kind == 4:
+            b = b.pod_affinity(ZONE, {"app": "spread"}).preferred_pod_affinity(
+                20, HOST, {"app": "lb"}, anti=True)
+        else:
+            b = b.label("app", "anti")  # the placed anti terms select it
+        out.append(b.obj())
+    return out
+
+
+def test_evaluator_card_equals_cpu(cuda_device):
+    from kubernetes_tpu_torch.solver.evaluate import BatchEvaluator
+
+    nodes, by_node = _eval_view()
+    cfg = ExactSolverConfig(balanced_fdtype="float64")
+    launches = []
+    for p in (12, 48):
+        pods = _requests(p)
+        before = dc.LAUNCHES
+        card = BatchEvaluator(cfg, device=cuda_device).evaluate(pods, nodes, by_node)
+        launches.append(dc.LAUNCHES - before)
+        cpu = BatchEvaluator(cfg, device="cpu").evaluate(pods, nodes, by_node)
+        np.testing.assert_array_equal(card, cpu)
+        assert card.shape == (p, len(nodes)) and (card >= 0).any(axis=1).all()
+    # the interpod in + ex rows and the spread rows: one launch each, for any P
+    assert launches == [2, 2]
+
+
+def _crash_then_restart(dev, tmp_path):
+    """The mixed scenario: incarnation 1 runs ``run_pipelined`` until the
+    commit seam raises on its second batch; incarnation 2 on the same
+    cluster settles it. Returns the bindings before and after and the
+    journal's recovered records."""
+    import json
+
+    from kubernetes_tpu_torch.obs import ObsConfig
+    from kubernetes_tpu_torch.scheduler import Scheduler, SchedulerConfig
+    from kubernetes_tpu_torch.utils.clock import FakeClock
+
+    class Crash(Exception):
+        pass
+
+    cs = _sched_cluster(12, [_sched_pod(i) for i in range(60)])
+    clock = FakeClock()
+    solver = ExactSolverConfig(tie_break="first", balanced_fdtype="float64")
+    s1 = Scheduler(cs, SchedulerConfig(batch_size=16, solver=solver), clock=clock, device=dev)
+    calls = []
+
+    def die(pending):
+        calls.append(len(pending))
+        if len(calls) == 2:
+            raise Crash()
+
+    s1._pre_commit_hook = die
+    with pytest.raises(Crash):
+        s1.run_pipelined()
+    cs.unsubscribe(s1._on_event)
+    before = {p.key: p.node_name for p in cs.list_pods()}
+    s2 = Scheduler(cs, SchedulerConfig(batch_size=16, solver=solver, incarnation=2,
+                                       obs=ObsConfig(journal=True)), clock=clock, device=dev)
+    recovered = [json.loads(x) for x in s2.journal.lines]
+    s2.run_until_settled()
+    assert set(s2._tier_last.values()) <= {"single"}
+    return before, recovered, {p.key: p.node_name for p in cs.list_pods()}
+
+
+def test_restart_card_equals_cpu(cuda_device, tmp_path):
+    card = _crash_then_restart(cuda_device, tmp_path)
+    cpu = _crash_then_restart(torch.device("cpu"), tmp_path)
+    assert card == cpu
+    before, recovered, after = card
+    assert {r["outcome"] for r in recovered} == {"recovered"}
+    assert sorted(r["pod"] for r in recovered) == sorted(k for k, v in before.items() if not v)
+    assert sum(1 for v in after.values() if v) >= 50
+
+
+def test_card_bundle_replays_on_the_cpu(cuda_device, tmp_path):
+    from kubernetes_tpu_torch.obs import ObsConfig
+    from kubernetes_tpu_torch.obs.bundle import replay_bundle
+    from kubernetes_tpu_torch.scheduler import Scheduler, SchedulerConfig
+    from kubernetes_tpu_torch.utils.clock import FakeClock
+
+    cs = _sched_cluster(12, [_sched_pod(i) for i in range(40)])
+    solver = ExactSolverConfig(tie_break="first", balanced_fdtype="float64")
+    sched = Scheduler(cs, SchedulerConfig(batch_size=16, solver=solver,
+                                          obs=ObsConfig(bundle_dir=str(tmp_path))),
+                      clock=FakeClock(), device=cuda_device)
+    sched.schedule_batch()
+    sched.schedule_batch()
+    path = sched.telemetry.capture("manual")
+    for dev in ("cpu", cuda_device):
+        rep = replay_bundle(path, device=dev)
+        assert rep["ok"] and rep["detail"] == "assignments bit-identical", (dev, rep)
+
+
+def test_drain_budget_excludes_memory_held_outside(cuda_device):
+    """With all but a few MiB of the card held by a block outside the
+    drain, the default budget sees only what is left: the drain raises
+    BudgetExceeded (or splits) before dispatch, never an out-of-memory."""
+    from kubernetes_tpu_torch.scheduler import Scheduler, SchedulerConfig
+    from kubernetes_tpu_torch.solver import budget as hbm
+    from kubernetes_tpu_torch.state.cluster import ClusterState
+
+    cs = ClusterState()
+    cs.create_nodes(
+        MakeNode().name(f"b{i:05}").capacity({"cpu": "16", "memory": "64Gi", "pods": "110"})
+        .label(ZONE, f"z{i % 3}").obj() for i in range(20_000))
+    cs.create_pods(
+        MakePod().name(f"q{i:05}").req({"cpu": "250m", "memory": "512Mi"}).label("app", "s")
+        .spread_constraint(1, ZONE, "DoNotSchedule", {"app": "s"}).obj() for i in range(4096))
+    sched = Scheduler(cs, SchedulerConfig(batch_size=1024), device=cuda_device)
+    est_min = hbm.estimate(sched.drain_shape(64)).per_device_bytes
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    idle = hbm.device_budget_bytes(device=cuda_device)
+    keep = 8 << 20
+    free = torch.cuda.mem_get_info(cuda_device)[0]
+    block = torch.empty(free - keep, dtype=torch.uint8, device=cuda_device)
+    try:
+        budget = hbm.device_budget_bytes(device=cuda_device)
+        assert budget <= keep + (2 << 20), (budget, keep)
+        assert idle - budget >= block.numel() - (2 << 20)
+        assert budget < est_min  # so no chunk size fits
+        with pytest.raises(hbm.BudgetExceeded):
+            sched.drain_backlog(chunk_pods=1024)
+        assert sched.pending == 4096  # nothing popped or dispatched
+    finally:
+        del block
+        torch.cuda.empty_cache()
+    # with the block gone the same drain plans its chunk unsplit and binds
+    rep = sched.drain_backlog(chunk_pods=1024)
+    assert rep.budget_splits == 0 and rep.drained == 4096

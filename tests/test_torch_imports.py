@@ -1,12 +1,14 @@
 """The port stands alone: importing every module of kubernetes_tpu_torch
 brings in neither JAX nor anything of the JAX package, nor
-``prometheus_client`` or ``yaml`` (the card's machine is not known to have
-them: the import check runs with both blocked), no source of the port (or
-chip_smoke.py) imports any of them — ``yaml`` only inside the function
-that parses YAML text (``config.types._parse_text``), never at module
-level — the config bridge loads a mapping and JSON text with ``yaml``
-blocked, and an entry point asked for no device does not fall back to the
-CPU when CUDA is absent."""
+``prometheus_client``, ``yaml`` or ``aiohttp`` (the card's machine is not
+known to have them: the import check runs with all three blocked), no
+source of the port (or chip_smoke.py) imports any of them — ``yaml`` only
+inside the function that parses YAML text (``config.types._parse_text``)
+and ``aiohttp`` only inside the extender's ``make_app`` / ``run_server``,
+never at module level — the config bridge loads a mapping and JSON text
+with ``yaml`` blocked, the extender's ``make_app`` names ``aiohttp`` when
+it is missing, and an entry point asked for no device does not fall back
+to the CPU when CUDA is absent."""
 
 import ast
 import subprocess
@@ -27,7 +29,7 @@ import importlib, importlib.abc, pkgutil, sys
 class _Block(importlib.abc.MetaPathFinder):
     # packages the card's machine may lack: importing one is an error
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("prometheus_client", "yaml"):
+        if name.split(".")[0] in ("prometheus_client", "yaml", "aiohttp"):
             raise ImportError(f"blocked: {name}")
         return None
 
@@ -45,7 +47,7 @@ bad = sorted(
     k for k in sys.modules
     if k == "jax" or k.startswith("jax.") or k.startswith("jaxlib")
     or k == "kubernetes_tpu" or k.startswith("kubernetes_tpu.")
-    or k.split(".")[0] in ("prometheus_client", "yaml")
+    or k.split(".")[0] in ("prometheus_client", "yaml", "aiohttp")
 )
 print("count=%d" % len(names))
 print("bad=" + ",".join(bad))
@@ -61,12 +63,28 @@ try:
 except ImportError as e:
     print("yaml_error=" + ("yaml" in str(e)).__str__())
 print("config=ok")
+print("slice6=" + ",".join(
+    n for n in ("solver.evaluate", "server.extender", "obs.sentinel", "obs.timeseries",
+                "obs.bundle")
+    if "kubernetes_tpu_torch." + n in sys.modules
+))
+from kubernetes_tpu_torch.server.extender import ExtenderCore, make_app
+from kubernetes_tpu_torch.state.cluster import ClusterState
+core = ExtenderCore(ClusterState(), backend="oracle")
+try:
+    make_app(core)
+except ImportError as e:
+    print("aiohttp_error=" + ("aiohttp" in str(e)).__str__())
 """
+
+
+# optional packages a module may import inside a function body only
+LAZY_ONLY = ("yaml", "aiohttp")
 
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "kubernetes_tpu", "prometheus_client", "yaml")
+    return top in ("jax", "jaxlib", "kubernetes_tpu", "prometheus_client") + LAZY_ONLY
 
 
 def _imports(path: Path):
@@ -98,6 +116,9 @@ def test_import_every_module_leaves_jax_and_reference_out():
     assert out["bad"] == "", f"forbidden modules imported: {out['bad']}"
     assert out["config"] == "ok"
     assert out["yaml_error"] == "True"  # YAML text names the missing package
+    assert out["slice6"].split(",") == [
+        "solver.evaluate", "server.extender", "obs.sentinel", "obs.timeseries", "obs.bundle"]
+    assert out["aiohttp_error"] == "True"  # make_app names the missing package
 
 
 @pytest.mark.parametrize(
@@ -107,7 +128,7 @@ def test_import_every_module_leaves_jax_and_reference_out():
 def test_no_source_imports_jax_or_reference(path):
     found = [
         n for n, lazy in _imports(ROOT / path)
-        if _forbidden(n) and not (lazy and n == "yaml")
+        if _forbidden(n) and not (lazy and n.split(".")[0] in LAZY_ONLY)
     ]
     assert not found, f"{path} imports {found}"
 

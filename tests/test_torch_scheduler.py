@@ -413,7 +413,6 @@ def test_default_device_raises_without_cuda(monkeypatch):
         ("fleet", object(), "item 8"),
         ("rebalance", object(), "item 9"),
         ("backlog_warm_start", True, "item 10"),
-        ("incarnation", 2, "item 8"),
         ("mesh_devices", 2, "item 11"),
         ("mesh_slice", (0, 2), "item 11"),
     ],
@@ -424,17 +423,32 @@ def test_unported_config_features_raise(field, value, item):
         Scheduler(cs, SchedulerConfig(**{field: value}), device="cpu")
 
 
-@pytest.mark.parametrize("obs", ["bundle_dir", "sentinel"])
-def test_telemetry_bundles_raise(obs, tmp_path):
-    from kubernetes_tpu.obs import SentinelConfig  # the JAX package's; the port has none
-    from kubernetes_tpu_torch.obs import ObsConfig
+@pytest.mark.parametrize("feature", ["incarnation", "bundle_dir", "sentinel"])
+def test_ported_config_features_construct_and_run(feature, tmp_path):
+    """Restart incarnations, replay bundles and the anomaly sentinel were
+    refused until the port had the recovery pass and the solver's capture
+    hook; now each constructs and binds every pod."""
+    from kubernetes_tpu_torch.obs import ObsConfig, SentinelConfig
 
-    cfg = ObsConfig(bundle_dir=str(tmp_path)) if obs == "bundle_dir" else ObsConfig(
-        sentinel=SentinelConfig()
-    )
-    cs = convert.cluster_state(mk_cluster(1))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Scheduler(cs, SchedulerConfig(obs=cfg), device="cpu")
+    kw = {
+        "incarnation": dict(incarnation=2, obs=ObsConfig(journal=True)),
+        "bundle_dir": dict(obs=ObsConfig(bundle_dir=str(tmp_path))),
+        "sentinel": dict(obs=ObsConfig(sentinel=SentinelConfig())),
+    }[feature]
+    ref = mk_cluster(3)
+    for i in range(6):
+        ref.create_pod(MakePod().name(f"p{i}").req({"cpu": "500m"}).obj())
+    cs = convert.cluster_state(ref)
+    sched = Scheduler(cs, SchedulerConfig(**kw), clock=FakeClock(), device="cpu")
+    sched.run_until_settled()
+    assert all(p.node_name for p in cs.list_pods())
+    if feature == "incarnation":
+        outcomes = [json.loads(line)["outcome"] for line in sched.journal.lines]
+        assert outcomes.count("recovered") == len(cs.list_pods())
+    else:
+        path = sched.telemetry.capture("manual")
+        assert (path is not None) == (feature == "bundle_dir")
+        assert sched.telemetry.bundles.snapshot()["captures"] == 1
 
 
 def test_obs_journal_and_slo_run():
@@ -549,7 +563,8 @@ def test_metrics_render_exposition_format():
     assert 'z_seconds_bucket{le="1.0"} 1.0' in text
     assert 'z_seconds_bucket{le="+Inf"} 2.0' in text
     assert "z_seconds_count 2.0" in text and "z_seconds_sum 5.5" in text
-    assert "# TYPE x counter" in text and "# TYPE z_seconds histogram" in text
+    # prometheus_client names a counter's family by its sample name
+    assert "# TYPE x_total counter" in text and "# TYPE z_seconds histogram" in text
     with pytest.raises(ValueError):
         c.labels("a").inc(-1)
     with pytest.raises(ValueError):
