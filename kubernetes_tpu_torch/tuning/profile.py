@@ -16,9 +16,8 @@ new config dialect: every value lands on exactly the key an operator
 would hand-set.
 
 Copied from ``kubernetes_tpu/tuning/profile.py``, without the ``fleet``
-section and the ``pallas`` key (the port has neither) and without
-``dump_yaml``: the document is a mapping, which ``config.types.load``
-takes as it is.
+section and the ``pallas`` key (the port has neither). ``dump_yaml``
+imports ``yaml`` inside the function, so the module imports without it.
 """
 
 from __future__ import annotations
@@ -64,3 +63,9 @@ def tuned_profile(scheduler) -> dict:
         "tuning": {"enabled": False},
     }
     return doc
+
+
+def dump_yaml(doc: dict) -> str:
+    import yaml
+
+    return yaml.safe_dump(doc, sort_keys=True)

@@ -112,11 +112,10 @@ def test_each_cluster_size_and_path(cuda_device, cluster, d_pad):
     _check_sets([(zone, cnt[0], host)], d_pad, case, cluster=cluster)
 
 
-@pytest.mark.parametrize("seed", range(12))
-def test_random_shapes(cuda_device, seed):
-    """A sweep of shapes: d_pad in {8, 8192, 16384, 65536}, N not a
-    multiple of the vector width, all -1 rows, misaligned rows (the scalar
-    path), one or two sets."""
+def _random_sets(seed, cuda_device):
+    """One random case: d_pad in {8, 8192, 16384, 65536}, N not a multiple
+    of the vector width, all -1 rows, misaligned rows (the scalar path),
+    one or two sets. Returns (sets, d_pad, case label)."""
     rng = np.random.default_rng(1000 + seed)
     d_pad = int(rng.choice([8, 8192, 16384, 65536]))
     n = int(rng.integers(1, 12_000))
@@ -141,7 +140,29 @@ def test_random_shapes(cuda_device, seed):
             ).to(cuda_device)
         sets.append((torch.from_numpy(dom).to(cuda_device), cnt_d, gdom))
     shapes = [tuple(d.shape) for d, _, _ in sets]
-    _check_sets(sets, d_pad, f"seed {1000 + seed}, shapes {shapes}")
+    return sets, d_pad, f"seed {1000 + seed}, shapes {shapes}"
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_random_shapes(cuda_device, seed):
+    """A sweep of shapes (``_random_sets``), each held exactly to plain."""
+    sets, d_pad, case = _random_sets(seed, cuda_device)
+    _check_sets(sets, d_pad, case)
+
+
+def test_random_shapes_stress(cuda_device):
+    """ROADMAP queue 3 entry 1, the stress step: the random-shape
+    generator over 500 seeds, each case launched twice (a fresh
+    aggregation each time), every launch held exactly to plain. Prints
+    the launches checked."""
+    checked = 0
+    for seed in range(500):
+        sets, d_pad, case = _random_sets(seed, cuda_device)
+        for launch in range(2):
+            _check_sets(sets, d_pad, f"{case}, launch {launch}")
+            checked += 1
+    print(f"\nrandom-shape stress: {checked} launches checked, all exact")
+    assert checked == 1000
 
 
 def test_prepared_aggregation_follows_in_place_updates(cuda_device):
@@ -160,6 +181,30 @@ def test_prepared_aggregation_follows_in_place_updates(cuda_device):
         cnt[:, step::7] += step + 1
         ex_cnt.index_add_(1, torch.tensor([step], device=cuda_device),
                           torch.ones((8, 1), dtype=torch.int32, device=cuda_device))
+
+
+def test_prepared_aggregation_stress(cuda_device):
+    """ROADMAP queue 3 entry 1, the stress step: the prepared two-set
+    aggregation of ``test_prepared_aggregation_follows_in_place_updates``
+    for 200 steps of in-place count updates, every launch held exactly to
+    plain. Prints the launches checked."""
+    dom, cnt = _inputs(11, 8, 5120, 8192, cuda_device)
+    ex_dom, ex_cnt = _inputs(12, 8, 5120, 8192, cuda_device)
+    sets = [(dom, cnt, None), (ex_dom, ex_cnt, None)]
+    agg = dc.Aggregation(sets, 8192, counts=False)
+    before = dc.LAUNCHES
+    for step in range(200):
+        got = agg()
+        want = dc.aggregate_plain(sets, 8192, counts=False)
+        torch.cuda.synchronize()
+        for i, ((_, g), (_, w)) in enumerate(zip(got, want)):
+            assert_exact(g, w, f"seeds 11/12, T 8 + 8, N 5120, step {step}, set {i}")
+        cnt[:, step % 7::7] += step % 5 + 1
+        ex_cnt.index_add_(1, torch.tensor([step % 5120], device=cuda_device),
+                          torch.ones((8, 1), dtype=torch.int32, device=cuda_device))
+    checked = dc.LAUNCHES - before
+    print(f"\nprepared-aggregation stress: {checked} launches checked, all exact")
+    assert checked == 200
 
 
 @pytest.mark.parametrize("cluster", [1, 2, 4, 8])
@@ -773,3 +818,61 @@ def test_drain_budget_excludes_memory_held_outside(cuda_device):
     # with the block gone the same drain plans its chunk unsplit and binds
     rep = sched.drain_backlog(chunk_pods=1024)
     assert rep.budget_splits == 0 and rep.drained == 4096
+
+
+# -- the simulator and the perf runner ----------------------------------------
+
+
+def test_sim_profile_card_equals_cpu(cuda_device):
+    """churn_heavy (hard zone spread, hostname anti-affinity and hostPort
+    arrivals under churn and injected faults) on the card and on the CPU:
+    the same trace, byte for byte, every invariant OK, and the kernel
+    launched on the card."""
+    from kubernetes_tpu_torch.sim import run_sim
+
+    cpu = run_sim("churn_heavy", seed=0, cycles=8, device="cpu")
+    before = dc.LAUNCHES
+    card = run_sim("churn_heavy", seed=0, cycles=8, device=cuda_device)
+    assert dc.LAUNCHES > before
+    assert card.ok, [v.as_dict() for v in card.violations]
+    assert card.trace.lines == cpu.trace.lines
+    assert card.journal_lines == cpu.journal_lines
+
+
+def test_perf_workload_card_equals_cpu(cuda_device):
+    """The shipped SchedulingPodAntiAffinity workload in "first" mode on
+    the card and on the CPU: the same counts and the same bindings."""
+    import pathlib
+
+    import yaml
+
+    import kubernetes_tpu_torch.perf.runner as runner_mod
+    from kubernetes_tpu_torch.scheduler import SchedulerConfig
+
+    path = pathlib.Path(runner_mod.__file__).parent / "performance-config.yaml"
+    case = next(c for c in yaml.safe_load(path.read_text())
+                if c["name"] == "SchedulingPodAntiAffinity")
+    made, base = [], runner_mod.ClusterState
+
+    class Recording(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    runner_mod.ClusterState = Recording
+    try:
+        results = [
+            runner_mod.PerfRunner(
+                SchedulerConfig(batch_size=256, solver=ExactSolverConfig(tie_break="first")),
+                device=dev,
+            ).run_workload(case["name"], "500Nodes", case["workloadTemplate"],
+                           case["workloads"][0]["params"], path.parent)
+            for dev in (cuda_device, "cpu")
+        ]
+    finally:
+        runner_mod.ClusterState = base
+    card, cpu = results
+    assert card.scheduled == cpu.scheduled == 400
+    assert card.unschedulable == cpu.unschedulable
+    bindings = [{p.key: p.node_name for p in cs.list_pods()} for cs in made]
+    assert bindings[0] == bindings[1]

@@ -5,7 +5,11 @@ known to have them: the import check runs with all three blocked), no
 source of the port (or chip_smoke.py) imports any of them — ``yaml`` only
 inside the function that parses YAML text (``config.types._parse_text``)
 and ``aiohttp`` only inside the extender's ``make_app`` / ``run_server``,
-never at module level — the config bridge loads a mapping and JSON text
+never at module level (``perf/runner.py`` and ``tuning/profile.py``
+import ``yaml`` inside their loaders too) — the simulator, the perf
+runner, the CLI and its ``__main__``, the obs and metrics tools, leader
+election and structured logging import with the rest, the config bridge
+loads a mapping and JSON text
 with ``yaml`` blocked, the extender's ``make_app`` names ``aiohttp`` when
 it is missing, and an entry point asked for no device does not fall back
 to the CPU when CUDA is absent."""
@@ -68,6 +72,13 @@ print("slice6=" + ",".join(
                 "obs.bundle")
     if "kubernetes_tpu_torch." + n in sys.modules
 ))
+print("slice7=" + ",".join(
+    n for n in ("sim", "sim.harness", "sim.invariants", "sim.faults",
+                "sim.generators", "sim.profiles", "sim.trace", "sim.__main__",
+                "perf.runner", "cli", "__main__", "obs.__main__",
+                "metrics.__main__", "utils.leaderelection", "utils.logging")
+    if "kubernetes_tpu_torch." + n in sys.modules
+))
 from kubernetes_tpu_torch.server.extender import ExtenderCore, make_app
 from kubernetes_tpu_torch.state.cluster import ClusterState
 core = ExtenderCore(ClusterState(), backend="oracle")
@@ -111,7 +122,7 @@ def test_import_every_module_leaves_jax_and_reference_out():
     out = dict(
         line.split("=", 1) for line in proc.stdout.splitlines() if "=" in line
     )
-    assert int(out["count"]) >= 70, f"only {out['count']} modules found"
+    assert int(out["count"]) >= 90, f"only {out['count']} modules found"
     assert out["blocked"] == "1"
     assert out["bad"] == "", f"forbidden modules imported: {out['bad']}"
     assert out["config"] == "ok"
@@ -119,6 +130,11 @@ def test_import_every_module_leaves_jax_and_reference_out():
     assert out["slice6"].split(",") == [
         "solver.evaluate", "server.extender", "obs.sentinel", "obs.timeseries", "obs.bundle"]
     assert out["aiohttp_error"] == "True"  # make_app names the missing package
+    assert out["slice7"].split(",") == [
+        "sim", "sim.harness", "sim.invariants", "sim.faults", "sim.generators",
+        "sim.profiles", "sim.trace", "sim.__main__", "perf.runner", "cli",
+        "__main__", "obs.__main__", "metrics.__main__", "utils.leaderelection",
+        "utils.logging"]
 
 
 @pytest.mark.parametrize(
