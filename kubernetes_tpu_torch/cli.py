@@ -13,9 +13,10 @@ service before serving (see its help).
 Copied from ``kubernetes_tpu/cli.py``. ``serve`` and ``perf`` take
 ``--device`` (default: the card; ``cpu`` runs on the CPU), which reaches
 the webhook's evaluator, the embedded Scheduler and the perf runner's
-Schedulers. ``serve --grpc-port > 0`` raises ``NotImplementedError``
-(ROADMAP queue 1 item 9a), and ``--trace-dir`` writes a torch.profiler
-trace (``utils/tracing.py``). Run it as ``python -m kubernetes_tpu_torch``.
+Schedulers. ``serve --grpc-port > 0`` also serves the bulk tensor gRPC
+path (``server/bulk.py``) on the same device, and ``--trace-dir`` writes a
+torch.profiler trace (``utils/tracing.py``). Run it as ``python -m
+kubernetes_tpu_torch``.
 """
 
 from __future__ import annotations
@@ -315,8 +316,7 @@ def main(argv: list[str] | None = None) -> int:
         "--grpc-port",
         type=int,
         default=0,
-        help="the bulk tensor gRPC path; not ported (ROADMAP queue 1 "
-        "item 9a), so a port > 0 raises",
+        help="also serve the bulk tensor gRPC path on this port (0 = off)",
     )
     p_serve.add_argument(
         "--log-format",

@@ -43,9 +43,10 @@ Copied from ``kubernetes_tpu/config/types.py``. What differs:
 - ``_solver_config`` maps onto the port's ``ExactSolverConfig``, which has
   no ``pallas`` switch (the port's kernel always runs); ``tpuSolver.pallas``
   is parsed and ignored.
-- ``scheduler_config`` hands the ``fleet`` and ``rebalance`` sections to
-  the ``SchedulerConfig`` as they are parsed, and ``fleet.meshSlice`` as
-  ``mesh_slice``: the port's Scheduler refuses all three at construction
+- ``scheduler_config`` builds ``rebalance.RebalanceConfig`` from the
+  ``rebalance`` section, as the JAX package does, and hands the ``fleet``
+  section as it is parsed and ``fleet.meshSlice`` as ``mesh_slice``: the
+  port's Scheduler refuses those two at construction
   (``_refuse_unported``, ``parallel/sharding.resolve_mesh``), naming their
   ROADMAP items, instead of ignoring them.
 """
@@ -824,10 +825,20 @@ def scheduler_config(cfg: KubeSchedulerConfiguration):
     profiles = {
         p.scheduler_name: _solver_config(cfg, p) for p in cfg.profiles
     }
-    # the rebalancer (ROADMAP item 9) and fleet mode (item 8) are not
-    # ported: their parsed sections ride along so the Scheduler refuses
-    # them at construction instead of running without them
-    rebalance = cfg.rebalance if cfg.rebalance.enabled else None
+    rebalance = None
+    if cfg.rebalance.enabled:
+        from ..rebalance.runtime import RebalanceConfig
+
+        rebalance = RebalanceConfig(
+            interval_s=cfg.rebalance.interval_seconds,
+            max_moves_per_cycle=cfg.rebalance.max_moves_per_cycle,
+            min_packing=cfg.rebalance.min_packing_utilization,
+            min_gain=cfg.rebalance.min_gain_points,
+            nominate=cfg.rebalance.nominate,
+        )
+    # fleet mode (ROADMAP item 8c) is not ported: its parsed section
+    # rides along so the Scheduler refuses it at construction instead of
+    # running without it
     fleet = cfg.fleet if cfg.fleet.replica else None
     gang = None
     if cfg.gang.enabled:

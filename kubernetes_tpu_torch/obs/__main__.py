@@ -31,9 +31,8 @@ Exit status: 0 found/valid; 1 pod not found or schema errors; 2 usage.
 
 Copied from ``kubernetes_tpu/obs/__main__.py``. ``replay`` takes
 ``--device`` (default: the card; ``cpu`` replays on the CPU), and
-``explain --hub`` raises ``NotImplementedError``: the hub is read over
-``server/bulk.py``'s gRPC client, which is not ported (ROADMAP queue 1
-item 9a).
+``explain --hub`` raises ``NotImplementedError``: the occupancy hub is the
+fleet's, which is not ported (ROADMAP queue 1 item 8c).
 """
 
 from __future__ import annotations
@@ -48,11 +47,11 @@ def _load_lines(args) -> list[str]:
     for trace in args.trace or []:
         lines.extend(Path(trace).read_text().splitlines())
     if getattr(args, "hub", None):
-        # the occupancy hub's journal aggregation surface is read with
-        # server/bulk.py's BulkClient in the JAX package
+        # the occupancy hub's journal aggregation surface belongs to the
+        # fleet, which the port does not have yet
         raise NotImplementedError(
-            "explain --hub reads the fleet hub over the bulk gRPC path, "
-            "which is not ported (ROADMAP queue 1 item 9a)"
+            "explain --hub reads the fleet's occupancy hub, which is not "
+            "ported (ROADMAP queue 1 item 8c)"
         )
     if args.url:
         import json
@@ -177,8 +176,8 @@ def main(argv=None) -> int:
     )
     p_explain.add_argument(
         "--hub", metavar="HOST:PORT",
-        help="bulk gRPC address of a fleet occupancy hub; not ported "
-        "(ROADMAP queue 1 item 9a), so it raises",
+        help="bulk gRPC address of a fleet occupancy hub; the fleet is not "
+        "ported (ROADMAP queue 1 item 8c), so it raises",
     )
     p_explain.set_defaults(fn=cmd_explain)
 

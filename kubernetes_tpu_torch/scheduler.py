@@ -21,18 +21,21 @@ and ``run_until_settled``, the pipelined and streaming loops
 (``run_pipelined``, ``run_streaming``, with the conflict and occupancy
 fences and the completion thread), the budgeted ``drain_backlog`` and the
 auto-tuning runtime (``SchedulerConfig.tuning``), restart incarnations
-(``SchedulerConfig.incarnation > 1``: the recovery pass of ``_recover``)
-and the flight telemetry with its anomaly sentinel and replay-bundle
-capture (``ObsConfig.sentinel`` / ``bundle_dir``), with everything they
-reach. The ``Scheduler`` takes ``device`` (None = the card, raising
-without CUDA) and hands it to every solve — deferred, split, chained and
-streamed ones too — and to every preemption dry-run; the resilience
-ladder's CPU rung solves on the CPU, after an injected solve fault or an
-output that failed validation; a kernel or card failure is raised instead.
-Not ported yet, and refused at construction with NotImplementedError
-naming the ROADMAP item: fleet mode (item 8c), the rebalancer (item 9b),
-the backlog warm start (item 10), and a multi-device mesh or mesh slice
-(item 11).
+(``SchedulerConfig.incarnation > 1``: the recovery pass of ``_recover``),
+the flight telemetry with its anomaly sentinel and replay-bundle capture
+(``ObsConfig.sentinel`` / ``bundle_dir``), the continuous rebalancer
+(``SchedulerConfig.rebalance``, ticked by ``run_until_settled``,
+``run_pipelined`` and ``run_streaming`` when idle), and the relax planner's
+backlog warm start (``backlog_warm_start``, ``relax_plan_backlog``), with
+everything they reach. The ``Scheduler`` takes ``device`` (None = the
+card, raising without CUDA) and hands it to every solve — deferred, split,
+chained and streamed ones too, the rebalancer's plan and the relax plan —
+and to every preemption dry-run; the resilience ladder's CPU rung solves
+on the CPU, after an injected solve fault or an output that failed
+validation; a kernel or card failure is raised instead. Not ported yet,
+and refused at construction with NotImplementedError naming the ROADMAP
+item: fleet mode (item 8c, so ``fleet_drain_backlog`` is not here either),
+and a multi-device mesh or mesh slice (item 11).
 """
 
 from __future__ import annotations
@@ -346,6 +349,11 @@ class BacklogDrainReport:
     estimated_per_device_bytes: int = 0  # memory model, resident worst case
     estimated_h2d_bytes: int = 0  # memory model's predicted upload total
     measured_h2d_bytes: int = 0  # h2d counter delta over the drain
+    # mega-planner warm-start: activeQ entries re-keyed by the relaxed
+    # plan's rank (0 = warm-start off or nothing ranked)
+    warm_start_ranked: int = 0
+    relax_iterations: int = 0  # dual-ascent iterations the warm-start ran
+    relax_residual: float = 0.0  # final relative-overcommit residual
     results: list = field(default_factory=list)
 
 
@@ -472,16 +480,6 @@ def _refuse_unported(config: SchedulerConfig) -> None:
     if cfg.fleet is not None:
         raise NotImplementedError(
             "fleet mode is not ported (ROADMAP queue 1 item 8c)"
-        )
-    if cfg.rebalance is not None:
-        raise NotImplementedError(
-            "the rebalancer is not ported: it needs the auction "
-            "(ROADMAP queue 1 item 9b)"
-        )
-    if cfg.backlog_warm_start:
-        raise NotImplementedError(
-            "the backlog warm start is not ported: it needs the relax "
-            "planner (ROADMAP queue 1 item 10)"
         )
     # mesh_devices > 1 and mesh_slice raise in resolve_mesh (item 11)
 
@@ -765,6 +763,13 @@ class Scheduler:
         # tier — dispatch, probe, bisection sub-solve, host rung. May
         # raise to inject a solver-boundary fault deterministically.
         self._solve_fault = None
+        # continuous rebalancer (rebalance/): ticked by the loops at idle
+        # cycle boundaries; None = off. Its plan solves run on self.device.
+        self.rebalancer = None
+        if self.config.rebalance is not None:
+            from .rebalance.runtime import Rebalancer
+
+            self.rebalancer = Rebalancer(self.config.rebalance, self.clock)
         self.snapshot = Snapshot()
         from .state.volume_binder import VolumeBinder
 
@@ -1372,6 +1377,13 @@ class Scheduler:
     def _schedule_cycle(self) -> BatchResult:
         pending: list[tuple] = []
         res = BatchResult()
+        if self.rebalancer is not None:
+            # background defragmentation: a no-op unless the interval
+            # elapsed AND the queues are idle. Evictions re-enter the
+            # queue synchronously (the eviction's watch events land
+            # under the cluster lock), so the pop below picks the
+            # migrating pods up in this same cycle.
+            self.rebalancer.maybe_run(self, res)
         t0 = self.clock.perf()
         with self.cluster.lock, self.obs.span("pop") as sp:
             # re-admit quarantined pods whose TTL'd backoff elapsed
@@ -4430,6 +4442,17 @@ class Scheduler:
                     if flights:
                         drain()
                         continue  # discards/failures may requeue work
+                    if self.rebalancer is not None:
+                        # idle + pipeline drained: the one safe point
+                        # for a rebalance pass in this loop (no
+                        # in-flight solve can go stale on the eviction
+                        # events). Evictions re-populate the queue, so
+                        # loop back and schedule the migrations.
+                        r = BatchResult()
+                        if self.rebalancer.maybe_run(self, r) > 0:
+                            r.completed_at = self.clock.perf()
+                            out.append(r)
+                            continue
                     break
                 batches += 1
                 # batch id for this pop's spans/journal (the sync branch
@@ -4814,6 +4837,13 @@ class Scheduler:
                     if slots:
                         drain()
                         continue  # discards/failures may requeue work
+                    if self.rebalancer is not None:
+                        # idle + ring drained: the safe rebalance point
+                        r = BatchResult()
+                        if self.rebalancer.maybe_run(self, r) > 0:
+                            r.completed_at = self.clock.perf()
+                            out.append(r)
+                            continue
                     break
                 batches += 1
                 self._trace_step += 1
@@ -5051,6 +5081,113 @@ class Scheduler:
 
     # -- backlog drain (the accelerator-resident mega-backlog path) --
 
+    def _warm_start_backlog(self, report: BacklogDrainReport) -> None:
+        """Mega-planner warm-start: one convex-relaxation solve
+        (solver/relax.py) over the WHOLE queued backlog against the live
+        snapshot, on the scheduler's device, then re-key the activeQ
+        tiebreak with the relaxed plan's target-node rank — pods the
+        global plan co-locates pop adjacently, so each drain chunk arrives
+        at the solver already packed against pre-fitted capacity. Advisory
+        only: the per-chunk solves still place against cluster truth, so a
+        stale plan degrades to the old ordering, never to a wrong binding.
+        The relaxation's duals are exported per node group as the
+        ``scheduler_relax_dual_price`` autoscaler cost signal."""
+        from .api.objects import ZONE_LABELS
+        from .solver.relax import group_prices
+
+        solver, pods, assigned, batch, slot_nodes = self._relax_plan(None)
+        if solver is None:
+            return
+        stats = solver.last
+        rank = {
+            p.key: int(a)
+            for p, a in zip(pods, assigned)
+            if int(a) >= 0
+        }
+        with self.cluster.lock:
+            report.warm_start_ranked = self.queue.reorder_active(rank)
+        report.relax_iterations = stats.iterations
+        report.relax_residual = stats.residual
+        metrics.relax_iterations.observe(stats.iterations)
+        metrics.relax_residual.set(stats.residual)
+        metrics.relax_repair_rounds.observe(stats.repair_rounds)
+
+        def zone_of(node) -> str:
+            if node is not None:
+                for lbl in ZONE_LABELS:
+                    if lbl in node.labels:
+                        return node.labels[lbl]
+            return "default"
+
+        groups = [zone_of(nd) for nd in slot_nodes]
+        for grp, price in group_prices(
+            stats, groups, valid=batch.valid
+        ).items():
+            metrics.relax_dual_price.labels(grp).set(price)
+        self._log.info(
+            "backlog warm-start: ranked %d/%d pods in %d relax "
+            "iterations (residual %.4f)",
+            report.warm_start_ranked, len(pods),
+            stats.iterations, stats.residual,
+            extra={"step": self._trace_step},
+        )
+
+    def _relax_plan(self, pods):
+        """One relax solve (no tail repair) of ``pods`` (None: the active
+        queue) against the live snapshot, on a throwaway copy of its
+        occupancy: (solver, pods, assignments, batch, slot_nodes), or
+        (None, pods, None, batch, slot_nodes) when there is nothing to
+        plan."""
+        import dataclasses
+
+        from .solver.relax import RelaxConfig, RelaxSolver
+
+        with self.cluster.lock:
+            batch = self.snapshot.update(self.cache)
+            if pods is None:
+                pods = self.queue.active_pods()
+            slot_nodes = []
+            for name in self.snapshot.names:
+                info = self.cache.nodes.get(name) if name else None
+                slot_nodes.append(info.node if info is not None else None)
+        if not pods or batch.num_nodes == 0:
+            return None, pods, None, batch, slot_nodes
+        pbatch = build_pod_batch(pods, batch.vocab)
+        static = build_static_tensors(
+            pods, pbatch, slot_nodes, batch.padded
+        )
+        # the relaxation replaces its node batch's occupancy — plan on a
+        # copy, cluster truth is untouched. No tail repair: unranked pods
+        # keep their FIFO order within the band.
+        plan_batch = dataclasses.replace(
+            batch,
+            allocatable=batch.allocatable.copy(),
+            used=batch.used.copy(),
+            nonzero_used=batch.used[:2].copy(),
+            pod_count=batch.pod_count.copy(),
+        )
+        solver = RelaxSolver(RelaxConfig(), repair=None, device=self.device)
+        assigned = solver.solve(plan_batch, pbatch, static)
+        return solver, pods, assigned, batch, slot_nodes
+
+    def relax_plan_backlog(self, pods=None) -> "dict[str, str | None]":
+        """The fleet drain coordinator's planning half: one relax
+        mega-solve over the backlog (``pods``, default the active queue),
+        returned as a pod-key -> planned-node-name map (None = the
+        relaxation left the pod unplaced). Same solve the warm-start runs,
+        but here the OUTPUT is the plan itself. Advisory like the
+        warm-start: a stale plan only mis-shards, never mis-binds."""
+        solver, pods, assigned, batch, _ = self._relax_plan(pods)
+        if solver is None:
+            return {p.key: None for p in pods}
+        plan: dict = {}
+        for p, a in zip(pods, assigned):
+            a = int(a)
+            plan[p.key] = (
+                batch.names[a] if 0 <= a < batch.num_nodes else None
+            )
+        return plan
+
     def drain_shape(self, chunk_pods: int, sample: int = 256):
         """The HBM budget model's inputs for draining THIS scheduler's
         queue in ``chunk_pods``-sized chunks (solver/budget.DrainShape):
@@ -5161,15 +5298,10 @@ class Scheduler:
         as the ``scheduler_backlog_hbm_*_bytes`` gauge pair so the
         model stays checkable in production.
 
-        ``warm_start=True`` (the relax planner's ranking) raises
-        NotImplementedError: the planner is not ported."""
+        ``warm_start`` (default: ``config.backlog_warm_start``) ranks the
+        queue by a relax plan of the whole backlog first
+        (``_warm_start_backlog``), on the scheduler's device."""
         from .solver import budget as hbm
-
-        if warm_start:
-            raise NotImplementedError(
-                "the backlog warm start is not ported: it needs the relax "
-                "planner (ROADMAP queue 1 item 10)"
-            )
 
         with self.cluster.lock:
             backlog = len(self.queue)
@@ -5216,6 +5348,13 @@ class Scheduler:
             backlog, chunk, splits, est.per_device_bytes, budget,
             extra={"step": self._trace_step},
         )
+        if (
+            warm_start
+            if warm_start is not None
+            else self.config.backlog_warm_start
+        ):
+            self._warm_start_backlog(report)
+
         old_batch = self.config.batch_size
         self.config.batch_size = chunk
         self._backlog_drain_active = True

@@ -46,10 +46,9 @@ accepts/returns bare node names resolved against that state.
 Copied from ``kubernetes_tpu/server/extender.py``. ``ExtenderCore`` and
 ``run_server`` take ``device`` (None = the card, raising without CUDA;
 ``"cpu"`` runs on the CPU) for the evaluator, the preemption dry-run and
-the embedded Scheduler. The port has no fleet (``/debug/hub`` answers its
-404) and no bulk tensor gRPC path: ``grpc_port > 0`` raises
-NotImplementedError (ROADMAP queue 1 item 9a, which brings the auction
-``server/bulk.py`` needs).
+the embedded Scheduler, and for the bulk tensor gRPC path that
+``grpc_port > 0`` serves beside the webhook (``server/bulk.py``). The port
+has no fleet (``/debug/hub`` answers its 404).
 """
 
 from __future__ import annotations
@@ -805,17 +804,12 @@ def run_server(
 ) -> None:
     """Blocking server entry (the cmd/kube-scheduler#Run analog serves
     healthz+metrics on 10259). mode="scheduler" also runs the batching
-    scheduler loop over the ingested state. ``device``: where evaluations,
-    dry-runs and the embedded Scheduler's solves run (None = the card).
-    grpc_port > 0 (the bulk tensor gRPC path, SURVEY §6.8) raises
-    NotImplementedError: ``server/bulk.py`` needs the auction."""
+    scheduler loop over the ingested state; grpc_port > 0 additionally
+    serves the bulk tensor gRPC path (SURVEY §6.8). ``device``: where
+    evaluations, dry-runs, bulk solves and the embedded Scheduler's solves
+    run (None = the card)."""
     import logging
 
-    if grpc_port:
-        raise NotImplementedError(
-            "the bulk tensor gRPC path is not ported: server/bulk.py needs "
-            "the auction (ROADMAP queue 1 item 9a)"
-        )
     from aiohttp import web
 
     log = logging.getLogger("kubernetes_tpu_torch.serve")
@@ -846,5 +840,17 @@ def run_server(
             "observability": bool(recorder),
         },
     )
+    grpc_server = None
+    if grpc_port:
+        from .bulk import serve_bulk
+
+        grpc_server = serve_bulk(
+            cluster, port=grpc_port, solver_config=solver_config,
+            tracer=tracer, device=device,
+        )
     app = make_app(core, scheduler=scheduler, recorder=recorder)
-    web.run_app(app, host=host, port=port)
+    try:
+        web.run_app(app, host=host, port=port)
+    finally:
+        if grpc_server is not None:
+            grpc_server.stop(grace=1.0)

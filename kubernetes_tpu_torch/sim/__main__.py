@@ -12,9 +12,8 @@
     python -m kubernetes_tpu_torch.sim --seed 0 --profile node_flaps --selfcheck
 
 Runs on the card unless ``--device cpu`` is given. ``--fleet`` raises
-``NotImplementedError`` (ROADMAP queue 1 item 8c), as do the profiles
-that need the rebalancer (9b) or the relax planner (10), and
-``--mesh-devices > 1`` (11).
+``NotImplementedError`` (ROADMAP queue 1 item 8c), as do the fleet
+profiles, and ``--mesh-devices > 1`` (11).
 
 Exit status: 0 clean; 1 invariant violations / failed settle / replay
 divergence; 2 usage errors.

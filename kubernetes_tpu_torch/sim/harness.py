@@ -24,10 +24,10 @@ footer.
 Copied from ``kubernetes_tpu/sim/harness.py``, on the port's
 ``Scheduler``. ``SimHarness``, ``run_sim`` and ``replay_trace`` take
 ``device`` (None = the card, raising without CUDA), which the scheduler
-config carries. A profile that needs what the port lacks raises
-``NotImplementedError`` at construction, naming its ROADMAP item:
-``rebalance`` (item 9b), ``backlog_warm_start`` (item 10) and the fleet
-profiles (item 8c). The megaplan probe is therefore not here.
+config carries, and so the rebalancer's plans (``fragmentation``) and the
+relax planner of the megaplan probe and warm start (``megaplan``). The
+fleet profiles raise ``NotImplementedError`` at construction, naming
+ROADMAP item 8c.
 """
 
 from __future__ import annotations
@@ -58,18 +58,22 @@ from ..obs import ObsConfig
 from .invariants import (
     BindTransitionTracker,
     MonotonicCounters,
+    RebalanceTracker,
     Violation,
     _record,
     check_capacity,
     check_constraints,
     check_journal_completeness,
     check_lost_pods,
+    check_megaplan,
     check_no_partial_gangs,
+    check_rebalance,
     check_recovery,
     check_resilience,
     check_telemetry,
     check_tuning,
     merged_last_outcomes,
+    packed_utilization,
 )
 from .profiles import PROFILES, Profile, get_profile
 from .trace import TraceReader, TraceWriter
@@ -132,8 +136,9 @@ FLEET_PROFILES = frozenset({
 
 
 def refuse_unported(profile: Profile) -> None:
-    """A profile that needs a module the port lacks raises here, naming
-    its ROADMAP item; none is skipped or run without its feature."""
+    """A profile that needs a module the port lacks (the fleet) raises
+    here, naming its ROADMAP item; none is skipped or run without its
+    feature."""
     if (
         profile.name in FLEET_PROFILES
         or profile.fleet_drain
@@ -144,16 +149,6 @@ def refuse_unported(profile: Profile) -> None:
         raise NotImplementedError(
             f"profile {profile.name} drives the fleet, which is not "
             "ported (ROADMAP queue 1 item 8c)"
-        )
-    if profile.rebalance:
-        raise NotImplementedError(
-            f"profile {profile.name} needs the rebalancer, which is not "
-            "ported (ROADMAP queue 1 item 9b)"
-        )
-    if profile.backlog_warm_start:
-        raise NotImplementedError(
-            f"profile {profile.name} needs the relax planner, which is "
-            "not ported (ROADMAP queue 1 item 10)"
         )
 
 
@@ -293,6 +288,42 @@ class SimHarness:
         # capture-on-anomaly replay bundles (telemetry profiles): the
         # telemetry invariant replays every bundle written here
         self.bundle_dir = bundle_dir
+        # continuous rebalancer (rebalance/): the
+        # fragmentation profile's defragmentation loop, plus a seeded
+        # PDB-guarded cohort the rebalancer must never move
+        rebalance_cfg = None
+        self.rebalance_tracker: RebalanceTracker | None = None
+        if self.profile.rebalance:
+            from ..rebalance.runtime import RebalanceConfig
+
+            rebalance_cfg = RebalanceConfig(
+                interval_s=self.profile.rebalance_interval_s,
+                max_moves_per_cycle=self.profile.rebalance_budget,
+                min_packing=self.profile.rebalance_min_packing,
+            )
+            if self.profile.pdb_guard_rate > 0:
+                from ..api.labels import (
+                    Selector,
+                    requirements_from_match_labels,
+                )
+                from ..api.objects import PodDisruptionBudget
+                from .generators import PDB_GUARD_LABEL
+
+                self.cluster.create_pdb(
+                    PodDisruptionBudget(
+                        name="sim-pdb-guard",
+                        namespace="default",
+                        selector=Selector(
+                            requirements=requirements_from_match_labels(
+                                {PDB_GUARD_LABEL: "1"}
+                            )
+                        ),
+                        disruptions_allowed=0,
+                    )
+                )
+            # constructed AFTER the PDB so its allowance mirror seeds
+            # from the original budgets
+            self.rebalance_tracker = RebalanceTracker(self.cluster)
         from ..resilience import ResilienceConfig
 
         # sim-sized tuning windows: short enough that both directions
@@ -364,6 +395,7 @@ class SimHarness:
             extenders=extenders,
             out_of_tree_plugins=plugins,
             tuning=tuning_cfg,
+            rebalance=rebalance_cfg,
             # every sim scheduler binds under a fence token so a
             # crash-restarted incarnation structurally supersedes its
             # predecessor (the commit-fencing layer rides every
@@ -442,6 +474,10 @@ class SimHarness:
         # backlog drain (backlog_drain profiles): cycle 0's
         # drain_backlog report, surfaced in the footer summary
         self._backlog_report = None
+        # mega-planner probe result (megaplan profiles): relax-vs-oracle
+        # A/B on the pre-drain snapshot, counts and rounded ratios only so
+        # --selfcheck stays byte-identical
+        self._megaplan = None
         # was the tuner settled when the profile's workload shift
         # landed? Shift detection compares against the SETTLED
         # baseline signature, so a tuner still mid-convergence at the
@@ -575,6 +611,105 @@ class SimHarness:
             undelivered=self.bus.pending_pod_adds,
         )
 
+    def _megaplan_probe(self) -> None:
+        """Mega-planner acceptance probe (megaplan profiles):
+        on the FROZEN pre-drain cycle-0 snapshot, solve the whole
+        backlog with the convex relaxation (dual ascent + deterministic
+        rounding + auction tail repair — the exact engine the planner
+        and warm-start use) and replay the plan against the sequential
+        oracle:
+
+        - **validity** — every placed pick must be in the oracle's
+          feasible set at that step (``FullOracle.validate_feasible``:
+          no overcommit, every filter honored — tie-set parity is
+          deliberately NOT required of a global plan);
+        - **quality** — placements vs the oracle's own greedy run on
+          the identical snapshot; check_megaplan asserts the ratio
+          floor.
+
+        Everything is host python over frozen arrays — counts and
+        rounded ratios only ride the footer, so same-seed runs stay
+        byte-identical under --selfcheck. The relax solve runs on the
+        run's device."""
+        import dataclasses
+
+        from ..ops.oracle.profile import FullOracle, make_oracle_nodes
+        from ..solver.relax import RelaxConfig, RelaxSolver
+        from ..solver.single_shot import SingleShotConfig
+        from ..tensorize.plugins import build_static_tensors
+        from ..tensorize.schema import build_pod_batch
+
+        sched = self.scheduler
+        with self.cluster.lock:
+            batch = sched.snapshot.update(sched.cache)
+            pods = sched.queue.active_pods()
+            slot_nodes = []
+            for name in sched.snapshot.names:
+                info = sched.cache.nodes.get(name) if name else None
+                slot_nodes.append(info.node if info is not None else None)
+            bound: dict[str, list] = {}
+            for p in self.cluster.list_pods():
+                if p.node_name:
+                    bound.setdefault(p.node_name, []).append(p)
+        if not pods or batch.num_nodes == 0:
+            return
+        # the queue's own pop order: priority bands first, FIFO within
+        pods = sorted(
+            pods, key=lambda p: (-p.effective_priority, p.key)
+        )
+        pbatch = build_pod_batch(pods, batch.vocab)
+        static = build_static_tensors(
+            pods, pbatch, slot_nodes, batch.padded
+        )
+        plan_batch = dataclasses.replace(
+            batch,
+            allocatable=batch.allocatable.copy(),
+            used=batch.used.copy(),
+            nonzero_used=batch.used[:2].copy(),
+            pod_count=batch.pod_count.copy(),
+        )
+        solver = RelaxSolver(
+            RelaxConfig(), repair=SingleShotConfig(), device=self.device
+        )
+        assigned = solver.solve(plan_batch, pbatch, static)
+        stats = solver.last
+        picks = [int(a) for a in assigned]
+        # a pick into the padding region is a validity failure in its
+        # own right — mask it to unplaced for the replay, count it
+        oob = [
+            (p.key, a)
+            for p, a in zip(pods, picks)
+            if a >= batch.num_nodes
+        ]
+        picks = [a if a < batch.num_nodes else -1 for a in picks]
+        names = [
+            batch.names[a] if a >= 0 else None for a in picks
+        ]
+        real_nodes = [nd for nd in slot_nodes if nd is not None]
+        errors = [
+            f"pod {k}: pick {a} is a padding slot" for k, a in oob
+        ] + FullOracle(
+            make_oracle_nodes(real_nodes, bound)
+        ).validate_feasible(pods, picks, names=names)
+        exact_assigned, _ = FullOracle(
+            make_oracle_nodes(real_nodes, bound)
+        ).schedule(pods)
+        relax_placed = int(sum(1 for a in picks if a >= 0))
+        exact_placed = int(sum(1 for a in exact_assigned if a >= 0))
+        self._megaplan = {
+            "pods": len(pods),
+            "relax_placed": relax_placed,
+            "exact_placed": exact_placed,
+            "objective_ratio": round(
+                relax_placed / max(exact_placed, 1), 4
+            ),
+            "plan_valid": not errors,
+            "plan_errors": len(errors),
+            "iterations": int(stats.iterations),
+            "residual": round(float(stats.residual), 4),
+            "repaired": int(stats.repaired_pods),
+        }
+
     def _drive_once(self, cycle: int) -> None:
         if self.profile.backlog and cycle == 0 and self.streaming:
             # the seeded mega-backlog drains through the HBM-budget-
@@ -590,8 +725,14 @@ class SimHarness:
             if self.profile.backlog_force_split:
                 shape = self.scheduler.drain_shape(chunk)
                 budget_bytes = hbm.estimate(shape).per_device_bytes - 1
+            if self.profile.backlog_warm_start:
+                # mega-planner probe on the FROZEN pre-drain snapshot:
+                # relax+repair vs the sequential oracle anchor —
+                # check_megaplan asserts validity + the ratio floor
+                self._megaplan_probe()
             report = self.scheduler.drain_backlog(
                 chunk_pods=chunk, budget_bytes=budget_bytes,
+                warm_start=self.profile.backlog_warm_start or None,
             )
             self._backlog_report = report
             for r in report.results:
@@ -834,6 +975,42 @@ class SimHarness:
                 device_faults=self.solver_injector.injected,
                 poison_hits=self.solver_injector.poison_hits,
             )
+        rebalance_summary = None
+        if self.profile.rebalance:
+            reb = self.scheduler.rebalancer
+            if reb is not None:
+                reb.reconcile(self.cluster)
+            overruns = (
+                self.rebalance_tracker.pdb_overruns
+                if self.rebalance_tracker is not None
+                else 0
+            )
+            final_packing = packed_utilization(self.cluster)
+            check_rebalance(
+                self.cycles + self.max_settle_rounds,
+                self.violations,
+                history=reb.history if reb is not None else [],
+                budget=self.profile.rebalance_budget,
+                pdb_overruns=overruns,
+                migrations_completed=(
+                    reb.migrations_completed if reb is not None else 0
+                ),
+                # the last churn cycle drives at t == cycles; only
+                # passes strictly after it are churn-free, so the
+                # monotonicity window opens at cycles + 1
+                churn_end_t=float(self.cycles) + 1.0,
+                final_packing=final_packing,
+            )
+            rebalance_summary = {
+                **(reb.stats() if reb is not None else {}),
+                "tracker_evictions": (
+                    self.rebalance_tracker.evictions
+                    if self.rebalance_tracker is not None
+                    else 0
+                ),
+                "pdb_overruns": overruns,
+                "final_packing": round(final_packing, 4),
+            }
         gang_summary = None
         if self._gang_profile:
             from ..gang import GangTracker
@@ -900,6 +1077,26 @@ class SimHarness:
                 bundle_dir=self.bundle_dir,
                 device=self.device,
             )
+        megaplan_summary = None
+        if self.profile.backlog_warm_start:
+            # merge the pre-drain probe with the drain report's
+            # warm-start counters (ranked pods, relax iterations) —
+            # check_megaplan needs both sides to call the feature
+            # engaged non-vacuously
+            rep = self._backlog_report
+            megaplan_summary = dict(self._megaplan or {})
+            megaplan_summary["ranked"] = (
+                rep.warm_start_ranked if rep is not None else 0
+            )
+            if not megaplan_summary.get("iterations"):
+                megaplan_summary["iterations"] = (
+                    rep.relax_iterations if rep is not None else 0
+                )
+            check_megaplan(
+                self.cycles + self.max_settle_rounds,
+                self.violations,
+                summary=megaplan_summary if self._megaplan else None,
+            )
         bindings = {
             p.key: p.node_name
             for p in sorted(self.cluster.list_pods(), key=lambda q: q.key)
@@ -961,10 +1158,10 @@ class SimHarness:
                 else 0
             ),
             "recovered_records": recovered_records,
-            # continuous rebalancer (item 9b) and the mega-planner
-            # (item 10): not ported, so always None — the keys stay so
-            # the footer matches the JAX package's
-            "rebalance": None,
+            # continuous rebalancer (the fragmentation profile): pass
+            # history, eviction counts from the independent tracker,
+            # PDB overruns (must be 0), final packed utilization
+            "rebalance": rebalance_summary,
             # closed-loop auto-tuning (tuning_convergence / --tuning):
             # probes/moves/settled/shifts/guardrail counters + final
             # knob values — the tuning invariant's assertion target
@@ -995,7 +1192,11 @@ class SimHarness:
                 if self._backlog_report is not None
                 else None
             ),
-            "megaplan": None,
+            # convex-relaxation mega-planner (megaplan profiles): the
+            # pre-drain probe's validity/ratio verdict + warm-start
+            # counters — check_megaplan's assertion target; counts and
+            # rounded ratios only (byte-identical under --selfcheck)
+            "megaplan": megaplan_summary,
             # the journal digest rides in the footer, so the trace
             # selfcheck also proves journal byte-identity across runs
             # (all incarnations' lines, in incarnation order)

@@ -148,19 +148,17 @@ def test_empty_queue_drain_is_a_noop():
     assert report.pods == 0 and report.chunks == 0 and report.results == []
 
 
-def test_warm_start_raises_not_implemented():
-    """The relax planner is not ported (ROADMAP item 10): the warm start
-    raises, at construction and per call, instead of being ignored."""
-    from kubernetes_tpu_torch import convert
-    from kubernetes_tpu_torch.scheduler import Scheduler, SchedulerConfig
-
-    pair = mk_pair(8)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Scheduler(convert.cluster_state(pair.ref_cluster), SchedulerConfig(backlog_warm_start=True),
-                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pair.port.drain_backlog(chunk_pods=16, budget_bytes=BUDGET, warm_start=True)
-    assert pair.port.pending == 8  # nothing popped
+def test_warm_start_ranks_before_the_drain():
+    """The relax planner's warm start, off by default and asked for per
+    call: both packages rank the same number of pods in the same number of
+    iterations, then drain with the same results and bindings."""
+    pair = mk_pair(48)
+    ref, port = pair.run("drain", chunk_pods=16, budget_bytes=BUDGET, warm_start=True)
+    assert port.warm_start_ranked == ref.warm_start_ranked == 48
+    assert port.relax_iterations == ref.relax_iterations >= 1
+    assert port.drained == 48
+    r, p = pair.bindings()
+    assert p == r
 
 
 def test_device_budget_bytes_without_a_card_is_the_floor(monkeypatch):

@@ -150,11 +150,6 @@ def test_cli_perf_defaults_to_the_card(tmp_path):
         main(["perf", str(_mini_workload(tmp_path))])
 
 
-def test_serve_grpc_port_raises():
-    with pytest.raises(NotImplementedError, match=r"item 9a\)"):
-        main(["serve", "--device", "cpu", "--grpc-port", "50051"])
-
-
 # -- serve as a subprocess ---------------------------------------------------------
 
 
@@ -424,6 +419,43 @@ def test_serve_debug_surfaces_end_to_end(tmp_path):
         assert cap["captured"] is True
         assert cap["bundles"]["captures"] >= 1
         assert cap["bundles"]["by_trigger"].get("manual", 0) >= 1
+    assert serve.rc == 0, serve.log()
+
+
+def test_serve_grpc_port_answers_bulk_solves(tmp_path):
+    """``serve --grpc-port`` also serves the bulk tensor gRPC path: a
+    ``BulkClient`` single-shot solve over the process's ingested nodes
+    answers as the JAX package's ``BulkCore`` does over the same nodes, and
+    an exact solve (the default "random" tie-break, which the port cannot
+    reproduce) places every pod."""
+    import numpy as np
+
+    from kubernetes_tpu.api.objects import Node as RefNode
+    from kubernetes_tpu.server import tensorcodec as ref_codec
+    from kubernetes_tpu.server.bulk import BulkCore as RefBulkCore
+    from kubernetes_tpu.state.cluster import ClusterState as RefCluster
+    from kubernetes_tpu_torch.server.bulk import BulkClient
+
+    nodes = _nodes(4)
+    ref_cluster = RefCluster()
+    for n in nodes:
+        ref_cluster.create_node(RefNode.from_dict(n.to_dict()))
+    ref = RefBulkCore(ref_cluster)
+    gport = _free_port()
+    serve = _Serve(tmp_path, {"nodes": [n.to_dict() for n in nodes]},
+                   "--grpc-port", str(gport), mode="extender")
+    with serve:
+        client = BulkClient(f"127.0.0.1:{gport}")
+        cpu, mem = np.full(12, 1000, np.int64), np.full(12, 1 << 30, np.int64)
+        for mode in ("single_shot", "exact"):
+            meta, arrays = client.solve(cpu_milli=cpu, mem_bytes=mem, mode=mode)
+            assert (arrays["assignments"] >= 0).all()
+        rmeta, rarrays = ref_codec.decode(ref.solve(ref_codec.encode(
+            {"mode": "single_shot"}, {"cpu_milli": cpu, "mem_bytes": mem})))
+        meta, arrays = client.solve(cpu_milli=cpu, mem_bytes=mem, mode="single_shot")
+        assert meta == rmeta
+        np.testing.assert_array_equal(arrays["assignments"], rarrays["assignments"])
+        client.close()
     assert serve.rc == 0, serve.log()
 
 

@@ -106,7 +106,7 @@ def bridged(doc):
         if not hasattr(rsc, f.name):
             continue
         a, b = getattr(sc, f.name), getattr(rsc, f.name)
-        if f.name in ("fleet", "rebalance"):
+        if f.name == "fleet":
             assert (a is None) == (b is None), f.name
         else:
             assert plain(a) == plain(b), f.name
@@ -538,10 +538,13 @@ def test_fleet_section_round_trip():
 
 
 def test_rebalance_section_reaches_the_refused_scheduler():
+    """The rebalance section becomes the port's RebalanceConfig, field for
+    field the JAX package's (``bridged`` holds it), and the Scheduler, which
+    refused it until the rebalancer was ported, builds its rebalancer."""
     sc, _ = bridged("rebalance: {enabled: true, intervalSeconds: 1, maxMovesPerCycle: 4}")
     assert sc.rebalance is not None and sc.rebalance.max_moves_per_cycle == 4
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Scheduler(convert.cluster_state(ClusterState()), sc, device="cpu")
+    sched = Scheduler(convert.cluster_state(ClusterState()), sc, device="cpu")
+    assert sched.rebalancer is not None and sched.rebalancer.config is sc.rebalance
     for bad in ("rebalance: {maxMovesPerCycle: -1}", "rebalance: {minPackingUtilization: 0}",
                 "rebalance: {intervalSeconds: 0}", "rebalance: {minGainPoints: 0}"):
         for mod in (ct, ref_ct):

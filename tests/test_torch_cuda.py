@@ -876,3 +876,142 @@ def test_perf_workload_card_equals_cpu(cuda_device):
     assert card.unschedulable == cpu.unschedulable
     bindings = [{p.key: p.node_name for p in cs.list_pods()} for cs in made]
     assert bindings[0] == bindings[1]
+
+
+# -- the auction, the relax planner, the bulk path, the rebalancer -----------
+
+
+def _dense_tie_batches(n_nodes=2000, n_pods=6000, seed=0):
+    """Four fill levels over the nodes (each headroom score shared by ~500
+    nodes) and four request classes: the top-T window cuts through long
+    runs of equal scores in every round."""
+    from kubernetes_tpu_torch.server.bulk import columnar_pod_batch
+    from kubernetes_tpu_torch.tensorize.schema import NodeBatch, pad_to
+
+    rng = np.random.default_rng(seed)
+    vocab = ResourceVocab(("cpu", "memory"))
+    npad = pad_to(n_nodes)
+    live = np.arange(npad) < n_nodes
+    alloc = np.zeros((2, npad), np.int64)
+    alloc[0, :n_nodes], alloc[1, :n_nodes] = 8_000, 32 << 30
+    level = rng.integers(0, 4, n_nodes)
+    used = np.zeros((2, npad), np.int64)
+    used[0, :n_nodes], used[1, :n_nodes] = level * 1_000, level * (4 << 30)
+    cnt = np.zeros(npad, np.int32)
+    cnt[:n_nodes] = level
+
+    def nodes():
+        return NodeBatch(
+            vocab=vocab, names=[f"n{i}" for i in range(n_nodes)], num_nodes=n_nodes,
+            padded=npad, allocatable=alloc.copy(), used=used.copy(), nonzero_used=used.copy(),
+            pod_count=cnt.copy(), max_pods=np.where(live, 110, 0).astype(np.int32),
+            valid=live.copy(), schedulable=live.copy())
+
+    cpu = np.array([250, 500, 750, 1000])[rng.integers(0, 4, n_pods)].astype(np.int64)
+    pods = columnar_pod_batch(cpu, cpu * (1 << 20),
+                              rng.integers(0, 3, n_pods).astype(np.int32), vocab)
+    return nodes, pods
+
+
+@pytest.mark.parametrize("objective", ["spread", "pack"])
+def test_auction_card_equals_cpu_on_dense_ties(cuda_device, objective):
+    """The auction's assignments, node state and round count on the card
+    equal the CPU's bit for bit, with headroom ties on every node."""
+    from kubernetes_tpu_torch.solver.single_shot import SingleShotConfig, SingleShotSolver
+
+    nodes, pods = _dense_tie_batches()
+    out = []
+    for dev in (cuda_device, "cpu"):
+        nb = nodes()
+        s = SingleShotSolver(SingleShotConfig(top_t=64, objective=objective), device=dev)
+        out.append((s.solve(nb, pods), nb.used, nb.pod_count, s.last_rounds, s.last_reads))
+    (a, u, c, r, reads), (a2, u2, c2, r2, reads2) = out
+    np.testing.assert_array_equal(a, a2)
+    np.testing.assert_array_equal(u, u2)
+    np.testing.assert_array_equal(c, c2)
+    assert (r, reads) == (r2, reads2)
+    assert (a >= 0).sum() == pods.num_pods
+
+
+def test_relax_plan_is_feasible_on_the_card(cuda_device):
+    """The relax plan (with the auction repairing its tail) on the card
+    overcommits no node, and places as many pods as the CPU's plan within
+    1 % (float32 work whose order differs between the two)."""
+    from kubernetes_tpu_torch.solver.relax import RelaxConfig, RelaxSolver
+    from kubernetes_tpu_torch.solver.single_shot import SingleShotConfig
+
+    nodes, pods = _dense_tie_batches(n_nodes=1500, n_pods=20_000, seed=3)
+    placed = []
+    for dev in (cuda_device, "cpu"):
+        nb = nodes()
+        s = RelaxSolver(RelaxConfig(objective="pack"), repair=SingleShotConfig(), device=dev)
+        a = s.solve(nb, pods)
+        assert s.last.iterations >= 1
+        assert (nb.used <= nb.allocatable).all()
+        assert (nb.pod_count <= nb.max_pods).all()
+        # the written-back state is the assignments' load, pod by pod
+        load = np.zeros_like(nb.used)
+        np.add.at(load.T, a[a >= 0], pods.req[: pods.num_pods][a >= 0])
+        np.testing.assert_array_equal(load, nb.used - nodes().used)
+        placed.append(int((a >= 0).sum()))
+    assert abs(placed[0] - placed[1]) <= 0.01 * placed[1]
+
+
+def test_bulk_single_shot_card_equals_cpu(cuda_device):
+    """A BulkCore single-shot Solve on the card answers the CPU's reply."""
+    from kubernetes_tpu_torch.server import tensorcodec
+    from kubernetes_tpu_torch.server.bulk import BulkCore
+    from kubernetes_tpu_torch.state.cluster import ClusterState
+
+    rng = np.random.default_rng(5)
+    req = tensorcodec.encode({"mode": "single_shot"}, {
+        "cpu_milli": rng.integers(1, 9, 3000).astype(np.int64) * 250,
+        "mem_bytes": rng.integers(1, 5, 3000).astype(np.int64) << 30,
+        "priority": rng.integers(0, 5, 3000).astype(np.int32)})
+    replies = []
+    for dev in (cuda_device, "cpu"):
+        cs = ClusterState()
+        for i in range(600):
+            cs.create_node(MakeNode().name(f"n{i:04}").capacity(
+                {"cpu": "16", "memory": "64Gi", "pods": "110"}).obj())
+        replies.append(tensorcodec.decode(BulkCore(cs, device=dev).solve(req)))
+    (m1, a1), (m2, a2) = replies
+    assert m1 == m2
+    np.testing.assert_array_equal(a1["assignments"], a2["assignments"])
+    assert (a1["assignments"] >= 0).sum() > 2000
+
+
+def test_rebalancer_card_equals_cpu(cuda_device):
+    """A fragmented cluster settled with the rebalancer on: the card's
+    passes, evictions and final bindings equal the CPU's."""
+    from kubernetes_tpu_torch.rebalance.runtime import RebalanceConfig
+    from kubernetes_tpu_torch.scheduler import Scheduler, SchedulerConfig
+    from kubernetes_tpu_torch.state.cluster import ClusterState
+    from kubernetes_tpu_torch.utils.clock import FakeClock
+
+    runs = []
+    for dev in (cuda_device, "cpu"):
+        cs, rng = ClusterState(), np.random.default_rng(2)
+        for i in range(64):
+            cs.create_node(MakeNode().name(f"n{i:02}").capacity(
+                {"cpu": "8", "memory": "32Gi", "pods": "110"}).obj())
+        k = 0
+        for i in range(64):
+            for _ in range(int(rng.integers(1, 4))):
+                cs.create_pod(MakePod().name(f"p{k:04}").req(
+                    {"cpu": ("500m", "1")[k % 2], "memory": "1Gi"}).obj())
+                cs.bind("default", f"p{k:04}", f"n{i:02}")
+                k += 1
+        clock = FakeClock()
+        s = Scheduler(cs, SchedulerConfig(
+            solver=ExactSolverConfig(tie_break="first"),
+            rebalance=RebalanceConfig(interval_s=1.0, max_moves_per_cycle=32,
+                                      min_packing=0.6)), clock=clock, device=dev)
+        for _ in range(6):
+            clock.advance(1.5)
+            s.run_until_settled()
+        s.rebalancer.reconcile(cs)
+        runs.append(([(r.planned, r.selected, r.evicted) for r in s.rebalancer.history],
+                     s.rebalancer.stats(), sorted((p.key, p.node_name) for p in cs.list_pods())))
+    assert runs[0] == runs[1]
+    assert runs[0][1]["evicted"] >= 1 and all(n for _, n in runs[0][2])

@@ -476,6 +476,33 @@ def test_bind_reply_equals_reference():
     assert port.cluster.get_pod("default", "w").node_name == "node-4"
 
 
-def test_grpc_port_is_refused():
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        run_server(ClusterState(), grpc_port=50051, device="cpu")
+def test_grpc_port_serves_the_bulk_path(monkeypatch):
+    """``grpc_port > 0`` serves the bulk tensor gRPC path beside the
+    webhook, on the server's device, and stops it when the webhook's app
+    returns (aiohttp's ``run_app`` is replaced by a function that drives
+    the gRPC side and returns)."""
+    import socket
+
+    import numpy as np
+    from aiohttp import web
+
+    from kubernetes_tpu_torch.server.bulk import BulkClient
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        gport = sk.getsockname()[1]
+    seen = {}
+
+    def fake_run_app(app, host, port):
+        client = BulkClient(f"127.0.0.1:{gport}", retries=0)
+        seen["sync"] = client.sync_nodes(["n0", "n1"], [4000, 4000], [8 << 30, 8 << 30])
+        seen["solve"] = client.solve([1000] * 3, [1 << 30] * 3, mode="single_shot")
+        client.close()
+
+    monkeypatch.setattr(web, "run_app", fake_run_app)
+    cs = ClusterState()
+    run_server(cs, grpc_port=gport, device="cpu")
+    assert seen["sync"] == {"applied": 2}
+    meta, arrays = seen["solve"]
+    assert meta["nodes"] == ["n0", "n1"] and (np.asarray(arrays["assignments"]) >= 0).all()
+    assert len(cs.list_nodes()) == 2

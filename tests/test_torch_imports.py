@@ -1,11 +1,12 @@
 """The port stands alone: importing every module of kubernetes_tpu_torch
 brings in neither JAX nor anything of the JAX package, nor
-``prometheus_client``, ``yaml`` or ``aiohttp`` (the card's machine is not
-known to have them: the import check runs with all three blocked), no
-source of the port (or chip_smoke.py) imports any of them — ``yaml`` only
-inside the function that parses YAML text (``config.types._parse_text``)
-and ``aiohttp`` only inside the extender's ``make_app`` / ``run_server``,
-never at module level (``perf/runner.py`` and ``tuning/profile.py``
+``prometheus_client``, ``yaml``, ``aiohttp`` or ``grpc`` (the card's
+machine is not known to have them: the import check runs with all four
+blocked), no source of the port (or chip_smoke.py) imports any of them —
+``yaml`` only inside the function that parses YAML text
+(``config.types._parse_text``), ``aiohttp`` only inside the extender's
+``make_app`` / ``run_server`` and ``grpc`` only inside the bulk path's
+functions that open a server or a channel, never at module level (``perf/runner.py`` and ``tuning/profile.py``
 import ``yaml`` inside their loaders too) — the simulator, the perf
 runner, the CLI and its ``__main__``, the obs and metrics tools, leader
 election and structured logging import with the rest, the config bridge
@@ -33,7 +34,7 @@ import importlib, importlib.abc, pkgutil, sys
 class _Block(importlib.abc.MetaPathFinder):
     # packages the card's machine may lack: importing one is an error
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("prometheus_client", "yaml", "aiohttp"):
+        if name.split(".")[0] in ("prometheus_client", "yaml", "aiohttp", "grpc"):
             raise ImportError(f"blocked: {name}")
         return None
 
@@ -51,7 +52,7 @@ bad = sorted(
     k for k in sys.modules
     if k == "jax" or k.startswith("jax.") or k.startswith("jaxlib")
     or k == "kubernetes_tpu" or k.startswith("kubernetes_tpu.")
-    or k.split(".")[0] in ("prometheus_client", "yaml", "aiohttp")
+    or k.split(".")[0] in ("prometheus_client", "yaml", "aiohttp", "grpc")
 )
 print("count=%d" % len(names))
 print("bad=" + ",".join(bad))
@@ -79,6 +80,11 @@ print("slice7=" + ",".join(
                 "metrics.__main__", "utils.leaderelection", "utils.logging")
     if "kubernetes_tpu_torch." + n in sys.modules
 ))
+print("slice8=" + ",".join(
+    n for n in ("solver.single_shot", "solver.relax", "server.tensorcodec", "server.bulk",
+                "rebalance", "rebalance.detector", "rebalance.planner", "rebalance.runtime")
+    if "kubernetes_tpu_torch." + n in sys.modules
+))
 from kubernetes_tpu_torch.server.extender import ExtenderCore, make_app
 from kubernetes_tpu_torch.state.cluster import ClusterState
 core = ExtenderCore(ClusterState(), backend="oracle")
@@ -90,7 +96,7 @@ except ImportError as e:
 
 
 # optional packages a module may import inside a function body only
-LAZY_ONLY = ("yaml", "aiohttp")
+LAZY_ONLY = ("yaml", "aiohttp", "grpc")
 
 
 def _forbidden(name: str) -> bool:
@@ -135,6 +141,9 @@ def test_import_every_module_leaves_jax_and_reference_out():
         "sim.profiles", "sim.trace", "sim.__main__", "perf.runner", "cli",
         "__main__", "obs.__main__", "metrics.__main__", "utils.leaderelection",
         "utils.logging"]
+    assert out["slice8"].split(",") == [
+        "solver.single_shot", "solver.relax", "server.tensorcodec", "server.bulk",
+        "rebalance", "rebalance.detector", "rebalance.planner", "rebalance.runtime"]
 
 
 @pytest.mark.parametrize(

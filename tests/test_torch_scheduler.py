@@ -411,8 +411,6 @@ def test_default_device_raises_without_cuda(monkeypatch):
     "field,value,item",
     [
         ("fleet", object(), "item 8"),
-        ("rebalance", object(), "item 9"),
-        ("backlog_warm_start", True, "item 10"),
         ("mesh_devices", 2, "item 11"),
         ("mesh_slice", (0, 2), "item 11"),
     ],
@@ -449,6 +447,30 @@ def test_ported_config_features_construct_and_run(feature, tmp_path):
         path = sched.telemetry.capture("manual")
         assert (path is not None) == (feature == "bundle_dir")
         assert sched.telemetry.bundles.snapshot()["captures"] == 1
+
+
+@pytest.mark.parametrize("feature", ["rebalance", "backlog_warm_start"])
+def test_rebalance_and_warm_start_construct_and_run(feature):
+    """The rebalancer and the backlog warm start were refused until the
+    port had the auction and the relax planner; now each constructs, and
+    its loop binds every pod (the warm start ranking the backlog first)."""
+    from kubernetes_tpu_torch.rebalance.runtime import RebalanceConfig
+
+    ref = mk_cluster(3)
+    for i in range(6):
+        ref.create_pod(MakePod().name(f"p{i}").req({"cpu": "500m"}).obj())
+    cs = convert.cluster_state(ref)
+    if feature == "rebalance":
+        sched = Scheduler(cs, SchedulerConfig(rebalance=RebalanceConfig(interval_s=1.0)),
+                          clock=FakeClock(), device="cpu")
+        assert sched.rebalancer is not None and sched.rebalancer.config.interval_s == 1.0
+        sched.run_until_settled()
+    else:
+        sched = Scheduler(cs, SchedulerConfig(backlog_warm_start=True), clock=FakeClock(),
+                          device="cpu")
+        report = sched.drain_backlog(chunk_pods=8, budget_bytes=8 << 30)
+        assert report.warm_start_ranked == 6 and report.relax_iterations >= 1
+    assert all(p.node_name for p in cs.list_pods())
 
 
 def test_obs_journal_and_slo_run():

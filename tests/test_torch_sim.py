@@ -7,8 +7,10 @@ decision (``"k": "d"``) lines byte-identical, its footer's bindings,
 unbound pods and violations equal, and its footer summary equal except
 for the fields ``EXCUSED_SUMMARY`` names. Traces replay across the two
 packages in both directions, ``--selfcheck`` is deterministic with every
-invariant OK, and the profiles that need an unported module raise,
-naming their ROADMAP item.
+invariant OK, and the fleet profiles, which need the unported fleet,
+raise naming ROADMAP item 8c. ``fragmentation`` (the rebalancer) and
+``megaplan`` (the relax planner's probe and warm start) give the JAX
+package's trace byte for byte, as every other runnable profile does.
 """
 
 from __future__ import annotations
@@ -24,15 +26,10 @@ from kubernetes_tpu_torch.sim.__main__ import main as sim_main
 from kubernetes_tpu_torch.sim.harness import FLEET_PROFILES, runnable_profiles
 from kubernetes_tpu_torch.sim.profiles import PROFILES
 
-# the 15 profiles the port runs: everything but the fleet, the
-# rebalancer and the relax planner
+# the 17 profiles the port runs: everything but the fleet
 RUNNABLE = runnable_profiles()
-# the 9 that raise, with the ROADMAP item each names
-UNPORTED = {
-    **{name: "8c" for name in FLEET_PROFILES},
-    "fragmentation": "9b",
-    "megaplan": "10",
-}
+# the 7 that raise, with the ROADMAP item each names
+UNPORTED = {name: "8c" for name in FLEET_PROFILES}
 CYCLES = 6
 SEED = 0
 # footer summary fields allowed to differ from the JAX package's, each
@@ -84,7 +81,8 @@ def test_profiles_partition():
     """Every profile is either runnable or refused: none is skipped."""
     assert set(RUNNABLE) | set(UNPORTED) == set(PROFILES)
     assert not set(RUNNABLE) & set(UNPORTED)
-    assert len(RUNNABLE) == 15 and len(UNPORTED) == 9
+    assert len(RUNNABLE) == 17 and len(UNPORTED) == 7
+    assert {"fragmentation", "megaplan"} <= set(RUNNABLE)
 
 
 @pytest.mark.parametrize("profile", RUNNABLE)
@@ -131,6 +129,17 @@ def test_selfcheck_cli(profile, capsys):
 def test_unported_profile_raises_naming_its_item(profile):
     with pytest.raises(NotImplementedError, match=rf"item {UNPORTED[profile]}\)"):
         run_sim(profile, seed=SEED, cycles=1, device="cpu")
+
+
+def test_rebalance_and_megaplan_footers_engage():
+    """The two profiles this port's rebalancer and relax planner brought in
+    engage their features, non-vacuously: migrations within budget and no
+    PDB overrun; a valid relax plan that ranked the drain."""
+    frag = run_sim("fragmentation", seed=SEED, cycles=CYCLES, device="cpu").summary
+    assert frag["rebalance"]["migrations_completed"] >= 1
+    assert frag["rebalance"]["over_budget"] == 0 and frag["rebalance"]["pdb_overruns"] == 0
+    mega = run_sim("megaplan", seed=SEED, cycles=CYCLES, device="cpu").summary["megaplan"]
+    assert mega["plan_valid"] and mega["ranked"] >= 1 and mega["iterations"] >= 1
 
 
 def test_fleet_flag_raises():

@@ -1,7 +1,6 @@
 """The port's copy of tests/test_sim_invariants.py, on
-``kubernetes_tpu_torch.sim.invariants`` (schedulers on ``device="cpu"``).
-The ``check_rebalance`` cases stay behind: they import the rebalancer,
-which is not ported (ROADMAP queue 1 item 9b).
+``kubernetes_tpu_torch.sim.invariants`` (schedulers on ``device="cpu"``),
+the ``check_rebalance`` cases on the port's ``rebalance.runtime.RunRecord``.
 
 Known-bad fixtures for the sim's invariant checkers — the
 fixture-per-rule pattern of tests/test_static_analysis.py: a checker
@@ -382,9 +381,102 @@ def test_fencing_clean_on_good_partition_run():
     assert violations == []
 
 
-# -- rebalance: the check_rebalance cases import the rebalancer, which is
-# not ported (ROADMAP queue 1 item 9b); the tracker needs only the state
-# service -------------------------------------------------------------------
+# -- rebalance (fragmentation profile) --------------------------------------
+
+
+def _run_record(t=10.0, packing=0.4, evicted=2, **kw):
+    from kubernetes_tpu_torch.rebalance.runtime import RunRecord
+
+    return RunRecord(
+        t=t, packing_before=packing, stranded_before=0.5,
+        planned=kw.get("planned", evicted),
+        selected=kw.get("selected", evicted),
+        evicted=evicted, pdb_blocked=kw.get("pdb_blocked", 0),
+        plan_solve_s=0.01,
+    )
+
+
+def _check_rebalance(violations, history, **kw):
+    from kubernetes_tpu_torch.sim.invariants import check_rebalance
+
+    defaults = dict(
+        budget=4, pdb_overruns=0, migrations_completed=1,
+        churn_end_t=9.0, final_packing=0.5,
+    )
+    defaults.update(kw)
+    check_rebalance(0, violations, history=history, **defaults)
+
+
+def test_rebalance_flags_budget_exceeded_plan():
+    violations = []
+    _check_rebalance(violations, [_run_record(evicted=9)], budget=4)
+    assert [v.invariant for v in violations] == ["rebalance"]
+    assert "churn budget" in violations[0].detail
+
+
+def test_rebalance_flags_pdb_violating_eviction():
+    violations = []
+    _check_rebalance(violations, [_run_record()], pdb_overruns=1)
+    assert [v.invariant for v in violations] == ["rebalance"]
+    assert "PDB" in violations[0].detail
+
+
+def test_rebalance_flags_utilization_regression():
+    violations = []
+    _check_rebalance(
+        violations,
+        [
+            _run_record(t=10.0, packing=0.5),
+            _run_record(t=21.0, packing=0.3),  # settle-phase regression
+        ],
+    )
+    assert any(
+        v.invariant == "rebalance" and "regressed" in v.detail
+        for v in violations
+    )
+
+
+def test_rebalance_flags_final_packing_regression():
+    violations = []
+    _check_rebalance(
+        violations, [_run_record(t=10.0, packing=0.5)], final_packing=0.2,
+    )
+    assert [v.invariant for v in violations] == ["rebalance"]
+    assert "final packed utilization" in violations[0].detail
+
+
+def test_rebalance_flags_stranded_evictions():
+    violations = []
+    _check_rebalance(
+        violations, [_run_record(evicted=3)], migrations_completed=0,
+    )
+    assert [v.invariant for v in violations] == ["rebalance"]
+    assert "strands" in violations[0].detail
+
+
+def test_rebalance_flags_never_engaged():
+    violations = []
+    _check_rebalance(violations, [])
+    assert [v.invariant for v in violations] == ["rebalance"]
+    assert "never engaged" in violations[0].detail
+
+
+def test_rebalance_churn_phase_regression_exempt():
+    # packing moving both ways DURING churn is legitimate: only
+    # settle-phase passes are held to monotonicity
+    violations = []
+    _check_rebalance(
+        violations,
+        [
+            _run_record(t=3.0, packing=0.6),  # churn phase
+            _run_record(t=5.0, packing=0.3),  # churn phase
+            _run_record(t=10.0, packing=0.4),
+            _run_record(t=21.0, packing=0.45),
+        ],
+    )
+    assert violations == []
+
+
 
 
 def test_rebalance_tracker_counts_evictions_and_pdb_overruns():

@@ -131,7 +131,7 @@ def test_sim_journals_of_both_packages_are_identical():
 
 
 def test_explain_hub_raises():
-    with pytest.raises(NotImplementedError, match=r"item 9a\)"):
+    with pytest.raises(NotImplementedError, match=r"item 8c\)"):
         obs_main(["explain", "p", "--hub", "127.0.0.1:50051"])
 
 
