@@ -125,8 +125,8 @@ Phases (a failure in any of them propagates and exits nonzero):
    domain_counts launches counted (the count set to 0 just before, read
    just after) and its first launch on the card held against the plain
    version on the same inputs:
-   a. the 17 simulator profiles the port runs (all but the fleet's),
-      each twice on the card at 8 cycles with the same seed
+   a. the 24 simulator profiles (the fleet's 7 on one scheduler here, as
+      in the JAX package), each twice on the card at 8 cycles with the same seed
       (``--selfcheck``): every invariant OK, the two traces byte-identical,
       and the trace equal to the CPU port's run given the card's fallback
       ladder (event and decision lines byte-identical, footer bindings,
@@ -176,6 +176,39 @@ Phases (a failure in any of them propagates and exits nonzero):
    10c and 10d count domain_counts launches and hold a first launch to
    plain as phase 9 does (their pods carry only resources, so neither
    launches the kernel).
+11. The fleet (``kubernetes_tpu_torch/fleet``): scheduler replicas in this
+    process sharing the one card, each solving the shard of nodes its
+    hash ring assigns it, admitting across shards through an occupancy hub
+    (``OccupancyExchange``) that the port's ``BulkCore(exchange=)`` serves
+    over localhost gRPC, every replica reaching it through
+    ``RemoteOccupancyExchange``; each path's launches counted and its first
+    launch held to plain as phase 9 does:
+   a. 4 replicas over 6b's 5,120 nodes and 2,048 pods of the mixed
+      workload (depth cut from 5,120: see ``fleet_full``), "first" mode, driven round-robin on one thread until every
+      pod is bound or two rounds bind nothing: pods bound per second (call
+      to last bind), admissions, rejections, hand-offs and requeues per
+      replica, hub round trips with p50 / p99, the wall's share in the
+      solve and in the hub, domain_counts launches per replica. Gates: no
+      pod bound twice, every bind on a node its replica owned, no
+      overcommit, hostPort or anti-affinity violation fleet-wide, and every
+      unbound pod parked by the fleet's own cross-shard spread rule. Then
+      1,024 x 1,024 on the card and on the CPU must bind alike;
+   b. bench.py ladder #17's protocol at 7d's scale: 100,000 plain pods on
+      20,480 nodes, one global relax plan, ``drain.partition_backlog``
+      (every 512th pod forced into the residual), the ledger installed at
+      the hub; 4 replicas loop ``fleet_drain_backlog``, r3 retired while it
+      holds a lease and a survivor re-claims it: drained pods/s, plan
+      seconds, leases granted and reassigned, each replica's budget slice
+      beside its peak allocated memory. Gates: every pod bound, none twice,
+      no overcommit, the ledger complete;
+   c. the 7 fleet profiles through ``run_fleet_sim`` with 2 replicas,
+      twice on the card and once on the CPU given the card's ladder:
+      every replica's journal, the hub's journal, bindings and summary
+      byte-equal, every invariant OK;
+   d. phase 9c's ``serve`` as a fleet replica (``fleet.hubAddress`` at a
+      hub holding 11a's journal, ``--obs``): ``GET /debug/hub`` reports the
+      hub, and ``obs explain --fleet --hub`` renders a pod the served
+      replica bound and a pod of 11a whose history crosses replicas.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -2234,7 +2267,7 @@ def sim_phase(dev, cycles=SIM_CYCLES):
     from kubernetes_tpu_torch.sim.profiles import PROFILES
 
     card_ladder = rz.build_ladder(dev)
-    profiles = runnable_profiles()  # the 17 but the fleet's 7
+    profiles = runnable_profiles()  # all 24, the fleet's 7 on one scheduler
     out, launches = {}, 0
     t0 = time.perf_counter()
     with HeldLaunch("sim 9a") as held:
@@ -2447,31 +2480,43 @@ def _http(port, method, path, payload=None, timeout=120):
     return json.loads(body) if body != b"ok" else "ok"
 
 
-def serve_phase(dev, n_nodes=240, n_requests=64, startup_s=180):
+def serve_phase(dev, n_nodes=240, n_requests=64, startup_s=180, fleet_hub=None):
     """9c: ``python -m kubernetes_tpu_torch --leader-elect serve --mode
     scheduler`` on ``dev`` as a subprocess on a free port (through
     ``child``, which counts its launches); 240 nodes and 240 bound mixed
     pods ingested through its endpoints; 64 filter / prioritize requests in
     wire JSON whose replies must equal an in-process CPU ExtenderCore's on
     the same cluster; 240 pending mixed pods its background loop must
-    bind; a clean exit on SIGTERM."""
+    bind; a clean exit on SIGTERM.
+
+    11d (``fleet_hub`` set): the same, with ``fleet.hubAddress`` at that
+    hub and the decision journal on, so the served Scheduler is a fleet
+    replica: ``GET /debug/hub`` must report the hub, and a pod it bound
+    must render through ``obs explain --fleet --hub`` from the journal the
+    replica shipped."""
     import signal
     import socket
     import tempfile
 
     from kubernetes_tpu_torch.server.extender import ExtenderCore
 
+    label = "11d" if fleet_hub else "9c"
     t0 = time.perf_counter()
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     with tempfile.TemporaryDirectory() as tmp:
         cfg_path, res_path = os.path.join(tmp, "cfg.json"), os.path.join(tmp, "child.json")
+        cfg = {"tpuSolver": {"tieBreak": "first", "balancedFdtype": "float64"}}
+        if fleet_hub:
+            cfg["fleet"] = {"replica": "s0", "replicas": ["s0"], "hubAddress": fleet_hub}
         with open(cfg_path, "w") as f:
-            json.dump({"tpuSolver": {"tieBreak": "first", "balancedFdtype": "float64"}}, f)
+            json.dump(cfg, f)
         log_path = os.path.join(tmp, "serve.log")
         argv = ["--config", cfg_path, "--leader-elect", "serve", "--mode", "scheduler",
                 "--node-cache-capable", "--port", str(port)]
+        if fleet_hub:
+            argv.append("--obs")
         if dev.type == "cpu":
             argv += ["--device", "cpu"]
         with open(log_path, "w") as logf:
@@ -2486,7 +2531,7 @@ def serve_phase(dev, n_nodes=240, n_requests=64, startup_s=180):
                 except OSError:
                     pass
                 if proc.poll() is not None or time.perf_counter() > deadline:
-                    raise AssertionError("9c: serve never became healthy:\n"
+                    raise AssertionError(f"{label}: serve never became healthy:\n"
                                          + open(log_path).read()[-3000:])
                 time.sleep(0.25)
             up_s = time.perf_counter() - t0
@@ -2497,7 +2542,7 @@ def serve_phase(dev, n_nodes=240, n_requests=64, startup_s=180):
             _http(port, "POST", "/api/pods", {"items": [p.to_dict() for p in bound]})
             st = _http(port, "GET", "/api/state")
             if st["nodes"] != n_nodes or st["unscheduled"] != 0:
-                raise AssertionError(f"9c: state after ingest {st}")
+                raise AssertionError(f"{label}: state after ingest {st}")
             core = ExtenderCore(ref, node_cache_capable=True, device="cpu",
                                 solver_config=ExactSolverConfig(tie_break="first",
                                                                 balanced_fdtype="float64"))
@@ -2510,7 +2555,7 @@ def serve_phase(dev, n_nodes=240, n_requests=64, startup_s=180):
                 got = _http(port, "POST", f"/{verb}", args)
                 rtt.append(time.perf_counter() - t)
                 if got != w:
-                    raise AssertionError(f"9c: /{verb} for {args['pod']['metadata']['name']} "
+                    raise AssertionError(f"{label}: /{verb} for {args['pod']['metadata']['name']} "
                                          "differs from the CPU ExtenderCore's reply")
             pending = [make_pod(2 * n_nodes + i) for i in range(n_nodes)]
             t = time.perf_counter()
@@ -2520,9 +2565,29 @@ def serve_phase(dev, n_nodes=240, n_requests=64, startup_s=180):
                 if st["unscheduled"] == 0:
                     break
                 if time.perf_counter() - t > 120:
-                    raise AssertionError(f"9c: the background loop left {st}")
+                    raise AssertionError(f"{label}: the background loop left {st}")
                 time.sleep(0.05)
             bind_s = time.perf_counter() - t
+            fleet = None
+            if fleet_hub:
+                status = _http(port, "GET", "/debug/hub")
+                if not isinstance(status, dict) or "epoch" not in status or "client" not in status:
+                    raise AssertionError(f"11d: /debug/hub answered {status}")
+                # the replica ships its journal on its write-behind flushes;
+                # the pods it bound render from the hub's aggregation
+                pod = f"default/{pending[0].name}"
+                deadline = time.perf_counter() + 30
+                while True:
+                    rc_x, text = explain_hub(fleet_hub, pod)
+                    if rc_x == 0 and "bound" in text:
+                        break
+                    if time.perf_counter() > deadline:
+                        raise AssertionError(f"11d: explain --fleet --hub for {pod} "
+                                             f"exited {rc_x}:\n{text[-2000:]}")
+                    time.sleep(0.25)
+                fleet = {"debug_hub": {k: status[k] for k in sorted(status)
+                                       if not isinstance(status[k], (dict, list))},
+                         "explained_served_pod": pod}
         finally:
             proc.send_signal(signal.SIGTERM)
             try:
@@ -2533,14 +2598,14 @@ def serve_phase(dev, n_nodes=240, n_requests=64, startup_s=180):
                 rc = "killed"
         serve_log = open(log_path).read()
         if rc != 0:
-            raise AssertionError(f"9c: serve exited {rc} on SIGTERM:\n{serve_log[-3000:]}")
+            raise AssertionError(f"{label}: serve exited {rc} on SIGTERM:\n{serve_log[-3000:]}")
         if "leader election: acquired lease" not in serve_log:
-            raise AssertionError("9c: no leader lease acquired")
+            raise AssertionError(f"{label}: no leader lease acquired")
         with open(res_path) as f:
             served = json.load(f)
     if dev.type == "cuda" and not served["launches"]:
-        raise AssertionError("9c: serve launched no kernel")
-    verdict = child_verdict("9c", served)
+        raise AssertionError(f"{label}: serve launched no kernel")
+    verdict = child_verdict(label, served)
     rtt = np.asarray(rtt)
     out = {"nodes": n_nodes, "bound_at_ingest": n_nodes, "requests": n_requests,
            "replies_equal_cpu": True, "pending_bound": n_nodes, "startup_s": up_s,
@@ -2550,7 +2615,10 @@ def serve_phase(dev, n_nodes=240, n_requests=64, startup_s=180):
            "domain_counts_launches": served["launches"],
            "top_tier_held": True, **verdict,
            "phase_s": time.perf_counter() - t0}
-    log("serve 9c " + json.dumps(out))
+    if fleet:
+        out["fleet"] = fleet
+    else:
+        log("serve 9c " + json.dumps(out))
     return out
 
 
@@ -3035,6 +3103,530 @@ def phase10(dev):
     return out
 
 
+# -- phase 11: the fleet ------------------------------------------------------
+
+FLEET_UNIVERSE = ("r0", "r1", "r2", "r3")
+FD_NODES, FD_PODS = 20_480, 100_000  # 11b: 7d's scale (bench.py ladder #17 is 102,400 x 512,000)
+
+
+def fleet_clock():
+    """Virtual scheduling time (``now``: backoff, row ages, lease terms, so
+    the fleet's decisions repeat run to run and device to device) with real
+    durations (``perf``: solve seconds, bind times)."""
+    from kubernetes_tpu_torch.utils.clock import FakeClock
+
+    class FleetClock(FakeClock):
+        def perf(self):
+            return time.perf_counter()
+
+    return FleetClock()
+
+
+class Hub:
+    """One occupancy hub (``OccupancyExchange``) behind the port's bulk gRPC
+    server (``BulkCore(exchange=)``) on a free localhost port; replicas reach
+    it through ``RemoteOccupancyExchange`` at ``addr``. The hub ages peers'
+    rows on ``clock``: the replicas' own, when one thread drives them all
+    (a replica waiting its turn is not a silent one)."""
+
+    def __init__(self, dev, clock=None):
+        from kubernetes_tpu_torch.fleet import OccupancyExchange
+        from kubernetes_tpu_torch.server.bulk import BulkCore, make_grpc_server
+
+        self.exchange = OccupancyExchange(clock)
+        self.server, port = make_grpc_server(
+            BulkCore(ClusterState(), exchange=self.exchange, device=dev), port=0)
+        self.addr = f"127.0.0.1:{port}"
+        self.server.start()
+
+    def close(self):
+        self.server.stop(grace=None)
+
+
+class FleetTally:
+    """While active: every hub round trip a replica makes (``BulkClient.hub_op``,
+    which ``RemoteOccupancyExchange`` calls for each op and write-behind
+    flush) with its wall time, and per replica the fleet's admission calls
+    (``FleetRuntime.admit``), its rejections and the hand-offs that followed."""
+
+    def __enter__(self):
+        from kubernetes_tpu_torch.fleet.runtime import FleetRuntime
+        from kubernetes_tpu_torch.server.bulk import BulkClient
+
+        self.rtt, self.per = [], {}
+        self._saved = (BulkClient.hub_op, FleetRuntime.admit, FleetRuntime.maybe_hand_off)
+        hub_op, admit, hand_off = self._saved
+        rtt, per = self.rtt, self.per
+
+        def timed(client, op, **meta):
+            t = time.perf_counter()
+            try:
+                return hub_op(client, op, **meta)
+            finally:
+                rtt.append((op, time.perf_counter() - t))
+
+        def counted_admit(rt, pod, node_name, cache):
+            why = admit(rt, pod, node_name, cache)
+            c = per.setdefault(rt.replica, Counter())
+            c["admits"] += 1
+            c["rejected"] += why is not None
+            return why
+
+        def counted_hand_off(rt, pod, trace=""):
+            to = hand_off(rt, pod, trace=trace)
+            per.setdefault(rt.replica, Counter())["handoffs"] += to is not None
+            return to
+
+        BulkClient.hub_op = timed
+        FleetRuntime.admit = counted_admit
+        FleetRuntime.maybe_hand_off = counted_hand_off
+        return self
+
+    def __exit__(self, *exc):
+        from kubernetes_tpu_torch.fleet.runtime import FleetRuntime
+        from kubernetes_tpu_torch.server.bulk import BulkClient
+
+        BulkClient.hub_op, FleetRuntime.admit, FleetRuntime.maybe_hand_off = self._saved
+        return False
+
+    def reading(self):
+        secs = np.asarray([t for _, t in self.rtt], np.float64)
+        per = {r: dict(c) for r, c in sorted(self.per.items())}
+        for c in per.values():
+            c.setdefault("handoffs", 0)
+            c["requeues"] = c.get("rejected", 0) - c["handoffs"]
+        return {
+            "hub_round_trips": int(secs.size),
+            "hub_seconds": float(secs.sum()),
+            "hub_rtt_p50_s": float(np.percentile(secs, 50)) if secs.size else None,
+            "hub_rtt_p99_s": float(np.percentile(secs, 99)) if secs.size else None,
+            "hub_ops": dict(Counter(op for op, _ in self.rtt)),
+            "per_replica": per,
+        }
+
+
+def fleet_replicas(dev, cs, addr, clock, universe=FLEET_UNIVERSE, batch=1024, journal=True,
+                   solver=None):
+    """One Scheduler per replica of ``universe`` over ``cs``, each a fleet
+    replica reaching the hub at ``addr``; all on ``dev`` in this process."""
+    from kubernetes_tpu_torch.fleet import FleetConfig
+    from kubernetes_tpu_torch.obs import ObsConfig
+
+    solver = solver or ExactSolverConfig(tie_break="first", balanced_fdtype="float64")
+    return {rid: Scheduler(cs, SchedulerConfig(
+        batch_size=batch, solver=solver, obs=ObsConfig(journal=True) if journal else None,
+        fleet=FleetConfig(replica=rid, replicas=universe, hub_address=addr)),
+        clock=clock, device=dev) for rid in universe}
+
+
+def owned_binds(label, sched, rid, got):
+    """The ownership half of no-global-overcommit, per drive: every bind a
+    replica just reported landed on a node its ring assignment holds right
+    now (nothing moved since: one thread drives every replica)."""
+    with sched.cluster.lock:
+        owners = dict(sched.fleet._assignment)
+    bad = [(k, n, owners.get(n)) for k, n in got if owners.get(n) != rid]
+    if bad:
+        raise AssertionError(f"{label}: {rid} bound onto nodes it does not own: {bad[:4]}")
+
+
+def _fleet_checks(label, cs, tracker):
+    """The fleet-wide gates at the end of a run: no pod bound twice (the
+    bind tracker), no node over capacity fleet-wide, no hostPort clash and
+    no anti-affinity co-residence (``check_no_global_overcommit``,
+    ``check_constraints``)."""
+    from kubernetes_tpu_torch.sim.invariants import (
+        check_constraints,
+        check_no_global_overcommit,
+    )
+
+    violations = []
+    tracker.drain(0, violations)
+    check_no_global_overcommit(cs, 0, violations)
+    check_constraints(cs, 0, violations)
+    if violations:
+        raise AssertionError(f"{label}: {[v.as_dict() for v in violations][:4]}")
+
+
+def parked_by_the_fleet(label, scheds, unbound):
+    """The pods a fleet leaves unbound must be the ones its own rule parks:
+    each replica solves over its shard's pods only, and the cross-shard
+    check rejects a hard-spread placement the fleet-wide counts forbid; a
+    pod every replica rejected (its hand-off walk done) stays parked
+    (``FleetRuntime.maybe_hand_off``, as in the JAX package). Each unbound
+    pod's last journal record must be that rejection."""
+    last = {}
+    for s in scheds.values():
+        for line in s.journal.lines:
+            rec = json.loads(line)
+            if rec["pod"] in unbound:
+                key = (rec.get("t", 0), rec.get("step", 0))
+                if rec["pod"] not in last or key >= last[rec["pod"]][0]:
+                    last[rec["pod"]] = (key, rec)
+    for pod in unbound:
+        rec = last.get(pod, (None, {}))[1]
+        if rec.get("outcome") != "unschedulable" or "cross-shard" not in rec.get("reason", ""):
+            raise AssertionError(f"{label}: {pod} unbound, its last record {rec}")
+    return sorted(unbound)
+
+
+def fleet_run(dev, n_nodes, n_pods, rounds=24):
+    """One 4-replica fleet over ``n_nodes`` x ``n_pods`` of the mixed
+    workload, through a fresh gRPC hub, "first" mode on a virtual clock:
+    the replicas drive round-robin on this thread (``run_until_settled``
+    each), then the clock steps past the backoff and parked pods return,
+    until every pod is bound or two rounds in a row bind nothing. Returns
+    the bindings, the hub's journal and the readings."""
+    from kubernetes_tpu_torch.sim.invariants import BindTransitionTracker
+
+    clock = fleet_clock()
+    hub = Hub(dev, clock)
+    try:
+        cs = _cluster(make_nodes(n_nodes))
+        tracker = BindTransitionTracker(cs)
+        scheds = fleet_replicas(dev, cs, hub.addr, clock)
+        guards = {rid: TopTier(s, f"11a {rid}") for rid, s in scheds.items()}
+        cs.create_pods([make_pod(i) for i in range(n_pods)])
+        launches, solve_s, binds = Counter(), 0.0, []
+        owners = {}
+        with FleetTally() as tally:
+            t0 = time.perf_counter()
+            last_bind, idle = t0, 0
+            for rnd in range(rounds):
+                n_binds = len(binds)
+                for rid, s in scheds.items():
+                    dc.LAUNCHES = 0
+                    res = s.run_until_settled()
+                    launches[rid] += dc.LAUNCHES
+                    for r in res:
+                        guards[rid].batch(r)
+                        solve_s += r.solve_seconds
+                    if any(r.scheduled for r in res):
+                        last_bind = time.perf_counter()
+                    got = [(k, n) for r in res for k, n in r.scheduled]
+                    tracker.record_results(got)
+                    owned_binds(f"11a on {dev.type}", s, rid, got)
+                    binds += [(rid, k, n) for k, n in got]
+                    with cs.lock:
+                        owners.update(s.fleet._assignment)
+                log(f"11a on {dev.type} round {rnd}: {len(binds) - n_binds} bound, "
+                    f"{time.perf_counter() - t0:.2f}s, hub round trips {len(tally.rtt)}")
+                if all(p.node_name for p in cs.list_pods()):
+                    break
+                idle = idle + 1 if len(binds) == n_binds else 0
+                if idle == 2:
+                    break
+                clock.advance(11.0)
+                for s in scheds.values():
+                    with cs.lock:
+                        s.queue.move_all_to_active_or_backoff()
+            wall = max(last_bind - t0, 1e-9)
+        bindings = _bindings(cs)
+        parked = parked_by_the_fleet(f"11a on {dev.type}", scheds,
+                                     {k for k, n in bindings.items() if not n})
+        _fleet_checks(f"11a on {dev.type}", cs, tracker)
+        check_cluster(cs, f"11a on {dev.type}")
+        for g in guards.values():
+            g.close()
+        for s in scheds.values():
+            s.fleet.exchange.close()
+        journal = hub.exchange.journal_lines()
+        reading = {
+            "nodes": n_nodes, "pods": n_pods, "replicas": len(scheds), "rounds": rnd + 1,
+            "bound": len(bindings) - len(parked), "parked_by_fleet_rule": parked,
+            "wall_s": wall, "pods_bound_per_s": (len(bindings) - len(parked)) / wall,
+            "solve_s": solve_s, "solve_share": solve_s / wall,
+            "binds_by_replica": dict(Counter(r for r, _, _ in binds)),
+            "owned_nodes": dict(Counter(owners.values())),
+            "cas_conflicts": sum(s.fleet.cas_conflicts for s in scheds.values()),
+            "stale_rejections": sum(s.fleet.stale_rejections for s in scheds.values()),
+            "domain_counts_launches_by_replica": dict(sorted(launches.items())),
+            "domain_counts_launches": sum(launches.values()),
+            "hub_journal_lines": len(journal),
+            **tally.reading(),
+        }
+        reading["hub_share"] = reading["hub_seconds"] / wall
+        return bindings, journal, reading
+    finally:
+        hub.close()
+
+
+def fleet_full(dev, full=(5120, 2048), parity=(1024, 1024)):
+    """11a: 4 replicas over 6b's cluster and 2,048 of its pods (``full``)
+    through a real gRPC hub on ``dev``, its first launch held to plain;
+    then the same fleet at reduced depth (``parity``) on ``dev`` and on the
+    CPU must bind alike, parked pods included (tie_break "first"). Depth
+    is cut because every constrained admission fetches and scans the whole
+    peer view (``FleetRuntime.admit``): the drive grows with the square of
+    the pods, and 5,120 took 727 s on the card."""
+    t0 = time.perf_counter()
+    with HeldLaunch("fleet 11a") as held:
+        _, journal, reading = fleet_run(dev, *full)
+    reading.update(held.require(reading["domain_counts_launches"]))
+    if dev.type == "cuda" and not reading["domain_counts_launches"]:
+        raise AssertionError("11a: the fleet launched no domain_counts kernel")
+    t = time.perf_counter()
+    with HeldLaunch("fleet 11a parity") as held_small:
+        small, _, small_reading = fleet_run(dev, *parity)
+    cpu_bindings, _, cpu_reading = fleet_run(torch.device("cpu"), *parity)
+    if cpu_bindings != small:
+        diff = sorted(k for k in small if small[k] != cpu_bindings.get(k))
+        raise AssertionError(f"11a: {dev.type} and CPU fleets bind {len(diff)} pods apart "
+                             f"at {parity}, e.g. {diff[:4]}")
+    reading["parity"] = {
+        "nodes": parity[0], "pods": parity[1], "card_equals_cpu": True,
+        "parked_by_fleet_rule": small_reading["parked_by_fleet_rule"],
+        "rounds": small_reading["rounds"],
+        "pods_bound_per_s": small_reading["pods_bound_per_s"],
+        "cpu_pods_bound_per_s": cpu_reading["pods_bound_per_s"],
+        "domain_counts_launches": small_reading["domain_counts_launches"],
+        **held_small.require(small_reading["domain_counts_launches"]),
+        "seconds": time.perf_counter() - t}
+    reading["phase_s"] = time.perf_counter() - t0
+    log("fleet 11a " + json.dumps(reading))
+    return reading, journal
+
+
+def fleet_drain_phase(dev, n_nodes=FD_NODES, n_pods=FD_PODS, chunk=16_384):
+    """11b: bench.py ladder #17's protocol on one card: one global relax
+    plan over the backlog (plain 250m / 512Mi pods, every 512th forced
+    cross-shard into the serialized residual), ``drain.partition_backlog``
+    by planned-node ring owner, ``drain_init`` at the gRPC hub; 4 replicas
+    loop ``fleet_drain_backlog`` on this thread. r3 drains one chunk of its
+    lease and is retired while it holds the rest (the fleet sim's replica
+    kill); a survivor must re-claim it. Gates: every pod bound, none twice,
+    no node over capacity, every lease complete."""
+    import gc
+
+    from kubernetes_tpu_torch.fleet import drain as fdrain
+    from kubernetes_tpu_torch.fleet.ring import HashRing, ring_nodes_from
+    from kubernetes_tpu_torch.sim.invariants import BindTransitionTracker
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cs = _cluster(make_nodes(n_nodes))
+    pods = [plain_pod(i, "fdrain") for i in range(n_pods)]
+    keys = [p.key for p in pods]
+    planner = Scheduler(cs, SchedulerConfig(batch_size=chunk, solver=ExactSolverConfig(
+        seed=SEED, group_size=512)), device=dev)
+    cs.create_pods(pods)
+    t = time.perf_counter()
+    plan = planner.relax_plan_backlog()
+    plan_s = time.perf_counter() - t
+    cs.unsubscribe(planner._on_event)
+    del planner
+    planned = sum(1 for v in plan.values() if v)
+    assignment = HashRing(FLEET_UNIVERSE).assign(ring_nodes_from(cs.list_nodes()))
+    partitions, residual = fdrain.partition_backlog(
+        keys, plan, assignment, cross_shard=lambda k: int(k.rsplit("-", 1)[1]) % 512 == 0)
+    clock = fleet_clock()
+    hub = Hub(dev, clock)
+    try:
+        hub.exchange.drain_init("r0", partitions, residual)
+        tracker = BindTransitionTracker(cs)
+        scheds = fleet_replicas(dev, cs, hub.addr, clock, journal=False,
+                                solver=ExactSolverConfig(seed=SEED, group_size=512),
+                                batch=chunk)
+        setup_s = time.perf_counter() - t0
+        keyset, alive = set(keys), list(FLEET_UNIVERSE)
+        base = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        drained, budgets, peaks, leases, launches = Counter(), {}, {}, [], 0
+        binds = []
+        victim = FLEET_UNIVERSE[-1]
+        with FleetTally() as tally, HeldLaunch("fleet 11b") as held:
+            t = time.perf_counter()
+
+            def drive(rid, **kw):
+                nonlocal launches
+                s = scheds[rid]
+                if dev.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats()
+                dc.LAUNCHES = 0
+                out = s.fleet_drain_backlog(chunk_pods=chunk, plan_keys=keyset, **kw)
+                launches += dc.LAUNCHES
+                if dev.type == "cuda":
+                    peaks[rid] = max(peaks.get(rid, 0), torch.cuda.max_memory_allocated() - base)
+                drained[rid] += out["drained"]
+                budgets[rid] = out["budget_bytes"]
+                leases.extend(dict(lease, replica=rid) for lease in out["leases"])
+                got = [(k, n) for r in out["results"] for k, n in r.scheduled]
+                tracker.record_results(got)
+                owned_binds("11b", s, rid, got)
+                binds.extend((rid, k, n) for k, n in got)
+                return out
+
+            # the victim drains one chunk of its partition, then dies holding it
+            held_out = drive(victim, max_batches=1)
+            if not held_out["leases"] or held_out["leases"][0]["completed"]:
+                raise AssertionError(f"11b: {victim} held no open lease: {held_out['leases']}")
+            cs.unsubscribe(scheds[victim]._on_event)
+            hub.exchange.retire(victim)
+            alive.remove(victim)
+            for rid in alive:
+                scheds[rid].fleet.set_alive(alive)
+            for rid in alive:
+                # re-own the dead replica's shard now, before any claim:
+                # a resync after a claim re-routes pods by hash past the
+                # claim's shedding
+                scheds[rid].fleet.maybe_resync(scheds[rid])
+            for _ in range(8):
+                for rid in alive:
+                    drive(rid)
+                st = hub.exchange.drain_status()
+                if st.get("complete"):
+                    break
+                clock.advance(11.0)
+                for rid in alive:
+                    with cs.lock:
+                        scheds[rid].queue.move_all_to_active_or_backoff()
+            wall = time.perf_counter() - t
+        st = hub.exchange.drain_status()
+        unbound = sum(1 for p in cs.list_pods() if not p.node_name)
+        if unbound or not st.get("complete"):
+            raise AssertionError(f"11b: {unbound} pods unbound, ledger {st}")
+        if st.get("reassigned", 0) < 1:
+            raise AssertionError(f"11b: no lease was re-claimed after {victim} died: {st}")
+        _fleet_checks("11b", cs, tracker)
+        for s in scheds.values():
+            s.fleet.exchange.close()
+        reading = {
+            "nodes": n_nodes, "pods": n_pods, "replicas": len(FLEET_UNIVERSE),
+            "chunk_pods": chunk, "setup_s": setup_s, "plan_s": plan_s, "planned": planned,
+            "partition_sizes": {r: len(k) for r, k in sorted(partitions.items())},
+            "residual_pods": len(residual), "retired": victim,
+            "drained": sum(drained.values()), "drained_by_replica": dict(sorted(drained.items())),
+            "wall_s": wall, "drained_pods_per_s": sum(drained.values()) / wall,
+            "leases_granted": st.get("leases"), "leases_reassigned": st.get("reassigned"),
+            "ledger_complete": True, "lost": 0, "double_bind": 0,
+            "leases": leases,
+            "budget_slice_bytes": budgets,
+            "peak_bytes_by_replica": peaks or "not measured",
+            "domain_counts_launches": launches, **held.require(launches),
+            **tally.reading(),
+        }
+        reading["phase_s"] = time.perf_counter() - t0
+        log("fleet 11b " + json.dumps(reading))
+        return reading
+    finally:
+        hub.close()
+
+
+def fleet_sim_phase(dev, cycles=SIM_CYCLES, replicas=2):
+    """11c: the 7 fleet profiles through ``run_fleet_sim`` with 2 replicas,
+    twice on ``dev`` and once on the CPU given the card's ladder: every
+    replica's journal, the hub's aggregated journal, the bindings and the
+    footer summary byte-equal across the three, every invariant OK."""
+    import kubernetes_tpu_torch.resilience as rz
+    import kubernetes_tpu_torch.scheduler as sm
+    from kubernetes_tpu_torch.sim.fleet import run_fleet_sim
+    from kubernetes_tpu_torch.sim.harness import FLEET_PROFILES
+
+    card_ladder = rz.build_ladder(dev)
+    out, launches = {}, 0
+    t0 = time.perf_counter()
+    with HeldLaunch("sim 11c") as held:
+        for p in sorted(FLEET_PROFILES):
+            build = sm.build_ladder
+            sm.build_ladder = lambda device: card_ladder
+            try:
+                ref = run_fleet_sim(p, seed=SEED, cycles=cycles, replicas=replicas,
+                                    device="cpu")
+            finally:
+                sm.build_ladder = build
+            dc.LAUNCHES = 0
+            t = time.perf_counter()
+            a = run_fleet_sim(p, seed=SEED, cycles=cycles, replicas=replicas, device=dev)
+            secs, n = time.perf_counter() - t, dc.LAUNCHES
+            b = run_fleet_sim(p, seed=SEED, cycles=cycles, replicas=replicas, device=dev)
+            for label, x in (("run 1", a), ("run 2", b)):
+                if not x.ok:
+                    raise AssertionError(f"11c {p} {label}: settled {x.settled}, violations "
+                                         f"{[v.as_dict() for v in x.violations][:4]}")
+            for label, x, y in (("two card runs", a, b), (f"{dev.type} vs cpu", a, ref)):
+                for f in ("journals", "journal_digests", "hub_journal_lines", "bindings",
+                          "unbound", "summary"):
+                    if getattr(x, f) != getattr(y, f):
+                        raise AssertionError(f"11c {p}: {label} differ in {f}")
+            s = a.summary
+            out[p] = {"seconds": secs, "domain_counts_launches": n, "bound": s["bound"],
+                      "binds_by_replica": s["binds_by_replica"],
+                      "journal_digests": a.journal_digests,
+                      "hub_journal_lines": len(a.hub_journal_lines), "invariants": "OK",
+                      "selfcheck": "byte-identical", "card_equals_cpu": True}
+            launches += n
+            log("sim 11c " + json.dumps({p: out[p]}))
+    return {"profiles": out, "replicas": replicas, "cycles": cycles,
+            "ladder": list(card_ladder), "domain_counts_launches": launches,
+            **held.require(launches), "phase_s": time.perf_counter() - t0}
+
+
+def explain_hub(addr, pod):
+    """``python -m kubernetes_tpu_torch.obs explain POD --fleet --hub ADDR``
+    in this process: (exit code, rendered text)."""
+    import contextlib
+    import io
+
+    from kubernetes_tpu_torch.obs.__main__ import main as obs_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = obs_main(["explain", pod, "--fleet", "--hub", addr])
+    return rc, buf.getvalue()
+
+
+def fleet_shipment(journal, n_pods=32):
+    """The 11a journal lines 11d ships to its hub: every record of up to
+    ``n_pods`` pods whose history crosses replicas (hand-offs), else of the
+    first pods. ``journal_lines`` answers in one gRPC message, which the
+    client caps at 4 MiB, so the whole 11a journal is not sent."""
+    replicas = {}
+    for line in journal:
+        rec = json.loads(line)
+        replicas.setdefault(rec["pod"], set()).add(rec.get("replica"))
+    crossed = sorted(p for p, rs in replicas.items() if len(rs) > 1)
+    chosen = set((crossed or sorted(replicas))[:n_pods])
+    lines = [ln for ln in journal if json.loads(ln)["pod"] in chosen]
+    return lines, crossed, {"journal_lines": len(journal),
+                            "journal_bytes": sum(len(x) + 1 for x in journal),
+                            "shipped_lines": len(lines), "shipped_pods": len(chosen)}
+
+
+def fleet_explain(addr, journal):
+    """11d's second half: a pod whose history crosses replicas (a hand-off),
+    else a pod of 11a, rendered from the live hub's journal."""
+    _, crossed, _ = fleet_shipment(journal)
+    pod = crossed[0] if crossed else sorted(json.loads(x)["pod"] for x in journal)[0]
+    rc, text = explain_hub(addr, pod)
+    if rc != 0 or pod not in text:
+        raise AssertionError(f"11d: explain --fleet --hub for {pod} exited {rc}:\n{text[-2000:]}")
+    if crossed and "->" not in text:
+        raise AssertionError(f"11d: {pod}'s cross-replica history not rendered:\n{text[-2000:]}")
+    return {"pod": pod, "cross_replica_pods": len(crossed), "cross_replica": bool(crossed),
+            "lines": len(text.splitlines())}
+
+
+def phase11(dev):
+    """Phase 11, each part with its own readings and checks; 11d serves as
+    a fleet replica against 11a's journal, on a hub of its own."""
+    t0 = time.perf_counter()
+    a, journal = fleet_full(dev)
+    b = fleet_drain_phase(dev)
+    c = fleet_sim_phase(dev)
+    hub = Hub(dev)
+    try:
+        shipped, _, sizes = fleet_shipment(journal)
+        hub.exchange.ship_journal("r0", shipped)
+        d = serve_phase(dev, fleet_hub=hub.addr)
+        d["explain"] = {**fleet_explain(hub.addr, shipped), **sizes}
+    finally:
+        hub.close()
+    log("fleet 11d " + json.dumps(d))
+    return {"fleet_11a": a, "fleet_drain_11b": b, "fleet_sim_11c": c, "fleet_serve_11d": d,
+            "phase_s": time.perf_counter() - t0}
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU")
@@ -3078,6 +3670,7 @@ def main():
     serve = serve_phase(dev)
     phase9_s = time.perf_counter() - t9
     p10 = phase10(dev)
+    p11 = phase11(dev)
     # the kernel at the evaluator's launches: exact, and timed as the others
     for i, (sets, d_pad, counts, gather) in enumerate(ext.pop("8b_launch_sets")):
         rows = "+".join(str(x[0].shape[0]) for x in sets)
@@ -3100,11 +3693,20 @@ def main():
         "serve 9c": serve["domain_counts_launches"],
         "bulk 10c": p10["bulk_10c"]["domain_counts_launches"],
         "rebalance 10d": p10["rebalance_10d"]["domain_counts_launches"],
+        **{f"fleet 11a {rid}": n for rid, n in
+           p11["fleet_11a"]["domain_counts_launches_by_replica"].items()},
+        "fleet 11a parity": p11["fleet_11a"]["parity"]["domain_counts_launches"],
+        "fleet drain 11b": p11["fleet_drain_11b"]["domain_counts_launches"],
+        "sim 11c": p11["fleet_sim_11c"]["domain_counts_launches"],
+        "serve 11d": p11["fleet_serve_11d"]["domain_counts_launches"],
     }
     main_case = cases[0]
     # phase 9's first launches, held to plain on the path's own inputs
     held_errs = [r["max_abs_err"] for r in (sim, perf["yaml"], perf["anti"], perf["spread"],
-                                            serve, p10["bulk_10c"], p10["rebalance_10d"])
+                                            serve, p10["bulk_10c"], p10["rebalance_10d"],
+                                            p11["fleet_11a"], p11["fleet_11a"]["parity"],
+                                            p11["fleet_drain_11b"], p11["fleet_sim_11c"],
+                                            p11["fleet_serve_11d"])
                  if r["max_abs_err"] is not None]
     max_abs_err = max([c["max_abs_err"] for c in cases] + held_errs)
     record = {
@@ -3173,7 +3775,8 @@ def main():
     log(json.dumps({"phase9": {"sim_9a": sim, "perf_9b": perf, "serve_9c": serve,
                                "phase_s": phase9_s},
                     "card": smi}))
-    log(json.dumps({"phase10": p10, "script_s": time.perf_counter() - t_start, "card": smi}))
+    log(json.dumps({"phase10": p10, "card": smi}))
+    log(json.dumps({"phase11": p11, "script_s": time.perf_counter() - t_start, "card": smi}))
     log(smi)  # the card's name and power limit, on the line before the last
     print(json.dumps({
         "ok": True,

@@ -44,11 +44,11 @@ Copied from ``kubernetes_tpu/config/types.py``. What differs:
   no ``pallas`` switch (the port's kernel always runs); ``tpuSolver.pallas``
   is parsed and ignored.
 - ``scheduler_config`` builds ``rebalance.RebalanceConfig`` from the
-  ``rebalance`` section, as the JAX package does, and hands the ``fleet``
-  section as it is parsed and ``fleet.meshSlice`` as ``mesh_slice``: the
-  port's Scheduler refuses those two at construction
-  (``_refuse_unported``, ``parallel/sharding.resolve_mesh``), naming their
-  ROADMAP items, instead of ignoring them.
+  ``rebalance`` section and ``fleet.runtime.FleetConfig`` from the
+  ``fleet`` section, as the JAX package does, and hands
+  ``fleet.meshSlice`` as ``mesh_slice``: the port's Scheduler refuses a
+  mesh slice at construction (``parallel/sharding.resolve_mesh``), naming
+  its ROADMAP item, instead of ignoring it.
 """
 
 from __future__ import annotations
@@ -836,10 +836,20 @@ def scheduler_config(cfg: KubeSchedulerConfiguration):
             min_gain=cfg.rebalance.min_gain_points,
             nominate=cfg.rebalance.nominate,
         )
-    # fleet mode (ROADMAP item 8c) is not ported: its parsed section
-    # rides along so the Scheduler refuses it at construction instead of
-    # running without it
-    fleet = cfg.fleet if cfg.fleet.replica else None
+    fleet = None
+    if cfg.fleet.replica:
+        from ..fleet.runtime import FleetConfig
+
+        # hub_address (not an exchange object) so nothing network-
+        # shaped is constructed at config-build time: FleetRuntime
+        # builds the RemoteOccupancyExchange when the Scheduler starts
+        fleet = FleetConfig(
+            replica=cfg.fleet.replica,
+            replicas=tuple(cfg.fleet.replicas),
+            hub_address=cfg.fleet.hub_address,
+            max_row_age_s=cfg.fleet.max_row_age_seconds,
+            flush_batch=cfg.fleet.flush_batch,
+        )
     gang = None
     if cfg.gang.enabled:
         from ..gang import GangConfig, load_throughput_table

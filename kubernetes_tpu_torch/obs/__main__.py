@@ -30,9 +30,7 @@
 Exit status: 0 found/valid; 1 pod not found or schema errors; 2 usage.
 
 Copied from ``kubernetes_tpu/obs/__main__.py``. ``replay`` takes
-``--device`` (default: the card; ``cpu`` replays on the CPU), and
-``explain --hub`` raises ``NotImplementedError``: the occupancy hub is the
-fleet's, which is not ported (ROADMAP queue 1 item 8c).
+``--device`` (default: the card; ``cpu`` replays on the CPU).
 """
 
 from __future__ import annotations
@@ -47,12 +45,17 @@ def _load_lines(args) -> list[str]:
     for trace in args.trace or []:
         lines.extend(Path(trace).read_text().splitlines())
     if getattr(args, "hub", None):
-        # the occupancy hub's journal aggregation surface belongs to the
-        # fleet, which the port does not have yet
-        raise NotImplementedError(
-            "explain --hub reads the fleet's occupancy hub, which is not "
-            "ported (ROADMAP queue 1 item 8c)"
-        )
+        # the occupancy hub's append-only journal aggregation surface
+        # (fleet/occupancy.py ship_journal): replicas piggyback bounded
+        # journal segments on their write-behind flushes; one HubOp
+        # read returns the merged lines
+        from ..server.bulk import BulkClient
+
+        client = BulkClient(args.hub, retries=0)
+        try:
+            lines.extend(client.hub_op("journal_lines")["lines"] or [])
+        finally:
+            client.close()
     if args.url:
         import json
         import urllib.request
@@ -176,8 +179,9 @@ def main(argv=None) -> int:
     )
     p_explain.add_argument(
         "--hub", metavar="HOST:PORT",
-        help="bulk gRPC address of a fleet occupancy hub; the fleet is not "
-        "ported (ROADMAP queue 1 item 8c), so it raises",
+        help="bulk gRPC address of a fleet occupancy hub: read its "
+        "aggregated journal surface (replicas ship bounded segments "
+        "piggybacked on their write-behind flushes)",
     )
     p_explain.set_defaults(fn=cmd_explain)
 

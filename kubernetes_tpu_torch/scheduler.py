@@ -26,7 +26,9 @@ the flight telemetry with its anomaly sentinel and replay-bundle capture
 (``ObsConfig.sentinel`` / ``bundle_dir``), the continuous rebalancer
 (``SchedulerConfig.rebalance``, ticked by ``run_until_settled``,
 ``run_pipelined`` and ``run_streaming`` when idle), and the relax planner's
-backlog warm start (``backlog_warm_start``, ``relax_plan_backlog``), with
+backlog warm start (``backlog_warm_start``, ``relax_plan_backlog``), and
+fleet mode (``SchedulerConfig.fleet``: this scheduler as one active replica
+of an N-way fleet, with ``fleet_drain_backlog`` and ``hub_status``), with
 everything they reach. The ``Scheduler`` takes ``device`` (None = the
 card, raising without CUDA) and hands it to every solve — deferred, split,
 chained and streamed ones too, the rebalancer's plan and the relax plan —
@@ -34,8 +36,8 @@ and to every preemption dry-run; the resilience ladder's CPU rung solves
 on the CPU, after an injected solve fault or an output that failed
 validation; a kernel or card failure is raised instead. Not ported yet,
 and refused at construction with NotImplementedError naming the ROADMAP
-item: fleet mode (item 8c, so ``fleet_drain_backlog`` is not here either),
-and a multi-device mesh or mesh slice (item 11).
+item: a multi-device mesh or mesh slice (item 11). Fleet replicas in one
+process share the one card.
 """
 
 from __future__ import annotations
@@ -122,7 +124,7 @@ class SchedulerConfig:
     # against. 0 = auto (PJRT bytes_limit, else the conservative
     # solver/budget.py default floor).
     hbm_budget_bytes: int = 0
-    # mega-planner warm-start for drain_backlog (ISSUE 19): before the
+    # mega-planner warm-start for drain_backlog: before the
     # first chunk pops, a convex-relaxation solve (solver/relax.py)
     # over the whole backlog ranks the activeQ so pods the relaxed
     # plan co-locates pop adjacently and chunks pack against
@@ -473,17 +475,6 @@ class _StreamSlot:
     carried: bool
 
 
-def _refuse_unported(config: SchedulerConfig) -> None:
-    """Every config feature this port does not have yet raises at
-    construction, naming its ROADMAP item; none is silently ignored."""
-    cfg = config
-    if cfg.fleet is not None:
-        raise NotImplementedError(
-            "fleet mode is not ported (ROADMAP queue 1 item 8c)"
-        )
-    # mesh_devices > 1 and mesh_slice raise in resolve_mesh (item 11)
-
-
 class Scheduler:
     # consecutive fence discards before run_pipelined falls back to one
     # synchronous (fence-free) cycle — the pipelined loop's livelock
@@ -499,10 +490,10 @@ class Scheduler:
     ):
         self.cluster = cluster
         self.config = config or SchedulerConfig()
-        _refuse_unported(self.config)
         from .parallel.sharding import resolve_mesh
 
-        # the single card (mesh_devices 0/1); more raises (item 11)
+        # the single card (mesh_devices 0/1); more, or a mesh slice,
+        # raises NotImplementedError naming ROADMAP item 11
         self.mesh = resolve_mesh(
             self.config.mesh_devices, self.config.mesh_slice
         )
@@ -545,6 +536,12 @@ class Scheduler:
 
             self.slo = SloEngine(self.config.obs.slo, self.clock)
             self.slo.on_health_change.append(self._on_slo_health)
+        # degraded-flag combiner: the fleet exchange's degraded flag is
+        # the OR of the solve breaker's state and the SLO engine's
+        # health — either signal routes handoff refugees elsewhere,
+        # and neither may clear the flag while the other still holds it
+        self._breaker_degraded = False
+        self._slo_degraded = False
         # flight telemetry (obs/{profile,timeseries,sentinel,bundle}):
         # continuous per-stage profiler + anomaly sentinel + capture-
         # on-anomaly replay bundles, one coordinator ticked from the
@@ -558,6 +555,7 @@ class Scheduler:
             journal=self.journal,
             recorder=self.flight,
         )
+        self._sentinel_degraded = False
         # high-volume span-family sampling state (see _on_event and
         # _commit_all): deterministic counters, first occurrence
         # always sampled
@@ -573,16 +571,36 @@ class Scheduler:
             if self.config.obs is not None
             else 1
         )
+        # fleet runtime (fleet/): partition view, shard
+        # watch filter, occupancy exchange client. Built before the
+        # initial informer sync so the sync itself is shard-scoped.
+        self.fleet = None
+        # tags every batch root span carries (the replica in fleet mode;
+        # drain_backlog adds its drain_trace while a drain is active)
+        self._span_tags: dict = {}
+        if self.config.fleet is not None:
+            from .fleet.runtime import FleetRuntime
+
+            self.fleet = FleetRuntime(
+                self.config.fleet, cluster, self.clock
+            )
+            # fleet-tagged observability: every journal record and the
+            # per-batch root span carry the replica identity
+            self._span_tags = {"replica": self.fleet.replica}
+            if self.journal is not None:
+                self.journal.tags["replica"] = self.fleet.replica
         if self.journal is not None:
             # journey-trace origin: the identity minted into each
-            # pod's trace id at its FIRST record
-            self.journal.origin = f"s-{self.config.incarnation}"
+            # pod's trace id at its FIRST record — replica-qualified in
+            # fleet mode so a cross-replica trace names where the
+            # journey started (the handoff row then ships it onward)
+            self.journal.origin = (
+                f"{self.fleet.replica if self.fleet is not None else 's'}"
+                f"-{self.config.incarnation}"
+            )
         import logging
 
         self._log = logging.getLogger("kubernetes_tpu_torch.scheduler")
-        # tags every batch root span carries (drain_backlog adds its
-        # drain_trace while a drain is active)
-        self._span_tags: dict = {}
         if self.config.incarnation > 1:
             # restarted incarnations tag every record/span so a merged
             # cross-incarnation journal attributes each record to the
@@ -639,7 +657,7 @@ class Scheduler:
         # pods popped this cycle and not yet resolved: the unlocked solve
         # window means a MODIFIED watch event can arrive for a pod that is
         # neither queued nor waiting — without this map queue.update would
-        # re-add it and double-schedule (review-caught)
+        # re-add it and double-schedule
         self._in_flight: dict[str, QueuedPodInfo] = {}  # ktpu: guarded-by(cluster.lock)
         # fence for the double-buffered loop (run_pipelined): bumped by any
         # watch event that could invalidate a dispatched-but-unapplied
@@ -726,11 +744,16 @@ class Scheduler:
         # degraded-mode solve resilience (resilience.py): the fallback
         # ladder (this device -> the CPU -> host greedy) + per-profile
         # circuit breaker every dispatch runs through, pre-apply output
-        # validation, and the poison-batch quarantine
+        # validation, and the poison-batch quarantine. In fleet mode a
+        # breaker trip publishes the replica's degraded flag through
+        # the occupancy exchange so peers route refugees elsewhere.
         self.resilience = SolveResilience(
             self.config.resilience,
             self.clock,
             build_ladder(self.device),
+            # the combiner ORs the breaker's state with the SLO
+            # engine's health before publishing the fleet degraded
+            # flag (no-op without a fleet runtime)
             on_degraded=self._on_breaker_degraded,
         )
         # poison-batch quarantine: pod key -> (QueuedPodInfo, release
@@ -807,8 +830,13 @@ class Scheduler:
         self.nominated_pods: dict[str, Pod] = {}
 
         # commit fencing: the bind-path fence token for this incarnation
-        # (state/cluster.py fencing tokens)
+        # (state/cluster.py fencing tokens). Fleet replicas fence under
+        # their per-shard lease identity by default, so a replica whose
+        # lease a peer observed stale is fenced the moment the peer
+        # commits the membership change at the state service.
         self._fence_role = self.config.fence_role
+        if self._fence_role is None and self.fleet is not None:
+            self._fence_role = self.fleet.lease_name
         self._fence_token = 0
         self._fenced_commits = 0  # ktpu: guarded-by(cluster.lock)
         # fault-injection seam: called with the approved pending list
@@ -829,8 +857,9 @@ class Scheduler:
         """Cold-start recovery: rebuild every piece of incarnation-local
         scheduler state from ``ClusterState`` truth.
 
-        All starts: cache/queue/nominator sync + watch subscription,
-        exactly the WaitForCacheSync contract.
+        All starts: shard-scoped cache/queue/nominator sync + watch
+        subscription + (fleet) inventory/row publication, exactly the
+        WaitForCacheSync contract.
 
         Restarts (``config.incarnation > 1``) additionally treat truth
         as a predecessor's wreck:
@@ -845,7 +874,10 @@ class Scheduler:
           reservations naming unbound routed pods (a crash between the
           PreBind claim write and the bind commit) are released exactly
           like the deallocating controller would on pod delete, and a
-          pod group left partly bound is evicted back to Pending;
+          pod group left partly bound is evicted back to Pending; a
+          fleet replica's exchange rows are rebuilt wholesale from
+          truth (a predecessor's stale PENDING rows would distort
+          peers' admission forever);
         - quarantine and breaker state deliberately RESET rather than
           re-derive: both guard against *this process's* observed
           hardware/data failures, the restart may be on healed hardware
@@ -871,11 +903,13 @@ class Scheduler:
                     holder=f"incarnation-{self.config.incarnation}",
                 )
             for node in cluster.list_nodes():
-                self.cache.add_node(node)
+                if self.fleet is None or self.fleet.owns_node(node.name):
+                    self.cache.add_node(node)
             gangs_rolled = 0
             if restart and self._gang is not None:
                 # half-staged gang rollback BEFORE pod adoption: a crash
-                # between a gang's member binds can leave a STRICT SUBSET
+                # between a gang's member binds (or between a fleet
+                # stage and the gang commit) can leave a STRICT SUBSET
                 # of a pod group bound — exactly the partial gang the
                 # all-or-nothing contract forbids. Evict the stranded
                 # members we own (delete+recreate collapses to unbound
@@ -887,8 +921,15 @@ class Scheduler:
                 gangs_rolled = self._rollback_partial_gangs()
             for pod in cluster.list_pods():
                 if pod.node_name:
-                    self.cache.add_pod(pod)
+                    if self.fleet is None or self.fleet.owns_node(
+                        pod.node_name
+                    ):
+                        self.cache.add_pod(pod)
                 else:
+                    if self.fleet is not None and not self.fleet.routes_pod(
+                        pod.key, pod
+                    ):
+                        continue
                     if pod.nominated_node_name:
                         self.nominated_pods[pod.key] = pod
                     if pod.scheduler_name in self.solvers:
@@ -913,7 +954,19 @@ class Scheduler:
                                 )
             if restart and self._dra:
                 claims_rolled = self._rollback_orphan_claims()
-            cluster.subscribe(self._on_event)
+            cluster.subscribe(
+                self._on_event,
+                filter=self.fleet.event_filter
+                if self.fleet is not None
+                else None,
+            )
+            if self.fleet is not None:
+                self.fleet.publish_inventory()
+                # rebuild this replica's exchange rows from truth: a
+                # prior incarnation's stale PENDING rows (assumed but
+                # never bound) roll back here, wholesale
+                self.fleet.rebuild_pod_rows(self.cache)
+                metrics.fleet_owned_nodes.set(len(self.cache.nodes))
             rsp.set(
                 adopted=adopted, recovered=recovered,
                 claims_rolled_back=claims_rolled,
@@ -938,10 +991,11 @@ class Scheduler:
         (``bind_pod_claims``) and the bind commit can produce one, so
         the reservation is half-committed occupancy — roll it back the
         way the deallocating controller would on pod delete. Pods this
-        scheduler does not own are never touched: pods of FOREIGN
-        schedulers (``spec.schedulerName`` outside our profiles — their
-        scheduler may be between its own PreBind claim write and bind
-        this instant)."""
+        scheduler does not own are never touched: fleet PEERS' routed
+        pods (a live peer may be mid-bind on them right now) and pods
+        of FOREIGN schedulers (``spec.schedulerName`` outside our
+        profiles — their scheduler may be between its own PreBind
+        claim write and bind this instant)."""
         rolled = 0
         for c in list(self.cluster.list_resource_claims()):
             if not c.reserved_for:
@@ -958,6 +1012,10 @@ class Scheduler:
                     continue  # bound: the reservation is legitimate
                 if pod.scheduler_name not in self.solvers:
                     continue  # a foreign scheduler's pod: not ours
+                if self.fleet is not None and not self.fleet.routes_pod(
+                    key, pod
+                ):
+                    continue  # a peer's pod: leave it alone
                 stale.append(key)
             if not stale:
                 continue
@@ -975,10 +1033,13 @@ class Scheduler:
     def _rollback_partial_gangs(self) -> int:
         """Restart-only: find pod groups where 0 < bound members <
         min-member — a predecessor crashed mid-gang (between member
-        binds) — and evict the stranded bound members, so the whole
-        gang returns to Pending and reassembles atomically. PDB-gated
-        evictions (429) are tolerated per pod — the gang then completes
-        on a later pass rather than losing protected members."""
+        binds, or between a fleet stage and the atomic commit) — and
+        evict the stranded bound members this scheduler owns, so the
+        whole gang returns to Pending and reassembles atomically.
+        Members on peer-owned nodes are left alone (the peer's own
+        restart pass rolls its shard back); PDB-gated evictions (429)
+        are tolerated per pod — the gang then completes on a later
+        pass rather than losing protected members."""
         from .gang import GangTracker
 
         groups: dict[str, list] = {}
@@ -997,6 +1058,10 @@ class Scheduler:
                 continue  # complete (or over-satisfied): legitimate
             evicted = 0
             for p in bound:
+                if self.fleet is not None and not self.fleet.owns_node(
+                    p.node_name
+                ):
+                    continue
                 try:
                     self.cluster.evict(
                         p.namespace,
@@ -1021,22 +1086,38 @@ class Scheduler:
                 )
         return rolled
 
+    # -- degraded-health combiner (breaker state OR SLO health) --
+
     def _on_breaker_degraded(self, degraded: bool) -> None:
         """SolveResilience transition hook: the first breaker trip /
-        last re-close. A trip is a forensic capture point: the batch that
-        tripped the breaker is the newest complete solve record."""
+        last re-close. Publishes through the combiner so an
+        SLO-degraded replica stays flagged even while its breakers are
+        closed."""
+        self._breaker_degraded = degraded
         if degraded and self.telemetry is not None:
+            # forensic capture at the trip: the batch that tripped the
+            # breaker is the newest complete solve record
             self.telemetry.capture("breaker")
-
-    # -- degraded-health hooks (breaker state, SLO health) --
+        self._publish_degraded()
 
     def _on_slo_health(self, healthy: bool) -> None:
         """SloEngine health-flip hook: the error budget started (or
         stopped) burning past the threshold. Feeds the resilience
         layer — a half-open breaker defers its top-tier probe while
-        the SLO is already degraded."""
+        the SLO is already degraded — and the fleet degraded flag, so
+        handoff chains route refugees to replicas that are actually
+        meeting their SLOs."""
+        self._slo_degraded = not healthy
         self.resilience.set_slo_degraded(not healthy)
+        self._publish_degraded()
 
+    def _publish_degraded(self) -> None:
+        if self.fleet is not None:
+            self.fleet.set_solver_degraded(
+                self._breaker_degraded
+                or self._slo_degraded
+                or self._sentinel_degraded
+            )
 
     # -- eventhandlers.go#addAllEventHandlers routing --
 
@@ -1048,9 +1129,11 @@ class Scheduler:
         revoked (lease re-acquired after a partition healed / a stall
         ended). The zombie path back to legitimacy: a fresh token is
         granted at the state service AND the scheduler forces a full
-        resync first — in-flight solves go stale (both fences bump) —
-        so post-refence commits are computed from current truth, never
-        the stale pre-fence view."""
+        resync first — both in-flight solves (fence bump) and, in fleet
+        mode, the shard view rebuild — so post-refence commits are
+        computed from current truth, never the stale pre-fence view.
+        Production wires this to lease re-acquisition; the sim's
+        hub_partition drive calls it at heal time."""
         with self.cluster.lock:
             if self._fence_role is None:
                 return
@@ -1060,6 +1143,8 @@ class Scheduler:
             )
             self._conflict_seq += 1
             self._occupancy_seq += 1
+            if self.fleet is not None:
+                self.fleet._needs_resync = True
             self._log.info(
                 "commit fence re-acquired for role %r (token %d); full "
                 "resync forced before the next solve",
@@ -1195,6 +1280,11 @@ class Scheduler:
                 if pod.node_name:
                     freed_node = pod.node_name
                     self.cache.remove_pod(pod.key)
+                    if self.fleet is not None:
+                        # drop this replica's occupancy row (no-op on
+                        # the non-owning replicas that also saw the
+                        # event — withdraw only pops own rows)
+                        self.fleet.withdraw(pod.key)
                     # freed ports / spread counts / interpod terms: for
                     # the fit carry a free is conservative, but a spread
                     # count overstated in the MIN domain loosens other
@@ -1377,6 +1467,11 @@ class Scheduler:
     def _schedule_cycle(self) -> BatchResult:
         pending: list[tuple] = []
         res = BatchResult()
+        if self.fleet is not None:
+            # apply any pending partition change (membership or
+            # ring move) before popping, so this cycle solves against
+            # the current shard
+            self.fleet.maybe_resync(self)
         if self.rebalancer is not None:
             # background defragmentation: a no-op unless the interval
             # elapsed AND the queues are idle. Evictions re-enter the
@@ -1497,6 +1592,14 @@ class Scheduler:
             base = self.queue.scheduling_cycle
             for info in infos:
                 if info.key not in handled:
+                    if self.fleet is not None and not self.fleet.routes_pod(
+                        info.key, info.pod
+                    ):
+                        # handed off to a peer earlier in this batch:
+                        # requeueing locally would double-track the pod
+                        # (the peer claims it from the exchange)
+                        self._in_flight.pop(info.key, None)
+                        continue
                     self._requeue(info, base)
             self._refresh_pending_gauge()
 
@@ -1619,6 +1722,9 @@ class Scheduler:
             self.telemetry.observe_batch(
                 self, step=self._trace_step, pods=len(pending)
             )
+            if self._sentinel_degraded != self.telemetry.degraded:
+                self._sentinel_degraded = self.telemetry.degraded
+                self._publish_degraded()
         if first_err is not None:
             raise first_err
 
@@ -2005,6 +2111,9 @@ class Scheduler:
             try:
                 cur = self.cluster.get_pod(ns, name)
             except ApiError:
+                # deleted: drop the leaked host-side reservations too
+                if self.fleet is not None:
+                    self.fleet.withdraw(key)
                 self.volume_binder.unreserve(key)
                 self.claim_allocator.unreserve(key)
                 continue
@@ -2017,6 +2126,8 @@ class Scheduler:
                 # pod from cross-shard admission; review-caught)
                 self.cache.add_pod(cur)
                 continue
+            if self.fleet is not None:
+                self.fleet.withdraw(key)
             self.volume_binder.unreserve(key)
             self.claim_allocator.unreserve(key)
             if (
@@ -2024,6 +2135,10 @@ class Scheduler:
                 and key not in self._in_flight
                 and key not in self._quarantine
                 and cur.scheduler_name in self.solvers
+                and (
+                    self.fleet is None
+                    or self.fleet.routes_pod(key, cur)
+                )
             ):
                 self.queue.add(cur)
         self._refresh_pending_gauge()
@@ -2366,6 +2481,8 @@ class Scheduler:
                 self.cache.finish_binding(pod.key)
                 self.volume_binder.finish(pod.key)
                 self.claim_allocator.finish(pod.key)
+                if self.fleet is not None:
+                    self.fleet.commit(pod.key)
                 self._event(
                     pod, "Scheduled",
                     f"Successfully assigned {pod.key} to {node_name} "
@@ -2734,7 +2851,7 @@ class Scheduler:
             # the cache holds STRONG refs to the node objects it hashed,
             # so a live entry's id()s cannot be recycled; the identity
             # re-check makes a hash collision with a dead generation
-            # impossible to act on (review-caught id-reuse hazard)
+            # impossible to act on
             if cached is not None and len(cached[2]) == len(
                 slot_nodes
             ) and all(a is b for a, b in zip(cached[2], slot_nodes)):
@@ -2780,7 +2897,9 @@ class Scheduler:
                 tctx = {
                     "trace": prep.step,
                     "parent": cur.span_id if cur is not None else None,
-                    "replica": "",
+                    "replica": (
+                        self.fleet.replica if self.fleet is not None else ""
+                    ),
                     "incarnation": self.config.incarnation,
                 }
                 for cl in self.extender_clients:
@@ -3288,12 +3407,90 @@ class Scheduler:
                         )
                     continue
                 node_name = prep.names[int(a)]
+                if self.fleet is not None:
+                    # cross-shard admission (fleet/reconciler.py):
+                    # ownership fence + occupancy recheck against
+                    # peers' exchanged rows. A rejection is the
+                    # fleet's Conflict-on-stale: requeue and retry,
+                    # never block the fleet. The device session's
+                    # carry counted the placement, so it heals before
+                    # the next dispatch.
+                    fleet_why = self.fleet.admit(pod, node_name, self.cache)
+                    if fleet_why is not None:
+                        self._session_stale.add(profile)
+                        # trace propagation across the handoff: mint
+                        # (or reuse) the pod's journey trace BEFORE the
+                        # release so it rides the handoff row — the
+                        # adopting replica's journal continues the SAME
+                        # trace and `obs explain --fleet` renders one
+                        # enqueue→handoff→re-admit→bind chain
+                        pod_trace = ""
+                        if self.journal is not None:
+                            pod_trace = self.journal.pod_traces.get(
+                                pod.key
+                            ) or (
+                                f"{self.journal.origin}:{prep.step}"
+                                f":{pod.key}"
+                            )
+                            self.journal.pod_traces[pod.key] = pod_trace
+                        handed_to = (
+                            self.fleet.maybe_hand_off(
+                                pod, trace=pod_trace
+                            )
+                            if rd is None
+                            # gang members never hand off alone: the
+                            # group must land together, so a rejected
+                            # member retries locally with its siblings
+                            else None
+                        )
+                        if handed_to is not None:
+                            # released to a peer whose shard may host
+                            # it: drop every local claim on the pod
+                            # (its watch events now route to the peer)
+                            self._in_flight.pop(pod.key, None)
+                            self.queue.delete(pod.key)
+                            if self.journal is not None:
+                                self.journal.record(
+                                    prep.step, cycle, pod, "discarded",
+                                    node=node_name, profile=profile,
+                                    reason=(
+                                        f"handed off to {handed_to}: "
+                                        + fleet_why
+                                    ),
+                                    attempts=info.attempts,
+                                )
+                                # the peer owns the journey now; keep
+                                # no local trace entry behind
+                                self.journal.pod_traces.pop(
+                                    pod.key, None
+                                )
+                            continue
+                        res.unschedulable.append(pod.key)
+                        self._requeue(info, cycle)
+                        self._gang_note_fail(rd, pod, fleet_why)
+                        self._event(
+                            pod, "FailedScheduling", fleet_why,
+                            type_="Warning",
+                        )
+                        if self.journal is not None:
+                            self.journal.record(
+                                prep.step, cycle, pod, "unschedulable",
+                                node=node_name, reason=fleet_why,
+                                profile=profile, attempts=info.attempts,
+                            )
+                        continue
                 try:
                     self.cache.assume_pod(pod, node_name)
                 except Exception as e:  # cache inconsistency: requeue
                     # the device-resident solve DID place the pod; mark the
                     # column dirty so the session re-heals it from cache truth
                     self.snapshot.touch(int(a))
+                    if self.fleet is not None:
+                        # admit() may have CAS-staged the pending row at
+                        # the hub already; a placement that never gets
+                        # assumed must not keep distorting peers'
+                        # admission until the next resync
+                        self.fleet.withdraw(pod.key)
                     res.bind_failures.append((pod.key, str(e)))
                     self._requeue(info, cycle)
                     self._gang_note_fail(rd, pod, str(e))
@@ -3304,6 +3501,12 @@ class Scheduler:
                             attempts=info.attempts,
                         )
                     continue
+                if self.fleet is not None:
+                    # publish the assumed placement to the occupancy
+                    # exchange so peers' admissions count it; every
+                    # rollback path routes through _unreserve_all,
+                    # which withdraws the row
+                    self.fleet.stage(pod, node_name, self.cache)
 
                 # Reserve point: in-tree volumebinding Reserve
                 # (AssumePodVolumes) then out-of-tree ReservePlugins in
@@ -3540,6 +3743,8 @@ class Scheduler:
             p.unreserve(state, pod, node_name)
         self.volume_binder.unreserve(pod.key)
         self.claim_allocator.unreserve(pod.key)
+        if self.fleet is not None:
+            self.fleet.withdraw(pod.key)
         try:
             self.cache.forget_pod(pod.key)
         except Exception:
@@ -3646,6 +3851,11 @@ class Scheduler:
             self.cache.finish_binding(pod.key)
             self.volume_binder.finish(pod.key)
             self.claim_allocator.finish(pod.key)
+            if self.fleet is not None:
+                # pending -> committed on the exchange: the row now
+                # represents durable occupancy peers must respect
+                # until the pod is deleted
+                self.fleet.commit(pod.key)
             self._event(
                 pod, "Scheduled",
                 f"Successfully assigned {pod.key} to {node_name}",
@@ -3710,7 +3920,7 @@ class Scheduler:
                 del self._waiting[key]
                 # back under the in-flight fence until the bind commits:
                 # a MODIFIED event during the unlocked windows must not
-                # re-enqueue a pod that is about to bind (review-caught)
+                # re-enqueue a pod that is about to bind
                 self._in_flight[key] = info
                 pending.append(
                     (state, info, wp.pod, wp.node_name, cycle, t_start,
@@ -3993,7 +4203,7 @@ class Scheduler:
                 # ports/spread/interpod/volume filters need the whole
                 # cluster's occupancy (minus the victims) — a resource-only
                 # check could evict victims on a node the pod still can't
-                # land on (review-caught)
+                # land on
                 live = [
                     (s2, n2)
                     for s2, n2 in enumerate(slot_nodes or [])
@@ -4305,6 +4515,16 @@ class Scheduler:
                 self._discard_streak = 0
                 self._last_discard_step = -1
                 self._commit_all(infos, pending, res)
+                if self._backlog_drain_active and self.fleet is not None:
+                    # fleet drain: the per-chunk progress report feeds
+                    # the hub's lease ledger AND refreshes this
+                    # replica's liveness stamp — a replica deep in a
+                    # long drain writes nothing else to the hub, and
+                    # without the touch it would age past max_row_age_s
+                    # and flip every peer conservative
+                    self.fleet.drain_chunk_progress(
+                        [k for k, _ in res.scheduled]
+                    )
                 res.completed_at = self.clock.perf()
                 return res
         self._discard_flight(flight)
@@ -4409,6 +4629,13 @@ class Scheduler:
         batches = 0
         try:
             while batches < max_batches:
+                if self.fleet is not None and self.fleet.maybe_resync(
+                    self
+                ):
+                    # the partition moved: in-flight solves are fenced
+                    # stale (resync bumped both fences) — drain so
+                    # they discard before the next shard-scoped pop
+                    drain()
                 if self._waiting:
                     drain()
                     # WaitingPod settlement is a synchronous cycle: it
@@ -4810,6 +5037,13 @@ class Scheduler:
                     # dispatched under, so a shrink can never strand a
                     # dispatched-but-unapplied slot
                     depth = max(self.config.stream_depth, 1)
+                if self.fleet is not None and self.fleet.maybe_resync(
+                    self
+                ):
+                    # the partition moved: in-flight solves are fenced
+                    # stale (resync bumped both fences) — drain so they
+                    # discard before the next shard-scoped pop
+                    drain()
                 if self._waiting:
                     drain()
                     # WaitingPod settlement runs a synchronous cycle
@@ -5440,6 +5674,104 @@ class Scheduler:
         metrics.backlog_drain_seconds.observe(dt)
         metrics.backlog_hbm_measured_bytes.set(report.measured_h2d_bytes)
         return report
+
+    def fleet_drain_backlog(
+        self,
+        *,
+        chunk_pods: int = 0,
+        budget_bytes: int = 0,
+        max_batches: int = 1_000_000,
+        warm_start: bool | None = False,
+        plan_keys=None,
+    ) -> dict:
+        """Replica half of the FLEET backlog drain:
+        claim drain leases from the hub ledger and drain each through
+        this replica's own ``drain_backlog`` slot ring until nothing is
+        claimable. The claim adopts the lease's pods into this queue
+        and — given ``plan_keys``, the full plan's key set — sheds pods
+        the plan leased elsewhere (ring routing filled the queue by
+        pod-key hash; the drain re-partitions by planned-node owner).
+        Each pass runs under this replica's slice of the fleet memory
+        budget (``split_fleet_budget``); a lease completes at the hub
+        only once none of its pods is still live in the queue, so a
+        partially-drained lease stays reassignable. Warm-start defaults
+        OFF — the global plan already packed each partition; pass
+        ``warm_start=True`` to re-rank locally anyway."""
+        from .solver import budget as hbm
+
+        if self.fleet is None:
+            raise RuntimeError("fleet_drain_backlog requires fleet mode")
+        total = hbm.device_budget_bytes(
+            budget_bytes or self.config.hbm_budget_bytes, self.device
+        )
+        my_budget = hbm.split_fleet_budget(
+            total,
+            len(self.fleet.membership.universe),
+            replica_index=self.fleet.shard,
+        )
+        t0 = self.clock.perf()
+        leases: list = []
+        results: list = []
+        reports: list = []
+        drained = 0
+        while True:
+            lease = self.fleet.drain_claim(self, plan_keys)
+            if not lease:
+                break
+            lease_keys = [str(k) for k in lease.get("keys") or []]
+            rep = self.drain_backlog(
+                chunk_pods=chunk_pods,
+                budget_bytes=my_budget,
+                max_batches=max_batches,
+                warm_start=warm_start,
+            )
+            drained += rep.drained
+            results.extend(rep.results)
+            reports.append(rep)
+            # complete only when no lease pod is still live in the
+            # queue: unschedulable stragglers stay THIS replica's pods
+            # through the routing the claim adopted them under, and an
+            # un-completed lease re-serves (or returns on death) so the
+            # ledger never strands them
+            with self.cluster.lock:
+                live = set(self.queue.entries())
+            remaining = sum(1 for k in lease_keys if k in live)
+            completed = False
+            if remaining == 0:
+                completed = self.fleet.drain_complete(lease["id"])
+            leases.append(
+                {
+                    "id": lease["id"],
+                    "kind": lease.get("kind", ""),
+                    "pods": len(lease_keys),
+                    "completed": completed,
+                    "remaining": remaining,
+                }
+            )
+            if remaining:
+                break  # stragglers need outside help; don't spin
+        dt = self.clock.perf() - t0
+        metrics.fleet_drain_replica_seconds.observe(dt)
+        return {
+            "replica": self.fleet.replica,
+            "leases": leases,
+            "drained": drained,
+            "seconds": dt,
+            "pods_per_sec": drained / dt if dt > 0 else 0.0,
+            "budget_bytes": my_budget,
+            "results": results,
+            "reports": reports,
+        }
+
+    def hub_status(self) -> "dict | None":
+        """The ``GET /debug/hub`` body: the occupancy hub's role /
+        epoch / replication cursors plus this replica's client-side
+        failover view (fleet/runtime.py). None when this scheduler is
+        not a fleet replica; raises ExchangeUnreachable while no hub
+        endpoint answers (the HTTP handler maps it to 503)."""
+        if self.fleet is None:
+            return None
+        return self.fleet.hub_status()
 
     @property
     def pending(self) -> int:

@@ -28,16 +28,16 @@ the full object model applies. This mirrors the north-star workload shape
 Uses grpc.method_handlers_generic_handler with identity serializers —
 the wire is opaque bytes (tensorcodec framing); no protoc codegen is
 needed. ``grpc`` is imported only inside the functions that open a server
-or a channel, so this module imports without it.
+or a channel (or abort a call), so this module imports without it.
 
 Copied from ``kubernetes_tpu/server/bulk.py``. ``BulkCore``, ``serve_bulk``
 and the solvers under them take ``device`` (None = the card, raising
 without CUDA; ``"cpu"`` runs on the CPU): ``Solve`` runs the exact solver
 or the single-shot auction there, ``Evaluate`` the batched evaluator (two
 ``domain_counts`` launches per evaluation). The fleet's two methods,
-``ExchangeOccupancy`` and ``HubOp``, need the occupancy hub, which is not
-ported (ROADMAP queue 1 item 8c): they answer UNIMPLEMENTED naming it, and
-``BulkClient.exchange_occupancy`` / ``hub_op`` raise NotImplementedError.
+``ExchangeOccupancy`` and ``HubOp``, serve the occupancy hub
+(``fleet/occupancy.py``) that ``BulkCore(exchange=)`` shares or the first
+call creates; ``BulkClient.exchange_occupancy`` / ``hub_op`` call them.
 """
 
 from __future__ import annotations
@@ -65,10 +65,6 @@ from ..tensorize.schema import (
 from . import tensorcodec
 
 SERVICE = "kubernetestpu.Bulk"
-
-_NO_HUB = (
-    "the fleet's occupancy hub is not ported (ROADMAP queue 1 item 8c)"
-)
 
 
 def columnar_pod_batch(
@@ -117,8 +113,8 @@ class BulkCore:
     a socket, like ExtenderCore's dict -> dict handlers)."""
 
     def __init__(
-        self, cluster: ClusterState, solver_config=None, tracer=None,
-        device=None,
+        self, cluster: ClusterState, solver_config=None, exchange=None,
+        tracer=None, device=None,
     ):
         from .. import device as device_mod
         from ..solver.evaluate import BatchEvaluator
@@ -131,6 +127,10 @@ class BulkCore:
         self.exact = ExactSolver(solver_config)
         self.evaluator = BatchEvaluator(solver_config, device=self.device)
         self.single_shot = SingleShotSolver(device=self.device)
+        # fleet occupancy hub (fleet/occupancy.py): lazily created on
+        # the first ExchangeOccupancy call unless an in-process fleet
+        # shares its hub explicitly
+        self.exchange = exchange
         # obs span layer: server-side half of the cross-process trace
         # propagation — a Solve request carrying meta.trace continues
         # the CALLER's trace (id + parent span + replica + incarnation
@@ -280,13 +280,93 @@ class BulkCore:
             {"assignments": np.asarray(assignments, dtype=np.int32)},
         )
 
-    def exchange_occupancy(self, data: bytes, ctx=None) -> bytes:
-        """The fleet's cross-shard occupancy exchange: needs the hub."""
-        return _no_hub(ctx)
+    def exchange_occupancy(self, data: bytes) -> bytes:
+        """Fleet cross-shard occupancy exchange (fleet/occupancy.py):
+        the sender's node inventory + pod rows replace its previous
+        view on the hub; the reply carries the merged rows of every
+        OTHER replica, framed the same way. One unary call per
+        reconcile refresh — compact by construction (label-bearing
+        placements only)."""
+        from ..fleet.occupancy import ingest_payload
+
+        return ingest_payload(self._hub(), data)
+
+    def _hub(self):
+        from ..fleet.occupancy import OccupancyExchange
+
+        with self._lock:
+            if self.exchange is None:
+                self.exchange = OccupancyExchange()
+            return self.exchange
 
     def hub_op(self, data: bytes, ctx=None) -> bytes:
-        """The fleet's occupancy-hub operations: need the hub."""
-        return _no_hub(ctx)
+        """Occupancy-hub operation dispatch: the full OccupancyExchange
+        surface (stage / fenced compare-and-stage / commit / withdraw /
+        idempotent apply_ops flush / retire / handoff / degraded flags
+        / views / replication catch-up / status) as one unary RPC, so N
+        cross-process replicas share ONE hub with the in-process
+        semantics intact. The op table itself lives in
+        ``fleet.occupancy.dispatch_hub_op`` — shared verbatim with the
+        in-process LocalHubClient, so the two transports cannot drift —
+        and every reply carries the hub's ``epoch`` for the client-side
+        monotone fencing check. Error mapping — the wire half of the
+        typed-conflict contract:
+
+        - ``ExchangeUnreachable`` (the sim's partition seam / a downed
+          hub) -> UNAVAILABLE: a transport-class failure the client
+          surfaces as ExchangeUnreachable again;
+        - ``HubDeposed`` (this hub does not hold the primary lease —
+          a deposed old primary or an unpromoted standby) ->
+          PERMISSION_DENIED: RemoteOccupancyExchange rotates to the
+          next endpoint, never retries here;
+        - ``AdmitConflict`` (CAS lost its version race) -> ABORTED;
+          ``AdmitConflict(fenced=True)`` (hub write fence) ->
+          FAILED_PRECONDITION. Both are SEMANTIC rejections: BulkClient
+          never retries them (retrying a lost race would re-land the
+          write the CAS exists to reject)."""
+        import grpc
+
+        from ..fleet.occupancy import (
+            AdmitConflict,
+            ExchangeUnreachable,
+            HubDeposed,
+            dispatch_hub_op,
+        )
+
+        meta, _arrays = tensorcodec.decode(data)
+        op = meta.get("op") or ""
+        hub = self._hub()
+        # hub spans carry the epoch: one span per HubOp with the hub's
+        # identity attributes, so a trace crossing a failover shows
+        # WHICH hub incarnation served each op (disabled tracer = one
+        # attribute check)
+        with self.tracer.span(
+            "hub_op", op=op, hub_epoch=hub.hub_epoch,
+        ):
+            try:
+                out = dispatch_hub_op(hub, op, meta)
+            except HubDeposed as e:
+                if ctx is not None:
+                    ctx.abort(grpc.StatusCode.PERMISSION_DENIED, str(e))
+                raise
+            except ExchangeUnreachable as e:
+                if ctx is not None:
+                    ctx.abort(grpc.StatusCode.UNAVAILABLE, str(e))
+                raise
+            except AdmitConflict as e:
+                if ctx is not None:
+                    ctx.abort(
+                        grpc.StatusCode.FAILED_PRECONDITION
+                        if e.fenced
+                        else grpc.StatusCode.ABORTED,
+                        str(e),
+                    )
+                raise
+            except ValueError as e:
+                if ctx is not None:
+                    ctx.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+                raise
+        return tensorcodec.encode(out)
 
     def evaluate(self, data: bytes) -> bytes:
         meta, arrays = tensorcodec.decode(data)
@@ -325,16 +405,6 @@ class BulkCore:
         )
 
 
-def _no_hub(ctx=None) -> bytes:
-    """Answer a fleet method: UNIMPLEMENTED over gRPC (``ctx.abort``
-    raises), NotImplementedError in process."""
-    if ctx is not None:
-        import grpc
-
-        ctx.abort(grpc.StatusCode.UNIMPLEMENTED, _NO_HUB)
-    raise NotImplementedError(_NO_HUB)
-
-
 def make_grpc_server(core: BulkCore, port: int = 0, host: str = "127.0.0.1"):
     """Returns (server, bound_port). Identity serializers: the tensorcodec
     framing IS the message format."""
@@ -351,8 +421,8 @@ def make_grpc_server(core: BulkCore, port: int = 0, host: str = "127.0.0.1"):
         )
 
     def unary_ctx(fn):
-        # the handler needs the ServicerContext to abort with a typed
-        # status code
+        # the handler needs the ServicerContext to abort with typed
+        # status codes (the HubOp conflict mapping)
         return grpc.unary_unary_rpc_method_handler(
             lambda req, ctx: fn(req, ctx),
             request_deserializer=ident,
@@ -365,7 +435,7 @@ def make_grpc_server(core: BulkCore, port: int = 0, host: str = "127.0.0.1"):
             "SyncNodes": unary(core.sync_nodes),
             "Solve": unary(core.solve),
             "Evaluate": unary(core.evaluate),
-            "ExchangeOccupancy": unary_ctx(core.exchange_occupancy),
+            "ExchangeOccupancy": unary(core.exchange_occupancy),
             "HubOp": unary_ctx(core.hub_op),
         },
     )
@@ -462,6 +532,16 @@ class BulkClient:
             request_serializer=ident,
             response_deserializer=ident,
         )
+        self._exchange = self._channel.unary_unary(
+            f"/{SERVICE}/ExchangeOccupancy",
+            request_serializer=ident,
+            response_deserializer=ident,
+        )
+        self._hub_op = self._channel.unary_unary(
+            f"/{SERVICE}/HubOp",
+            request_serializer=ident,
+            response_deserializer=ident,
+        )
 
     def _retryable(self, err: Exception) -> bool:
         if isinstance(err, ConnectionError):
@@ -554,12 +634,30 @@ class BulkClient:
         return tensorcodec.decode(reply)
 
     def hub_op(self, op: str, **meta) -> dict:
-        """One occupancy-hub operation: the hub is the fleet's."""
-        raise NotImplementedError(_NO_HUB)
+        """One occupancy-hub operation (the HubOp method): meta in,
+        reply meta out. Transient transport failures retry like every
+        other bulk RPC; ABORTED / FAILED_PRECONDITION — the hub's typed
+        CAS-conflict and fence rejections — are SEMANTIC and surface
+        immediately (never retried: a blind retry of a lost admit race
+        would re-land the write the compare-and-stage rejected,
+        mirroring the committing-Solve never-retries rule)."""
+        meta["op"] = op
+        reply = self._call(
+            "HubOp", self._hub_op, tensorcodec.encode(meta)
+        )
+        return tensorcodec.decode(reply)[0]
 
     def exchange_occupancy(self, replica, version, node_rows, pod_rows):
-        """The fleet occupancy exchange round trip: needs the hub."""
-        raise NotImplementedError(_NO_HUB)
+        """Fleet occupancy exchange round trip: publish this replica's
+        rows, return (version, peer node rows, peer pod rows)."""
+        from ..fleet.occupancy import decode_rows, encode_rows
+
+        reply = self._call(
+            "ExchangeOccupancy", self._exchange,
+            encode_rows(replica, version, node_rows, pod_rows),
+        )
+        _replica, v, nodes, pods = decode_rows(reply)
+        return v, nodes, pods
 
     def close(self):
         self._channel.close()

@@ -47,8 +47,9 @@ Copied from ``kubernetes_tpu/server/extender.py``. ``ExtenderCore`` and
 ``run_server`` take ``device`` (None = the card, raising without CUDA;
 ``"cpu"`` runs on the CPU) for the evaluator, the preemption dry-run and
 the embedded Scheduler, and for the bulk tensor gRPC path that
-``grpc_port > 0`` serves beside the webhook (``server/bulk.py``). The port
-has no fleet (``/debug/hub`` answers its 404).
+``grpc_port > 0`` serves beside the webhook (``server/bulk.py``).
+``/debug/hub`` reports the embedded Scheduler's occupancy hub when it is a
+fleet replica, 404 otherwise.
 """
 
 from __future__ import annotations
@@ -642,12 +643,24 @@ def make_app(
     # -- occupancy-hub HA surface (the fleet) --
 
     async def debug_hub(request):
-        # the port's Scheduler refuses fleet mode (ROADMAP queue 1 item
-        # 8c), so no process it serves is a fleet replica
-        return web.json_response(
-            {"error": "not a fleet replica (no occupancy hub)"},
-            status=404,
-        )
+        status = None
+        if scheduler is not None and scheduler.fleet is not None:
+            from ..fleet.occupancy import ExchangeUnreachable
+
+            try:
+                status = scheduler.hub_status()
+            except ExchangeUnreachable as e:
+                # mid-blackout: every hub endpoint is down — exactly
+                # what the operator polling this endpoint wants to know
+                return web.json_response(
+                    {"error": f"hub unreachable: {e}"}, status=503
+                )
+        if status is None:
+            return web.json_response(
+                {"error": "not a fleet replica (no occupancy hub)"},
+                status=404,
+            )
+        return web.json_response(status)
 
     # -- ingest surface (the watch-fed view's write side) --
 

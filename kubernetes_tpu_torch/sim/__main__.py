@@ -11,15 +11,16 @@
     # determinism self-check: run twice, compare trace digests
     python -m kubernetes_tpu_torch.sim --seed 0 --profile node_flaps --selfcheck
 
-Runs on the card unless ``--device cpu`` is given. ``--fleet`` raises
-``NotImplementedError`` (ROADMAP queue 1 item 8c), as do the fleet
-profiles, and ``--mesh-devices > 1`` (11).
+    python -m kubernetes_tpu_torch.sim --profile fleet_mixed --fleet 2 --selfcheck
+
+Runs on the card unless ``--device cpu`` is given. ``--fleet N`` drives N
+scheduler replicas over one cluster (``sim/fleet.py``), every replica on the
+one device; ``--mesh-devices > 1`` raises (ROADMAP queue 1 item 11).
 
 Exit status: 0 clean; 1 invariant violations / failed settle / replay
 divergence; 2 usage errors.
 
-Copied from ``kubernetes_tpu/sim/__main__.py``, without its JAX setup and
-its fleet drive.
+Copied from ``kubernetes_tpu/sim/__main__.py``, without its JAX setup.
 """
 
 from __future__ import annotations
@@ -162,6 +163,152 @@ def _print_result(res) -> None:
         print("  invariants: OK")
 
 
+def _print_fleet_result(res) -> None:
+    s = res.summary
+    print(
+        f"profile={res.profile} seed={res.seed} cycles={res.cycles} "
+        f"fleet={res.replicas} alive={s['alive']} "
+        f"lost={s['lost_replica'] or '-'} "
+        f"hub={s.get('hub', 'in-process')} "
+        f"cas_conflicts={s.get('cas_conflicts', 0)}"
+    )
+    print(
+        f"  events={s['events']} bound={s['bound']} "
+        f"unbound={s['unbound']} settled={s['settled']} "
+        f"binds_by_replica={s['binds_by_replica']}"
+    )
+    if s.get("zombie"):
+        fenced = s["fenced_commits"].get(s["zombie"], 0)
+        print(
+            f"  partition: zombie={s['zombie']} "
+            f"fenced_commits={fenced} "
+            f"zombie_binds_while_fenced={s['zombie_binds_while_fenced']} "
+            f"stale_rejections={s['stale_rejections']}"
+        )
+    ha = s.get("hub_ha")
+    if ha:
+        print(
+            f"  hub_ha: failovers={ha['promotions']} "
+            f"epoch={ha['epoch']} "
+            f"blackout_cycles={ha['blackout_cycles']} "
+            f"stale_writes_rejected={ha['deposed_write_rejections']} "
+            f"dedup_hits={ha['flush_dedup_hits']} "
+            f"client_failovers={ha['client_failovers']} "
+            f"replicated_ops={ha['replication_ops']} "
+            f"journal_missing={ha['hub_journal_missing']} "
+            f"old_primary_reads_ok={ha['old_primary_reads_ok']} "
+            f"stale_rejections={s['stale_rejections']}"
+        )
+    g = s.get("gang")
+    if g:
+        print(
+            f"  gang: commits={g['gang_commits']} "
+            f"bound_pods={g['gang_bound_pods']} "
+            f"incomplete_rounds={g['gang_incomplete_rounds']} "
+            f"partial_gangs={g['partial_gangs']} "
+            f"quarantined_gangs={g['quarantined_gangs']}"
+        )
+    fd = s.get("fleet_drain")
+    if fd:
+        # the CI fleet-drain smoke greps leases_reassigned/lost/
+        # double_bind off this line — keep the key=value shape
+        print(
+            f"  fleet_drain: pods={fd['pods']} "
+            f"partitions={fd['partitions']} "
+            f"residual={fd['residual']} drained={fd['drained']} "
+            f"leases={fd['leases']} "
+            f"leases_reassigned={fd['leases_reassigned']} "
+            f"lost={fd['lost']} double_bind={fd['double_bind']}"
+        )
+    for rid in sorted(res.journal_digests):
+        print(f"  journal[{rid}]={res.journal_digests[rid]}")
+    print(
+        f"  hub_journal: lines={s.get('hub_journal_lines', 0)} "
+        f"digest={s.get('hub_journal_digest', '')[:16]}"
+    )
+    for path in sorted(res.flight_dumps):
+        print(
+            f"  flight recorder dumped [{res.flight_dumps[path]}]: {path}"
+        )
+    if res.violations:
+        print(f"  {len(res.violations)} INVARIANT VIOLATION(S):")
+        for v in res.violations[:20]:
+            print(f"    [{v.invariant}] cycle {v.cycle}: {v.detail}")
+    else:
+        print("  invariants: OK")
+
+
+def _run_fleet(args) -> int:
+    from .fleet import run_fleet_sim
+
+    pipelined = streaming = None
+    if args.dispatcher is not None:
+        pipelined = args.dispatcher == "pipelined"
+        streaming = args.dispatcher == "streaming"
+    try:
+        res = run_fleet_sim(
+            args.profile, seed=args.seed, cycles=args.cycles,
+            replicas=args.fleet, pipelined=pipelined,
+            streaming=streaming, grpc_hub=args.hub_grpc,
+            flight_dump=args.flight_dump, device=args.device,
+        )
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    _print_fleet_result(res)
+    if args.journal:
+        from pathlib import Path
+
+        # the hub's aggregated journal (every replica's shipped
+        # segments, one file) — the `obs explain --fleet` source
+        Path(args.journal).write_text(
+            "\n".join(res.hub_journal_lines) + "\n"
+            if res.hub_journal_lines
+            else ""
+        )
+        print(
+            f"  hub journal written: {args.journal} "
+            f"({len(res.hub_journal_lines)} lines)"
+        )
+        for rid, lines in sorted(res.journals.items()):
+            path = f"{args.journal}.{rid}"
+            Path(path).write_text("\n".join(lines) + "\n")
+            print(f"  journal written: {path}")
+    if args.selfcheck:
+        res2 = run_fleet_sim(
+            args.profile, seed=args.seed, cycles=args.cycles,
+            replicas=args.fleet, pipelined=pipelined,
+            streaming=streaming, grpc_hub=args.hub_grpc,
+            device=args.device,
+        )
+        if res.journal_digests != res2.journal_digests:
+            print(
+                "NON-DETERMINISTIC: per-replica journal digests differ "
+                f"({res.journal_digests} vs {res2.journal_digests})",
+                file=sys.stderr,
+            )
+            return 1
+        if res.hub_journal_lines != res2.hub_journal_lines:
+            print(
+                "NON-DETERMINISTIC: hub-aggregated journals differ "
+                f"({len(res.hub_journal_lines)} vs "
+                f"{len(res2.hub_journal_lines)} lines)",
+                file=sys.stderr,
+            )
+            return 1
+        if res.bindings != res2.bindings:
+            print(
+                "NON-DETERMINISTIC: final bindings differ",
+                file=sys.stderr,
+            )
+            return 1
+        print(
+            "  selfcheck: two runs produced byte-identical per-replica "
+            "journals (and hub aggregation)"
+        )
+    return 0 if res.ok else 1
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m kubernetes_tpu_torch.sim",
@@ -240,8 +387,19 @@ def main(argv=None) -> int:
     )
     parser.add_argument(
         "--fleet", type=int, default=0, metavar="N",
-        help="the multi-replica drive; not ported (ROADMAP queue 1 item "
-        "8c), so N > 0 raises",
+        help="drive N active scheduler replicas sharding the cluster "
+        "(sim/fleet.py): shard-filtered watches, occupancy exchange, "
+        "no-global-overcommit + fleet journal invariants. 0 = the "
+        "single-scheduler drive; use with the fleet_mixed / "
+        "replica_loss profiles. --selfcheck byte-compares per-replica "
+        "journal digests across two runs.",
+    )
+    parser.add_argument(
+        "--hub-grpc", action="store_true",
+        help="fleet drives only: serve the occupancy hub behind a "
+        "localhost bulk gRPC server (real wire framing, typed "
+        "CAS-conflict status mapping) instead of the shared in-process "
+        "object — the cross-process deployment shape on one box",
     )
     parser.add_argument("--list-profiles", action="store_true")
     args = parser.parse_args(argv)
@@ -266,10 +424,17 @@ def main(argv=None) -> int:
         return 0
 
     if args.fleet:
-        raise NotImplementedError(
-            "the fleet drive (--fleet) is not ported (ROADMAP queue 1 "
-            "item 8c)"
-        )
+        if args.tuning:
+            # the multi-scheduler drive builds its own replica configs;
+            # silently dropping the flag would misread as "tuned fleet"
+            print(
+                "error: --tuning is not supported on fleet drives "
+                "(the fleet_flush knob is unit-tested; per-replica "
+                "tuning is future work)",
+                file=sys.stderr,
+            )
+            return 2
+        return _run_fleet(args)
     from .harness import replay_trace, run_sim
     from .trace import TraceError
 

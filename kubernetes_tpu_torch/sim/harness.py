@@ -26,8 +26,8 @@ Copied from ``kubernetes_tpu/sim/harness.py``, on the port's
 ``device`` (None = the card, raising without CUDA), which the scheduler
 config carries, and so the rebalancer's plans (``fragmentation``) and the
 relax planner of the megaplan probe and warm start (``megaplan``). The
-fleet profiles raise ``NotImplementedError`` at construction, naming
-ROADMAP item 8c.
+fleet profiles run here on one scheduler, as in the JAX package; their
+multi-replica drive is ``sim/fleet.py`` (``run_fleet_sim``, ``--fleet N``).
 """
 
 from __future__ import annotations
@@ -124,45 +124,22 @@ def _counter_value(c) -> float:
     return c._value.get()  # the registry's internal read (metrics/prom.py)
 
 
-# the profiles whose scenario is the multi-replica drive (the JAX
-# package's sim/fleet.py): the fleet's own mixes, a replica kill, a hub
-# partition or failover, the fleet drain. Named, because no field tells
-# ``fleet_mixed`` and ``fleet_handoff`` from ``gang``: all three set only
-# ``fleet_replicas``, and ``gang``'s scenario runs on one scheduler.
+# the profiles whose scenario is the multi-replica drive (sim/fleet.py):
+# the fleet's own mixes, a replica kill, a hub partition or failover, the
+# fleet drain. Named, because no field tells ``fleet_mixed`` and
+# ``fleet_handoff`` from ``gang``: all three set only ``fleet_replicas``,
+# and ``gang``'s scenario runs on one scheduler.
 FLEET_PROFILES = frozenset({
     "fleet_mixed", "fleet_handoff", "hub_partition", "hub_failover",
     "fleet_backlog_drain", "gang_replica_loss", "replica_loss",
 })
 
 
-def refuse_unported(profile: Profile) -> None:
-    """A profile that needs a module the port lacks (the fleet) raises
-    here, naming its ROADMAP item; none is skipped or run without its
-    feature."""
-    if (
-        profile.name in FLEET_PROFILES
-        or profile.fleet_drain
-        or profile.replica_loss_at >= 0
-        or profile.hub_partition_at >= 0
-        or profile.hub_failover_at >= 0
-    ):
-        raise NotImplementedError(
-            f"profile {profile.name} drives the fleet, which is not "
-            "ported (ROADMAP queue 1 item 8c)"
-        )
-
-
 def runnable_profiles() -> tuple[str, ...]:
-    """The names of the shipped profiles that ``refuse_unported`` lets
-    through, in ``PROFILES`` order."""
-    out = []
-    for name, profile in PROFILES.items():
-        try:
-            refuse_unported(profile)
-        except NotImplementedError:
-            continue
-        out.append(name)
-    return tuple(out)
+    """The names of the shipped profiles the port runs, in ``PROFILES``
+    order: all of them (the fleet profiles on one scheduler here, and
+    across replicas through ``run_fleet_sim``)."""
+    return tuple(PROFILES)
 
 
 # gang footer block (gang profiles): within-run deltas of the gang
@@ -215,7 +192,6 @@ class SimHarness:
             get_profile(profile) if isinstance(profile, str) else profile
         )
         self.profile.validate()
-        refuse_unported(self.profile)
         # every solve, dry-run and bundle replay of the run: the card
         # unless the caller asks for the CPU
         self.device = device_mod.resolve(device)

@@ -24,9 +24,8 @@ Knobs and their application discipline:
   from the dispatch path — that is the "guardrail breach" the metrics
   and the bench ladder pin at zero.
 - ``fleet_flush`` — the write-behind flush batch of the fleet's remote
-  occupancy exchange. The port has no fleet (its Scheduler refuses fleet
-  mode, ROADMAP item 8), so this knob's controller is never built; the
-  name stays valid in ``TuningConfig.knobs`` as it is in the JAX package.
+  occupancy exchange (``RemoteOccupancyExchange``); applied through
+  ``FleetRuntime.set_flush_batch``, a no-op for in-process hubs.
 
 Every adjustment is journaled three ways: the ``scheduler_tuning_*``
 metric family (adjustments by knob+action, live knob values, settled
@@ -35,8 +34,7 @@ decision/trigger/old->new (so ``obs explain``-style attribution works
 for knob moves too), and an in-memory decision history the sim footer
 and the tuned-profile emitter read.
 
-Copied from ``kubernetes_tpu/tuning/runtime.py``, without the fleet
-flush knob's controller (no fleet in the port).
+Copied from ``kubernetes_tpu/tuning/runtime.py``.
 """
 
 from __future__ import annotations
@@ -199,6 +197,24 @@ class TuningRuntime:
                 HillClimber(
                     KNOB_SPLIT,
                     lo,
+                    lo,
+                    hi,
+                    hysteresis=c.hysteresis,
+                    settle_after=c.settle_after,
+                    eval_batches=c.eval_batches,
+                    max_probes=c.max_probes,
+                )
+            )
+        if (
+            KNOB_FLUSH in c.knobs
+            and scheduler.fleet is not None
+            and scheduler.fleet.flush_batch() is not None
+        ):
+            lo, hi = c.flush_bounds
+            self._add(
+                HillClimber(
+                    KNOB_FLUSH,
+                    min(max(scheduler.fleet.flush_batch(), lo), hi),
                     lo,
                     hi,
                     hysteresis=c.hysteresis,
@@ -431,6 +447,8 @@ class TuningRuntime:
                 return
             scheduler.config.batch_size = value
             self._final_chunk = value
+        elif knob == KNOB_FLUSH:
+            scheduler.fleet.set_flush_batch(value)
         # KNOB_SPLIT needs no push: _choose_split pulls split_override()
         self._journal(scheduler, climber, d)
 

@@ -6,7 +6,8 @@ copy of one cluster, answer the same request bytes with replies that
 decode to the same meta and arrays (``Solve`` in ``exact`` and
 ``single_shot`` mode, advisory and committing, and ``Evaluate``), and the
 committed bindings are equal. The gRPC round trips run on a real socket.
-The fleet's two methods answer UNIMPLEMENTED naming ROADMAP item 8c.
+The fleet's two methods (``ExchangeOccupancy``, ``HubOp``) serve the
+occupancy hub, reply for reply with the JAX package's hub.
 """
 
 import json
@@ -191,12 +192,66 @@ def test_columnar_pod_batch_applies_nonzero_defaults():
     assert pb.valid.sum() == 2 and pb.keys == ["default/bulk-0", "default/bulk-1"]
 
 
+# one occupancy-hub session: (op, meta) in order, every reply compared
+HUB_OPS = [
+    ("peers_version", {"replica": "r1"}),
+    ("cas_stage", {"replica": "r1", "expect": 0,
+                   "row": ["default/b", "n2", "z0", "default", [["app", "web"]], "pending"]}),
+    ("publish_nodes", {"replica": "r0", "nodes": [["n0", "z0"], ["n1", "z1"]]}),
+    ("publish_nodes", {"replica": "r1", "nodes": [["n2", "z0"]]}),
+    ("stage", {"replica": "r0", "row": ["default/a", "n0", "z0", "default",
+                                         [["app", "web"]], "pending"]}),
+    ("peers_view", {"replica": "r1"}),
+    ("commit", {"replica": "r0", "pod": "default/a"}),
+    ("hand_off", {"replica": "r0", "to": "r1", "pod": "default/c", "hops": 1,
+                  "from": "r0", "trace": "r0-1:3:default/c"}),
+    ("pending_handoff_keys", {"replica": "r1"}),
+    ("claim_handoffs", {"replica": "r1"}),
+    ("set_degraded", {"replica": "r1", "degraded": True}),
+    ("degraded_replicas", {"replica": "r0"}),
+    ("ship_journal", {"replica": "r0", "lines": ['{"k":"d","pod":"default/a"}']}),
+    ("journal_lines", {"replica": "r0"}),
+    ("withdraw", {"replica": "r0", "pod": "default/a"}),
+    ("peers_view", {"replica": "r1"}),
+    ("version", {}),
+    ("hub_status", {}),
+]
+
+
 def test_fleet_methods_raise_naming_item_8c():
-    core = BulkCore(ClusterState(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        core.exchange_occupancy(b"")
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        core.hub_op(tensorcodec.encode({"op": "status"}))
+    """The fleet's two methods, which answered UNIMPLEMENTED (naming ROADMAP
+    item 8c) before the fleet was ported, now serve the occupancy hub: the
+    port's ``BulkCore(exchange=)`` and the JAX package's answer the same
+    ``HubOp`` session and the same ``ExchangeOccupancy`` payload with equal
+    replies."""
+    from kubernetes_tpu.fleet import NodeRow as RefNodeRow
+    from kubernetes_tpu.fleet import OccupancyExchange as RefExchange
+    from kubernetes_tpu.fleet import PodRow as RefPodRow
+    from kubernetes_tpu.fleet.occupancy import encode_rows as ref_encode_rows
+    from kubernetes_tpu_torch.fleet import NodeRow, OccupancyExchange, PodRow
+    from kubernetes_tpu_torch.fleet.occupancy import decode_rows, encode_rows
+
+    from kubernetes_tpu.utils.clock import FakeClock as RefFakeClock
+    from kubernetes_tpu_torch.utils.clock import FakeClock
+
+    # virtual clocks: peer ages in the replies are clock arithmetic
+    core = BulkCore(ClusterState(), exchange=OccupancyExchange(FakeClock()), device="cpu")
+    ref = RefBulkCore(ClusterState(), exchange=RefExchange(RefFakeClock()))
+    for op, meta in HUB_OPS:
+        ours = tensorcodec.decode(core.hub_op(tensorcodec.encode({"op": op, **meta})))
+        theirs = ref_codec.decode(ref.hub_op(ref_codec.encode({"op": op, **meta})))
+        assert ours[0] == theirs[0], op
+    row = dict(pod="default/x", node="n9", zone="z2", namespace="default",
+               labels=(("app", "db"),))
+    ours = core.exchange_occupancy(encode_rows(
+        "r2", 0, [NodeRow("n9", "z2")], [PodRow(**row)]))
+    theirs = ref.exchange_occupancy(ref_encode_rows(
+        "r2", 0, [RefNodeRow("n9", "z2")], [RefPodRow(**row)]))
+    assert ours == theirs
+    replica, version, nodes, pods = decode_rows(ours)
+    assert version >= 1 and {n.node for n in nodes} >= {"n0", "n1", "n2"}
+    with pytest.raises(ValueError, match="unknown hub op"):
+        core.hub_op(tensorcodec.encode({"op": "no-such-op"}))
 
 
 # -- over a socket -----------------------------------------------------------
@@ -232,18 +287,24 @@ def test_bulk_grpc_socket_roundtrip():
         meta, arrays = client.evaluate(cpu_milli=[1000, 64000], mem_bytes=[1 << 30, 1 << 30])
         assert arrays["scores"].shape == (2, 5)
         assert (arrays["scores"][0] >= 0).all() and (arrays["scores"][1] < 0).all()
-        with pytest.raises(NotImplementedError, match="item 8c"):
-            client.hub_op("status")
-        # the server answers a fleet method UNIMPLEMENTED, naming the item
-        channel = grpc.insecure_channel(f"127.0.0.1:{port}")
-        call = channel.unary_unary("/kubernetestpu.Bulk/HubOp",
-                                   request_serializer=lambda b: b,
-                                   response_deserializer=lambda b: b)
+        # the fleet's methods over the wire: the same hub session as the
+        # JAX BulkCore's in process, reply for reply; an unknown op is
+        # INVALID_ARGUMENT, a semantic rejection the client never retries
+        from kubernetes_tpu.fleet import OccupancyExchange as RefExchange
+        from kubernetes_tpu.utils.clock import FakeClock as RefFakeClock
+        from kubernetes_tpu_torch.fleet import OccupancyExchange
+        from kubernetes_tpu_torch.utils.clock import FakeClock
+
+        # the served core's hub on a virtual clock, as the reference's
+        core.exchange = OccupancyExchange(FakeClock())
+        ref_hub = RefBulkCore(ClusterState(), exchange=RefExchange(RefFakeClock()))
+        for op, meta in HUB_OPS:
+            ours = client.hub_op(op, **{k: v for k, v in meta.items()})
+            theirs = ref_codec.decode(ref_hub.hub_op(ref_codec.encode({"op": op, **meta})))[0]
+            assert ours == theirs, op
         with pytest.raises(grpc.RpcError) as err:
-            call(tensorcodec.encode({"op": "status"}), timeout=30)
-        assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
-        assert "item 8c" in err.value.details()
-        channel.close()
+            client.hub_op("no-such-op")
+        assert err.value.code() == grpc.StatusCode.INVALID_ARGUMENT
     finally:
         client.close()
         server.stop(grace=None)

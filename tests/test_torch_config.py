@@ -5,9 +5,9 @@ The load, validation and mapping cases of ``tests/test_config.py``:
 ``kubernetes_tpu.config.types.load`` does (same sections, same warnings,
 same errors), and ``scheduler_config`` must give the port a
 ``SchedulerConfig`` whose fields equal the JAX package's field by field
-(the solver configs but the TPU-only ``pallas`` switch; ``fleet`` and
-``rebalance`` reach the port as their parsed sections, which its
-Scheduler refuses). The cases that schedule build the same cluster in
+(the solver configs but the TPU-only ``pallas`` switch; ``fleet`` becomes
+the port's ``FleetConfig`` as it becomes the JAX package's, and
+``rebalance`` reaches the port as its parsed section). The cases that schedule build the same cluster in
 both packages and must bind alike. ``test_cli_config_command`` becomes a
 ``load_file`` case (the CLI is ROADMAP item 8); ``test_cli_perf_command``
 (the perf runner, item 8) has no counterpart here.
@@ -106,10 +106,7 @@ def bridged(doc):
         if not hasattr(rsc, f.name):
             continue
         a, b = getattr(sc, f.name), getattr(rsc, f.name)
-        if f.name == "fleet":
-            assert (a is None) == (b is None), f.name
-        else:
-            assert plain(a) == plain(b), f.name
+        assert plain(a) == plain(b), f.name
     return sc, port
 
 
@@ -517,8 +514,12 @@ def test_fleet_section_round_trip():
     assert cfg.fleet.mesh_slice == (2, 4)
     assert cfg.fleet.max_row_age_seconds == 15.0
     assert sc.mesh_slice == (2, 4)
-    assert sc.fleet.replica == "r2" and sc.fleet.max_row_age_seconds == 15.0
-    with pytest.raises(NotImplementedError, match="item 8"):  # fleet mode is refused
+    assert sc.fleet.replica == "r2" and sc.fleet.max_row_age_s == 15.0
+    assert sc.fleet.hub_address == "hub.scheduling.svc:9411"
+    assert sc.fleet.replicas == ("r0", "r1", "r2", "r3") and sc.fleet.exchange is None
+    # an exclusive mesh slice is multi-device work: refused at
+    # construction (item 11), before anything dials the hub
+    with pytest.raises(NotImplementedError, match="item 11"):
         Scheduler(convert.cluster_state(ClusterState()), sc, device="cpu")
     sc2, cfg2 = bridged("fleet:\n  replica: null\n  meshSlice: null\n  hubAddress: null\n")
     assert cfg2.fleet.replica == "" and cfg2.fleet.mesh_slice is None

@@ -1015,3 +1015,143 @@ def test_rebalancer_card_equals_cpu(cuda_device):
                      s.rebalancer.stats(), sorted((p.key, p.node_name) for p in cs.list_pods())))
     assert runs[0] == runs[1]
     assert runs[0][1]["evicted"] >= 1 and all(n for _, n in runs[0][2])
+
+
+# -- the fleet: replicas in one process share the one card -------------------
+
+
+def _fleet_bindings(dev, n_nodes=24, n_pods=48, seed=0):
+    """A 2-replica fleet over one cluster and one in-process hub, "first"
+    mode on a virtual clock, driven round-robin until nothing moves."""
+    import random
+
+    from kubernetes_tpu_torch.fleet import FleetConfig, OccupancyExchange
+    from kubernetes_tpu_torch.scheduler import Scheduler, SchedulerConfig
+    from kubernetes_tpu_torch.sim.generators import ZONE_KEY, make_node, make_pod
+    from kubernetes_tpu_torch.state.cluster import ClusterState
+    from kubernetes_tpu_torch.utils.clock import FakeClock
+
+    rng = random.Random(seed)
+    clock, cs = FakeClock(), ClusterState()
+    for i in range(n_nodes):
+        cs.create_node(make_node(f"n{i:02d}", "8", "16Gi", labels={ZONE_KEY: f"z{i % 3}"}))
+    hub = OccupancyExchange(clock)
+    universe = ("r0", "r1")
+    scheds = [Scheduler(cs, SchedulerConfig(
+        batch_size=16, solver=ExactSolverConfig(tie_break="first", balanced_fdtype="float64"),
+        fleet=FleetConfig(replica=rid, replicas=universe, exchange=hub)),
+        clock=clock, device=dev) for rid in universe]
+    for i in range(n_pods):
+        cs.create_pod(make_pod(f"p{i:03d}", "500m", shape=rng.choice(("plain", "spread", "anti"))))
+    for _ in range(8):
+        for s in scheds:
+            s.run_until_settled()
+        clock.advance(11.0)
+        for s in scheds:
+            with cs.lock:
+                s.queue.move_all_to_active_or_backoff()
+    return {p.key: p.node_name for p in cs.list_pods()}, cs
+
+
+def test_fleet_card_equals_cpu(cuda_device):
+    dc.LAUNCHES = 0
+    card, _ = _fleet_bindings(cuda_device)
+    assert dc.LAUNCHES > 0  # the replicas' spread and anti rows ran the kernel
+    cpu, _ = _fleet_bindings(torch.device("cpu"))
+    assert card == cpu
+    assert sum(1 for n in card.values() if n) >= 40
+
+
+def test_fleet_drain_backlog_loses_nothing_on_the_card(cuda_device):
+    """The fleet backlog drain on the card: one relax plan, the ledger at
+    an in-process hub, 2 replicas loop ``fleet_drain_backlog``; every pod
+    bound exactly once, the ledger complete."""
+    from kubernetes_tpu_torch.fleet import FleetConfig, OccupancyExchange
+    from kubernetes_tpu_torch.scheduler import Scheduler, SchedulerConfig
+    from kubernetes_tpu_torch.sim.generators import ZONE_KEY, make_node, make_pod
+    from kubernetes_tpu_torch.sim.invariants import BindTransitionTracker
+    from kubernetes_tpu_torch.state.cluster import ClusterState
+    from kubernetes_tpu_torch.utils.clock import FakeClock
+
+    clock, cs = FakeClock(), ClusterState()
+    for i in range(32):
+        cs.create_node(make_node(f"n{i:02d}", "8", "16Gi", labels={ZONE_KEY: f"z{i % 3}"}))
+    tracker = BindTransitionTracker(cs)
+    hub = OccupancyExchange(clock)
+    cfg = dict(batch_size=64, solver=ExactSolverConfig(tie_break="first"))
+    scheds = [Scheduler(cs, SchedulerConfig(**cfg, fleet=FleetConfig(
+        replica=rid, replicas=("r0", "r1"), exchange=hub)), clock=clock, device=cuda_device)
+        for rid in ("r0", "r1")]
+    planner = Scheduler(cs, SchedulerConfig(**cfg), clock=clock, device=cuda_device)
+    for i in range(256):
+        cs.create_pod(make_pod(f"d{i:04d}", "250m"))
+    plan = planner.relax_plan_backlog()
+    cs.unsubscribe(planner._on_event)
+    keys = list(plan)
+    scheds[0].fleet.drain_init_from_plan(plan, keys)
+    drained = 0
+    for _ in range(4):
+        for s in scheds:
+            out = s.fleet_drain_backlog(chunk_pods=64, plan_keys=set(keys))
+            drained += out["drained"]
+            tracker.record_results([kn for r in out["results"] for kn in r.scheduled])
+    violations = []
+    tracker.drain(0, violations)
+    assert not violations
+    assert drained == 256 == sum(1 for p in cs.list_pods() if p.node_name)
+    assert hub.drain_status()["complete"]
+
+
+def _race_worker(addr, rid, barrier, out_q):
+    """One replica process with a CUDA context of its own on the card."""
+    import torch
+
+    from kubernetes_tpu_torch.fleet import AdmitConflict, PodRow, RemoteOccupancyExchange
+
+    torch.zeros(1, device="cuda")  # hold a CUDA context while racing
+    remote = RemoteOccupancyExchange(addr, rid)
+    try:
+        view = remote.peers_view(rid)
+        barrier.wait(timeout=60)
+        row = PodRow(pod=f"default/{rid}", node=f"{rid}-node", zone="z0",
+                     namespace="default", labels=(("app", "spread"),))
+        try:
+            remote.compare_and_stage(rid, row, view.version)
+            out_q.put((rid, "won", None))
+        except AdmitConflict as e:
+            out_q.put((rid, "conflict", bool(e.fenced)))
+    finally:
+        remote.close()
+
+
+def test_two_process_race_exactly_one_winner_on_the_card(cuda_device):
+    """Two spawned replica processes, each holding a CUDA context on the one
+    card, race a hard-spread admission through the port's gRPC hub at the
+    same view version: the fenced compare-and-stage lands exactly one."""
+    import multiprocessing
+
+    from kubernetes_tpu_torch.fleet import OccupancyExchange
+    from kubernetes_tpu_torch.server.bulk import BulkCore, make_grpc_server
+    from kubernetes_tpu_torch.state.cluster import ClusterState
+
+    hub = OccupancyExchange()
+    server, port = make_grpc_server(BulkCore(ClusterState(), exchange=hub, device=cuda_device))
+    server.start()
+    ctx = multiprocessing.get_context("spawn")
+    barrier, out_q = ctx.Barrier(2), ctx.Queue()
+    procs = [ctx.Process(target=_race_worker, args=(f"127.0.0.1:{port}", rid, barrier, out_q))
+             for rid in ("r0", "r1")]
+    try:
+        for p in procs:
+            p.start()
+        results = [out_q.get(timeout=120) for _ in procs]
+        assert sorted(o for _r, o, _f in results) == ["conflict", "won"], results
+        assert [f for _r, o, f in results if o == "conflict"] == [False]
+        winner = [r for r, o, _f in results if o == "won"][0]
+        assert [r.pod for r in hub.peers_view("observer").pod_rows] == [f"default/{winner}"]
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+        server.stop(grace=None)

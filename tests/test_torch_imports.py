@@ -6,10 +6,12 @@ blocked), no source of the port (or chip_smoke.py) imports any of them —
 ``yaml`` only inside the function that parses YAML text
 (``config.types._parse_text``), ``aiohttp`` only inside the extender's
 ``make_app`` / ``run_server`` and ``grpc`` only inside the bulk path's
-functions that open a server or a channel, never at module level (``perf/runner.py`` and ``tuning/profile.py``
+functions that open a server or a channel (and the fleet's remote hub
+client and HA rotation), never at module level (``perf/runner.py`` and ``tuning/profile.py``
 import ``yaml`` inside their loaders too) — the simulator, the perf
 runner, the CLI and its ``__main__``, the obs and metrics tools, leader
-election and structured logging import with the rest, the config bridge
+election and structured logging import with the rest, as do the fleet
+(``fleet/*``) and its simulator drive (``sim/fleet.py``), the config bridge
 loads a mapping and JSON text
 with ``yaml`` blocked, the extender's ``make_app`` names ``aiohttp`` when
 it is missing, and an entry point asked for no device does not fall back
@@ -85,6 +87,12 @@ print("slice8=" + ",".join(
                 "rebalance", "rebalance.detector", "rebalance.planner", "rebalance.runtime")
     if "kubernetes_tpu_torch." + n in sys.modules
 ))
+print("slice9=" + ",".join(
+    n for n in ("fleet", "fleet.ring", "fleet.membership", "fleet.drain",
+                "fleet.occupancy", "fleet.reconciler", "fleet.ha", "fleet.leasestore",
+                "fleet.runtime", "sim.fleet")
+    if "kubernetes_tpu_torch." + n in sys.modules
+))
 from kubernetes_tpu_torch.server.extender import ExtenderCore, make_app
 from kubernetes_tpu_torch.state.cluster import ClusterState
 core = ExtenderCore(ClusterState(), backend="oracle")
@@ -144,6 +152,9 @@ def test_import_every_module_leaves_jax_and_reference_out():
     assert out["slice8"].split(",") == [
         "solver.single_shot", "solver.relax", "server.tensorcodec", "server.bulk",
         "rebalance", "rebalance.detector", "rebalance.planner", "rebalance.runtime"]
+    assert out["slice9"].split(",") == [
+        "fleet", "fleet.ring", "fleet.membership", "fleet.drain", "fleet.occupancy",
+        "fleet.reconciler", "fleet.ha", "fleet.leasestore", "fleet.runtime", "sim.fleet"]
 
 
 @pytest.mark.parametrize(

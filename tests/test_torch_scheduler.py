@@ -407,16 +407,33 @@ def test_default_device_raises_without_cuda(monkeypatch):
         Scheduler(cs, SchedulerConfig(device="cuda"))
 
 
+def _one_replica_fleet():
+    from kubernetes_tpu_torch.fleet import FleetConfig, OccupancyExchange
+
+    return FleetConfig(replica="r0", replicas=("r0",), exchange=OccupancyExchange())
+
+
 @pytest.mark.parametrize(
     "field,value,item",
     [
-        ("fleet", object(), "item 8"),
+        ("fleet", _one_replica_fleet, "item 8"),
         ("mesh_devices", 2, "item 11"),
         ("mesh_slice", (0, 2), "item 11"),
     ],
 )
 def test_unported_config_features_raise(field, value, item):
+    """A multi-device mesh or a mesh slice (ROADMAP item 11) raises at
+    construction. Fleet mode (item 8, refused here until the fleet was
+    ported) now constructs: a one-replica fleet owns every node, publishes
+    its inventory to the hub and binds as a fleetless Scheduler does."""
     cs = convert.cluster_state(mk_cluster(1))
+    if field == "fleet":
+        cfg = value()
+        sched = Scheduler(cs, SchedulerConfig(fleet=cfg), device="cpu")
+        assert sched.fleet is not None and sched.fleet.replica == "r0"
+        assert sorted(sched.cache.nodes) == sorted(n.name for n in cs.list_nodes())
+        assert cfg.exchange.replica_rows("r0")[0]
+        return
     with pytest.raises(NotImplementedError, match=item):
         Scheduler(cs, SchedulerConfig(**{field: value}), device="cpu")
 

@@ -6,11 +6,11 @@ trace must match the JAX package's: its event (``"k": "e"``) and
 decision (``"k": "d"``) lines byte-identical, its footer's bindings,
 unbound pods and violations equal, and its footer summary equal except
 for the fields ``EXCUSED_SUMMARY`` names. Traces replay across the two
-packages in both directions, ``--selfcheck`` is deterministic with every
-invariant OK, and the fleet profiles, which need the unported fleet,
-raise naming ROADMAP item 8c. ``fragmentation`` (the rebalancer) and
-``megaplan`` (the relax planner's probe and warm start) give the JAX
-package's trace byte for byte, as every other runnable profile does.
+packages in both directions, and ``--selfcheck`` is deterministic with
+every invariant OK. All 24 profiles run on one scheduler, as in the JAX
+package; the 7 fleet profiles also run across replicas (``run_fleet_sim``,
+``--fleet 2``), where every replica's journal, the hub's aggregated
+journal, the bindings and the footer summary equal the JAX package's.
 """
 
 from __future__ import annotations
@@ -23,13 +23,15 @@ from kubernetes_tpu.sim import replay_trace as jax_replay_trace
 from kubernetes_tpu.sim import run_sim as jax_run_sim
 from kubernetes_tpu_torch.sim import replay_trace, run_sim
 from kubernetes_tpu_torch.sim.__main__ import main as sim_main
+from kubernetes_tpu_torch.sim.fleet import run_fleet_sim
 from kubernetes_tpu_torch.sim.harness import FLEET_PROFILES, runnable_profiles
 from kubernetes_tpu_torch.sim.profiles import PROFILES
 
-# the 17 profiles the port runs: everything but the fleet
+# every shipped profile: the port runs all 24
 RUNNABLE = runnable_profiles()
-# the 7 that raise, with the ROADMAP item each names
-UNPORTED = {name: "8c" for name in FLEET_PROFILES}
+# the 7 whose scenario is the multi-replica drive
+FLEET = sorted(FLEET_PROFILES)
+FLEET_REPLICAS = 2
 CYCLES = 6
 SEED = 0
 # footer summary fields allowed to differ from the JAX package's, each
@@ -78,10 +80,10 @@ def assert_traces_match(ours: list[str], ref: list[str]) -> None:
 
 
 def test_profiles_partition():
-    """Every profile is either runnable or refused: none is skipped."""
-    assert set(RUNNABLE) | set(UNPORTED) == set(PROFILES)
-    assert not set(RUNNABLE) & set(UNPORTED)
-    assert len(RUNNABLE) == 17 and len(UNPORTED) == 7
+    """Every profile runs, none is refused or skipped; the fleet's 7 are
+    among them."""
+    assert RUNNABLE == tuple(PROFILES) and len(RUNNABLE) == 24
+    assert set(FLEET) <= set(RUNNABLE) and len(FLEET) == 7
     assert {"fragmentation", "megaplan"} <= set(RUNNABLE)
 
 
@@ -125,10 +127,35 @@ def test_selfcheck_cli(profile, capsys):
     assert "selfcheck: two runs produced byte-identical traces" in out
 
 
-@pytest.mark.parametrize("profile", sorted(UNPORTED))
+_JAX_FLEET_RUNS: dict = {}
+
+
+def _jax_fleet(profile: str):
+    if profile not in _JAX_FLEET_RUNS:
+        from kubernetes_tpu.sim.fleet import run_fleet_sim as jax_run_fleet_sim
+
+        _JAX_FLEET_RUNS[profile] = jax_run_fleet_sim(
+            profile, seed=SEED, cycles=CYCLES, replicas=FLEET_REPLICAS
+        )
+    return _JAX_FLEET_RUNS[profile]
+
+
+@pytest.mark.parametrize("profile", FLEET)
 def test_unported_profile_raises_naming_its_item(profile):
-    with pytest.raises(NotImplementedError, match=rf"item {UNPORTED[profile]}\)"):
-        run_sim(profile, seed=SEED, cycles=1, device="cpu")
+    """The fleet profiles' multi-replica drive (refused, naming ROADMAP
+    item 8c, until the fleet was ported; the name is kept): each
+    replica's journal byte for byte, the hub's aggregated journal, the
+    bindings and the footer summary equal the JAX package's, with every
+    fleet invariant OK."""
+    ours = run_fleet_sim(profile, seed=SEED, cycles=CYCLES,
+                         replicas=FLEET_REPLICAS, device="cpu")
+    ref = _jax_fleet(profile)
+    assert ours.ok, [v.as_dict() for v in ours.violations]
+    assert ours.journals == ref.journals
+    assert ours.journal_digests == ref.journal_digests
+    assert ours.hub_journal_lines == ref.hub_journal_lines
+    assert ours.bindings == ref.bindings and ours.unbound == ref.unbound
+    assert ours.summary == ref.summary
 
 
 def test_rebalance_and_megaplan_footers_engage():
@@ -142,9 +169,21 @@ def test_rebalance_and_megaplan_footers_engage():
     assert mega["plan_valid"] and mega["ranked"] >= 1 and mega["iterations"] >= 1
 
 
-def test_fleet_flag_raises():
-    with pytest.raises(NotImplementedError, match=r"item 8c\)"):
-        sim_main(["--device", "cpu", "--profile", "fleet_mixed", "--fleet", "2"])
+def test_fleet_flag_raises(capsys):
+    """``--fleet`` (which raised, naming ROADMAP item 8c, until the fleet
+    was ported; the name is kept) drives the replicas and prints what the
+    JAX package's sim CLI prints; ``--selfcheck`` byte-compares two runs'
+    per-replica journals, the hub's aggregation and the bindings."""
+    from kubernetes_tpu.sim.__main__ import main as jax_sim_main
+
+    argv = ["--profile", "fleet_mixed", "--fleet", "2", "--seed", str(SEED),
+            "--cycles", str(CYCLES), "--selfcheck"]
+    assert sim_main(["--device", "cpu"] + argv) == 0
+    ours = capsys.readouterr().out
+    assert jax_sim_main(argv) == 0
+    assert ours == capsys.readouterr().out
+    assert "invariants: OK" in ours and "selfcheck: two runs produced" in ours
+    assert sim_main(["--device", "cpu", "--tuning"] + argv) == 2
 
 
 def test_mesh_devices_raise():

@@ -130,9 +130,35 @@ def test_sim_journals_of_both_packages_are_identical():
     assert _sim_journal("port") == _sim_journal("jax")
 
 
-def test_explain_hub_raises():
-    with pytest.raises(NotImplementedError, match=r"item 8c\)"):
-        obs_main(["explain", "p", "--hub", "127.0.0.1:50051"])
+def test_explain_hub_raises(capsys):
+    """``explain --fleet --hub`` (which raised, naming ROADMAP item 8c,
+    before the fleet was ported) reads a live occupancy hub's journal
+    aggregation over gRPC: a fleet sim's hub journal shipped to the port's
+    hub renders a handed-off pod's cross-replica history, and the JAX
+    package's tool reading the same hub prints the same."""
+    from kubernetes_tpu_torch.fleet import OccupancyExchange
+    from kubernetes_tpu_torch.server.bulk import BulkCore, make_grpc_server
+    from kubernetes_tpu_torch.sim.fleet import run_fleet_sim
+
+    res = run_fleet_sim("fleet_handoff", seed=0, cycles=6, device="cpu")
+    lines = res.hub_journal_lines
+    replicas: dict = {}
+    for ln in lines:
+        rec = json.loads(ln)
+        replicas.setdefault(rec["pod"], set()).add(rec.get("replica"))
+    handed = sorted(p for p, rs in replicas.items() if len(rs) > 1)
+    assert handed, "the handoff profile handed no pod across replicas"
+    hub = OccupancyExchange()
+    hub.ship_journal("r0", lines)
+    server, port = make_grpc_server(BulkCore(ClusterState(), exchange=hub, device="cpu"))
+    server.start()
+    try:
+        argv = ["explain", handed[0], "--fleet", "--hub", f"127.0.0.1:{port}"]
+        out = _run(obs_main, argv, capsys)
+        assert out == _run(jax_obs_main, argv, capsys)
+        assert out[0] == 0 and "replicas:" in out[1] and "->" in out[1]
+    finally:
+        server.stop(grace=None)
 
 
 def test_obs_top_cli_renders_snapshot_file(tmp_path):

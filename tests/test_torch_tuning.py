@@ -6,8 +6,8 @@ expected values, and each is run on the JAX package's modules too: the
 climbers' decision sequences, the windows' estimates and the tuners'
 summaries must be equal. The runtime cases drive both Schedulers through
 ``_torch_sched_pair.Pair`` (``FakeClock``s, ``tie_break="first"``,
-float64 balanced scores). Left out: the two fleet flush-knob cases that
-need the fleet's remote exchange (ROADMAP item 8), the sim invariant's
+float64 balanced scores). The fleet flush knob's cases run on the port's
+remote exchange. Left out: the sim invariant's
 known-bad fixtures (``sim/invariants.check_tuning``, item 8) and the two
 ``run_sim("tuning_convergence")`` cases (item 8).
 """
@@ -453,15 +453,77 @@ def test_max_probes_parses_and_validates():
 
 
 def test_config_flush_batch_reaches_the_refused_fleet_section():
-    """fleet.flushBatch parses and validates as in the JAX package; the
-    section reaches the SchedulerConfig, whose Scheduler refuses fleet
-    mode (ROADMAP item 8)."""
+    """fleet.flushBatch parses and validates as in the JAX package and
+    reaches the replica's FleetConfig. The Scheduler refused fleet mode
+    until the fleet was ported; now it constructs, its remote exchange takes
+    the configured batch, and the tuner builds the fleet_flush controller
+    over it (an in-process hub has no write-behind buffer, so no knob)."""
     from kubernetes_tpu_torch import convert
+    from kubernetes_tpu_torch.fleet import OccupancyExchange
     from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.server.bulk import BulkCore, make_grpc_server
 
     sc = config_types.scheduler_config(config_types.load("fleet:\n  replica: r0\n  flushBatch: 64\n"))
     assert sc.fleet.flush_batch == 64
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Scheduler(convert.cluster_state(ClusterState()), sc, device="cpu")
     with pytest.raises(ValueError):
         config_types.load("fleet:\n  replica: r0\n  flushBatch: -1\n")
+    server, port = make_grpc_server(BulkCore(convert.cluster_state(ClusterState()),
+                                             exchange=OccupancyExchange(), device="cpu"))
+    server.start()
+    try:
+        sc = config_types.scheduler_config(config_types.load(
+            "fleet:\n  replica: r0\n  replicas: [r0]\n  flushBatch: 64\n"
+            f"  hubAddress: 127.0.0.1:{port}\n"
+            "tuning:\n  enabled: true\n  knobs: [fleet_flush]\n"))
+        sched = Scheduler(convert.cluster_state(ClusterState()), sc, device="cpu")
+        assert sched.fleet.flush_batch() == 64
+        sched.tuner.attach(sched)
+        climber = sched.tuner.controllers[runtime.KNOB_FLUSH]
+        assert climber.value == 64
+        climber.value = 16  # a probe's candidate, as the climber sets it
+        sched.tuner._apply(sched, climber, controllers.Decision(
+            runtime.KNOB_FLUSH, "probe", 64, 16, 0.0, 0.0))
+        assert sched.fleet.flush_batch() == 16
+        sched.fleet.exchange.close()
+    finally:
+        server.stop(grace=None)
+
+
+def test_remote_exchange_buffer_cap_retargets():
+    """The fleet_flush knob's application surface (tests/test_tuning.py's
+    case on both packages): the write-behind cap is an instance setting
+    consulted on append, so a retarget at any moment is safe — a shrink
+    below the live buffer flushes at the next mutation."""
+    from kubernetes_tpu.fleet.occupancy import PodRow as RefPodRow
+    from kubernetes_tpu.fleet.runtime import RemoteOccupancyExchange as RefRemote
+    from kubernetes_tpu_torch.fleet.occupancy import PodRow
+    from kubernetes_tpu_torch.fleet.runtime import RemoteOccupancyExchange
+
+    def drive(remote_cls, row_cls):
+        calls = []
+
+        class FakeClient:
+            def hub_op(self, op, **meta):
+                calls.append((op, meta))
+                return {"version": 1}
+
+            def close(self):
+                pass
+
+        ex = remote_cls("x:1", "r0", client=FakeClient())
+        assert ex._buffer_cap == remote_cls._BUFFER_CAP
+        ex.set_buffer_cap(2)
+
+        def row(i):
+            return row_cls(pod=f"default/p{i}", node="n0", zone="z0",
+                           namespace="default", labels=())
+
+        ex.stage("r0", row(0))
+        assert not any(op == "apply_ops" for op, _ in calls)
+        ex.stage("r0", row(1))  # cap 2 reached -> one apply_ops flush
+        flushes = [m for op, m in calls if op == "apply_ops"]
+        assert len(flushes) == 1 and len(flushes[0]["ops"]) == 2
+        return [(op, {k: v for k, v in m.items() if k != "flush_client"})
+                for op, m in calls]
+
+    assert drive(RemoteOccupancyExchange, PodRow) == drive(RefRemote, RefPodRow)
