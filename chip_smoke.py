@@ -209,6 +209,26 @@ Phases (a failure in any of them propagates and exits nonzero):
       hub holding 11a's journal, ``--obs``): ``GET /debug/hub`` reports the
       hub, and ``obs explain --fleet --hub`` renders a pod the served
       replica bound and a pod of 11a whose history crosses replicas.
+12. The tooling:
+   a. the kernel build cache (``utils/compile_cache.py``): four child
+      processes, each one 6b-shaped domain_counts launch (T 8 + 8, N 5,120,
+      d_pad 8,192, seeded inputs) held exactly to plain, each with
+      ``KUBERNETES_TPU_COMPILE_CACHE`` set: a fresh empty directory (exactly
+      one nvcc build, counted by ``build.BUILD_LISTENERS``), the same
+      directory again (no build), a read-only copy of it with the compiler
+      taken away (no build), and a directory that cannot be created, under
+      a regular file (the launch must raise KernelError naming it); nvcc
+      seconds and each child's seconds from its start to its first exact
+      launch;
+   b. the port's Scheduler on the card against the port's sequential oracle
+      (``ops/oracle/scheduler.py``): 1,024 nodes of BASELINE.json's widths
+      and 3,072 pods of tests/test_scheduler_e2e.py's request mix (depth cut
+      so the Python oracle's two passes take about 30 s); in "first" mode the
+      bindings equal ``schedule()`` in creation order, in "random" mode every
+      pick lies in the oracle's tie set (``validate_assignments``);
+   c. ``python -m kubernetes_tpu_torch.analysis --ratchet`` and
+      ``--check-lock-order`` in child processes on the card's machine (which
+      has no JAX): both exit 0, 0 active findings, seconds each.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -3627,6 +3647,214 @@ def phase11(dev):
             "phase_s": time.perf_counter() - t0}
 
 
+# -- phase 12 --------------------------------------------------------------
+
+# 12a's launch: 6b's InterPodAffinity in + ex aggregation (T 8 + 8, N 5,120,
+# d_pad 8,192) on seeded inputs. The child imports torch and the kernel's
+# wrapper only, so its seconds from process start to the first exact launch
+# read the cache and not the rest of the package.
+CACHE_PROBE = r'''
+import json, sys, time
+import numpy as np
+import torch
+from kubernetes_tpu_torch import build
+from kubernetes_tpu_torch.ops import domain_counts as dc
+
+out_path, mode = sys.argv[1], sys.argv[2]
+builds = []
+build.BUILD_LISTENERS.append(lambda name, s: builds.append(s))
+if mode == "prebuilt":
+    def no_compiler():
+        raise build.KernelError("a prebuilt directory needs no compiler")
+    build.nvcc = no_compiler
+rng = np.random.default_rng(12)
+dev = torch.device("cuda")
+sets = [(torch.from_numpy(rng.integers(-1, 8192, (8, 5120)).astype(np.int32)).to(dev),
+         torch.from_numpy(rng.integers(0, 5, (8, 5120)).astype(np.int32)).to(dev), None)
+        for _ in range(2)]
+res = {"mode": mode}
+dc.LAUNCHES = 0
+try:
+    got = dc.aggregate(sets, 8192)
+    torch.cuda.synchronize()
+except build.KernelError as e:
+    res.update(kernel_error=str(e), launches=dc.LAUNCHES, builds=len(builds))
+else:
+    res["launch_done"] = time.time()
+    want = dc.aggregate_plain(sets, 8192)
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+              for gp, wp in zip(got, want) for g, w in zip(gp, wp))
+    res.update(launches=dc.LAUNCHES, builds=len(builds), build_s=sum(builds),
+               max_abs_err=err, build_dir=str(build.BUILD_DIR),
+               library=str(build.library_path("domain_counts")))
+with open(out_path, "w") as f:
+    json.dump(res, f)
+'''
+
+
+def cache_probe(mode, cache_dir, scratch):
+    """One 12a child on ``cache_dir`` (``KUBERNETES_TPU_COMPILE_CACHE``):
+    its result, and the seconds from its start to its first exact launch."""
+    out = os.path.join(scratch, f"{mode}.json")
+    env = {**os.environ, "KUBERNETES_TPU_COMPILE_CACHE": str(cache_dir)}
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", CACHE_PROBE, out, mode], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"12a {mode}: child exit {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(out) as f:
+        res = json.load(f)
+    res["process_s"] = wall
+    if "launch_done" in res:
+        res["start_to_first_exact_launch_s"] = res.pop("launch_done") - t0
+    return res
+
+
+def cache_phase():
+    """12a: the kernel build cache across processes. A cold directory
+    builds once; the same directory in a new process, and a read-only copy
+    of it with the compiler taken away, build nothing; each of the three
+    launches equals plain. A directory that cannot be created (a path under
+    a regular file: permissions do not stop root) fails the launch with
+    KernelError naming it."""
+    import shutil
+
+    root = os.path.join(REPO, "kubernetes_tpu_torch", "_build", "phase12a")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cold, pre = os.path.join(root, "cache"), os.path.join(root, "prebuilt")
+    blocked = os.path.join(root, "a-file", "cache")
+    runs = {}
+    try:
+        runs["cold"] = cache_probe("cold", cold, root)
+        runs["warm"] = cache_probe("warm", cold, root)
+        shutil.copytree(cold, pre)
+        for d, _, files in os.walk(pre):
+            for f in files:
+                os.chmod(os.path.join(d, f), 0o444)
+            os.chmod(d, 0o555)
+        runs["prebuilt"] = cache_probe("prebuilt", pre, root)
+        with open(os.path.join(root, "a-file"), "w") as f:
+            f.write("a regular file, so nothing can be created under it\n")
+        runs["unwritable"] = cache_probe("unwritable", blocked, root)
+    finally:
+        for d, _, _ in os.walk(root):
+            os.chmod(d, 0o755)
+    want_builds = {"cold": 1, "warm": 0, "prebuilt": 0}
+    for mode, n in want_builds.items():
+        r = runs[mode]
+        if "kernel_error" in r:
+            raise AssertionError(f"12a {mode}: {r['kernel_error']}")
+        if r["builds"] != n:
+            raise AssertionError(f"12a {mode}: {r['builds']} nvcc builds, want {n}")
+        if r["launches"] != 1 or r["max_abs_err"] != 0:
+            raise AssertionError(f"12a {mode}: launches {r['launches']}, "
+                                 f"max abs err {r['max_abs_err']}")
+    if not runs["cold"]["library"].startswith(cold) or not runs["prebuilt"]["library"].startswith(pre):
+        raise AssertionError(f"12a: libraries outside their directories: {runs}")
+    bad = runs["unwritable"]
+    if blocked not in bad.get("kernel_error", "") or bad["launches"] or bad["builds"]:
+        raise AssertionError(f"12a unwritable: want KernelError naming {blocked}, got {bad}")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"cold": runs["cold"], "warm": runs["warm"], "prebuilt": runs["prebuilt"],
+           "unwritable": {k: bad[k] for k in ("kernel_error", "launches", "builds", "process_s")},
+           "nvcc_s": runs["cold"]["build_s"],
+           "max_abs_err": max(runs[m]["max_abs_err"] for m in want_builds)}
+    log("cache 12a " + json.dumps(out))
+    return out
+
+
+ORACLE_NODES, ORACLE_PODS = 1_024, 3_072
+
+
+def oracle_workload(n_nodes, n_pods):
+    """BASELINE.json's node widths (16 CPU / 64Gi / 110 pods) and the
+    request mix of tests/test_scheduler_e2e.py (100-520m CPU, 256-512Mi),
+    so the scores do not all tie."""
+    nodes = [MakeNode().name(f"node-{i:05}")
+             .capacity({"cpu": "16", "memory": "64Gi", "pods": "110"}).obj()
+             for i in range(n_nodes)]
+    pods = [MakePod().name(f"oracle-{i:05}")
+            .req({"cpu": f"{100 + 70 * (i % 7)}m", "memory": f"{256 + 128 * (i % 3)}Mi"}).obj()
+            for i in range(n_pods)]
+    return nodes, pods
+
+
+def oracle_phase(dev, n_nodes=ORACLE_NODES, n_pods=ORACLE_PODS):
+    """12b: the port's Scheduler on the card against the port's sequential
+    oracle (ops/oracle/scheduler.py): in "first" mode the bindings equal
+    ``schedule()`` in creation order; in "random" mode every pick lies in
+    the oracle's tie set given the picks before it (``validate_assignments``)."""
+    from kubernetes_tpu_torch.ops.oracle import scheduler as osched
+
+    t0 = time.perf_counter()
+    out = {"nodes": n_nodes, "pods": n_pods}
+    for tie in ("first", "random"):
+        nodes, pods = oracle_workload(n_nodes, n_pods)
+        cs = _cluster(nodes, pods)
+        sched = Scheduler(cs, SchedulerConfig(
+            batch_size=1024,
+            solver=ExactSolverConfig(tie_break=tie, balanced_fdtype="float64")), device=dev)
+        _, reading = drain(sched, f"12b {tie}")
+        index = {n.name: i for i, n in enumerate(nodes)}
+        picks = [index.get(cs.get_pod(p.namespace, p.name).node_name, -1) for p in pods]
+        t1 = time.perf_counter()
+        if tie == "first":
+            want = osched.schedule(pods, osched.make_node_states(nodes)).assignments
+            if picks != want:
+                i = next(i for i, (a, b) in enumerate(zip(picks, want)) if a != b)
+                raise AssertionError(f"12b first: pod {pods[i].key} on node {picks[i]}, "
+                                     f"the oracle's {want[i]}")
+        else:
+            errors = osched.validate_assignments(pods, osched.make_node_states(nodes), picks)
+            if errors:
+                raise AssertionError(f"12b random: {len(errors)} picks outside the oracle's "
+                                     f"tie set: {errors[:3]}")
+        oracle_s = time.perf_counter() - t1
+        out[tie] = {**{k: reading[k] for k in ("bound", "unschedulable", "wall_s",
+                                               "pods_bound_per_s", "batches",
+                                               "domain_counts_launches")},
+                    "oracle_s": oracle_s, "distinct_nodes": len(set(picks))}
+    out["phase_s"] = time.perf_counter() - t0
+    log("oracle 12b " + json.dumps(out))
+    return out
+
+
+def analysis_phase():
+    """12c: the port's analyzer on the card's machine, which has no JAX:
+    ``python -m kubernetes_tpu_torch.analysis`` with the ratchet and
+    ``--check-lock-order``, both exit 0 with 0 active findings."""
+    out = {}
+    for label, args in (("scan", ["--json", "--ratchet"]), ("lock_order", ["--check-lock-order"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "kubernetes_tpu_torch.analysis", *args],
+                              cwd=REPO, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"12c {label}: exit {proc.returncode}: "
+                                 f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        rec = {"exit": proc.returncode, "seconds": secs}
+        if label == "scan":
+            findings = json.loads(proc.stdout)
+            active = [f for f in findings if not f["suppressed"]]
+            if active:
+                raise AssertionError(f"12c: {len(active)} active findings: {active[:3]}")
+            rec.update(active=0, suppressed=len(findings))
+        out[label] = rec
+    log("analysis 12c " + json.dumps(out))
+    return out
+
+
+def phase12(dev):
+    t0 = time.perf_counter()
+    a = cache_phase()
+    b = oracle_phase(dev)
+    c = analysis_phase()
+    return {"cache_12a": a, "oracle_12b": b, "analysis_12c": c,
+            "phase_s": time.perf_counter() - t0}
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU")
@@ -3671,6 +3899,7 @@ def main():
     phase9_s = time.perf_counter() - t9
     p10 = phase10(dev)
     p11 = phase11(dev)
+    p12 = phase12(dev)
     # the kernel at the evaluator's launches: exact, and timed as the others
     for i, (sets, d_pad, counts, gather) in enumerate(ext.pop("8b_launch_sets")):
         rows = "+".join(str(x[0].shape[0]) for x in sets)
@@ -3699,6 +3928,9 @@ def main():
         "fleet drain 11b": p11["fleet_drain_11b"]["domain_counts_launches"],
         "sim 11c": p11["fleet_sim_11c"]["domain_counts_launches"],
         "serve 11d": p11["fleet_serve_11d"]["domain_counts_launches"],
+        **{f"cache 12a {m}": p12["cache_12a"][m]["launches"] for m in ("cold", "warm", "prebuilt")},
+        **{f"oracle 12b {t}": p12["oracle_12b"][t]["domain_counts_launches"]
+           for t in ("first", "random")},
     }
     main_case = cases[0]
     # phase 9's first launches, held to plain on the path's own inputs
@@ -3706,7 +3938,7 @@ def main():
                                             serve, p10["bulk_10c"], p10["rebalance_10d"],
                                             p11["fleet_11a"], p11["fleet_11a"]["parity"],
                                             p11["fleet_drain_11b"], p11["fleet_sim_11c"],
-                                            p11["fleet_serve_11d"])
+                                            p11["fleet_serve_11d"], p12["cache_12a"])
                  if r["max_abs_err"] is not None]
     max_abs_err = max([c["max_abs_err"] for c in cases] + held_errs)
     record = {
@@ -3776,7 +4008,8 @@ def main():
                                "phase_s": phase9_s},
                     "card": smi}))
     log(json.dumps({"phase10": p10, "card": smi}))
-    log(json.dumps({"phase11": p11, "script_s": time.perf_counter() - t_start, "card": smi}))
+    log(json.dumps({"phase11": p11, "card": smi}))
+    log(json.dumps({"phase12": p12, "script_s": time.perf_counter() - t_start, "card": smi}))
     log(smi)  # the card's name and power limit, on the line before the last
     print(json.dumps({
         "ok": True,

@@ -57,7 +57,7 @@ def domain_counts_plain(dom: torch.Tensor, cnt: torch.Tensor, d_pad: int) -> tor
     t = dom.shape[0]
     hk = dom >= 0
     dd = torch.where(hk, dom, 0).to(torch.int64)
-    seg = (dd + torch.arange(t, device=dom.device)[:, None] * d_pad).reshape(-1)
+    seg = (dd + torch.arange(t, dtype=torch.int64, device=dom.device)[:, None] * d_pad).reshape(-1)
     out = torch.zeros(t * d_pad, dtype=torch.int64, device=dom.device)
     out.index_add_(0, seg, torch.where(hk, cnt, 0).reshape(-1).to(torch.int64))
     return out.reshape(t, d_pad).to(torch.int32)

@@ -29,6 +29,7 @@ MAX_NODE_SCORE = 100
 INF = 2**30
 
 
+# device-scope op, called per step by the solver: ktpu: hot
 def node_totals(ipa, in_cnt, ex_cnt, d_pad: int, ident: bool = False):
     """(in totals [Ti, N], ex totals [Te, N]): the per-node domain totals
     of both tables -- the JAX package's ``domain_counts`` of each -- from
@@ -58,6 +59,7 @@ def static_tables(in_dom, ex_dom) -> dict:
     return {"in_hk": in_dom >= 0, "ex_hk": ex_dom >= 0}
 
 
+# device-scope op, called per step by the solver: ktpu: hot
 def filter_and_score(
     ipa, in_cnt, ex_cnt, cls: int, x, d_pad: int, node_valid,
     ident: bool = False, score: bool = True,
@@ -118,6 +120,7 @@ def filter_and_score(
     return allowed, raw
 
 
+# device-scope op, called per step by the solver: ktpu: hot
 def normalize(raw, mask):
     """scoring.go#NormalizeScore: 100*(s-min)/(max-min) over the feasible
     set; all-equal -> 0. raw, mask: [..., N]; each row on its own."""

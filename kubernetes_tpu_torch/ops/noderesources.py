@@ -29,6 +29,7 @@ def _floor_div(a, b):
     return torch.div(a, b, rounding_mode="floor")
 
 
+# device-scope op, called per step by the solver: ktpu: hot
 def fit_mask(
     req: torch.Tensor,  # [K] int64
     req_mask: torch.Tensor,  # [K] bool -- resources the pod requests (>0)
@@ -60,6 +61,7 @@ def _weighted_mean(per_res, weights):
     )
 
 
+# device-scope op, called per step by the solver: ktpu: hot
 def least_allocated_score(
     requested: torch.Tensor,  # [R, N] int64 -- per scoring resource
     alloc: torch.Tensor,  # [R, N] int64
@@ -75,6 +77,7 @@ def least_allocated_score(
     return _weighted_mean(per_res, weights)
 
 
+# device-scope op, called per step by the solver: ktpu: hot
 def most_allocated_score(
     requested: torch.Tensor, alloc: torch.Tensor, weights: torch.Tensor
 ) -> torch.Tensor:
@@ -87,6 +90,7 @@ def most_allocated_score(
     return _weighted_mean(per_res, weights)
 
 
+# device-scope op, called per step by the solver: ktpu: hot
 def rtc_score(
     requested: torch.Tensor,  # [R, N] int64
     alloc: torch.Tensor,  # [R, N] int64
@@ -122,6 +126,7 @@ def rtc_score(
     return _weighted_mean(per_res, weights)
 
 
+# device-scope op, called per step by the solver: ktpu: hot
 def balanced_allocation_score(
     requested: torch.Tensor,  # [R, N] int64 -- scoring resources (cpu, mem)
     alloc: torch.Tensor,  # [R, N] int64

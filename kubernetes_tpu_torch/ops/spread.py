@@ -94,6 +94,7 @@ def aggregate_rows(spr, cnt, d_pad: int):
     return node_cnt, min_match
 
 
+# device-scope op, called per step by the solver: ktpu: hot
 def hard_violations(spr, cnt, cls: int, d_pad: int):
     """[N] bool -- any hard spread constraint of class ``cls`` violated.
 
@@ -114,6 +115,7 @@ def hard_violations(spr, cnt, cls: int, d_pad: int):
     return viol
 
 
+# device-scope op, called per step by the solver: ktpu: hot
 def soft_scores(spr, cnt, cls: int, mask, d_pad: int, fdtype=torch.float32):
     """[N] int32 -- normalized 0-100 PodTopologySpread score over the
     feasible set ``mask`` (scoring.go#Score + #NormalizeScore).

@@ -71,6 +71,9 @@ class BatchEvaluator:
     def __init__(self, config: ExactSolverConfig | None = None, device=None):
         self.config = config or ExactSolverConfig()
         self.device = device_mod.resolve(device)
+        from ..utils.compile_cache import enable_persistent_cache
+
+        enable_persistent_cache()
 
     def evaluate(
         self,
@@ -195,6 +198,7 @@ class BatchEvaluator:
         node_valid = nt["node_valid"]
 
         # the batch's classes: C distinct rows, ``inv`` maps each pod to its
+        # ktpu: ignore[TPU001]: static.class_of is a host numpy table from tensorize; no card value is read
         class_of = np.asarray(static.class_of[:p]).astype(np.int64)
         classes, inv_host = np.unique(class_of, return_inverse=True)
         inv = to_dev(inv_host, dev, torch.int64)
@@ -260,6 +264,7 @@ class BatchEvaluator:
             )
         if use_interpod and cfg.interpod_weight and interpod.has_score:
             score = score + cfg.interpod_weight * ip.normalize(ipa_raw, mask)
+        # ktpu: ignore[TPU001]: the evaluation's one card read, its [P, N] result for the webhook's reply: one wait per evaluation, not per launch (ROADMAP speed levers)
         out = torch.where(mask, score, -1).cpu().numpy()
         return np.where(pod_valid[:, None], out, np.int32(-1))
 
@@ -277,20 +282,26 @@ def _hard_spread(spr, node_cnt, min_match, classes):
     """[C, N] bool: any hard spread constraint of each class violated
     (``ops/spread.py`` ``hard_violations``, over every class at once)."""
     dev = node_cnt.device
+    # ktpu: ignore[TPU001]: the argument is a host numpy class table (the session keeps class tables on the host); no card value is read
     hard = np.asarray(spr["hard"])[classes]
     viol = torch.zeros((len(classes), node_cnt.shape[1]), dtype=torch.bool, device=dev)
     for col in hard.T:
         live = col >= 0
+        # ktpu: ignore[TPU002]: .any() of a host numpy column of a class table; no card value is read
         if not live.any():
             continue
         j = np.maximum(col, 0)
+        # ktpu: ignore[TPU001]: the argument is a host numpy class table (the session keeps class tables on the host); no card value is read
         md = np.asarray(spr["min_domains"])[j]
         # a constraint short of its minDomains counts the global minimum as 0
+        # ktpu: ignore[TPU001]: the argument is a host numpy class table (the session keeps class tables on the host); no card value is read
         floor0 = (md >= 0) & (np.asarray(spr["n_dom_host"])[j] < md)
         jd = to_dev(j, dev, torch.int64)
         mm = torch.where(to_dev(floor0, dev), 0, min_match[jd])
+        # ktpu: ignore[TPU001]: the argument is a host numpy class table (the session keeps class tables on the host); no card value is read
         skew = node_cnt[jd] + to_dev(np.asarray(spr["self_match"])[j], dev, torch.int32)[:, None] \
             - mm[:, None]
+        # ktpu: ignore[TPU001]: the argument is a host numpy class table (the session keeps class tables on the host); no card value is read
         v = ~spr["hk"][jd] | (skew > to_dev(np.asarray(spr["max_skew"])[j], dev)[:, None])
         viol = viol | (v & to_dev(live, dev)[:, None])
     return viol
@@ -312,6 +323,7 @@ def _interpod(ipa, interpod, classes, inv, node_valid, p: int, dev, score: bool)
 
     # 2. incoming required anti-affinity of each class (missing key -> passes)
     viol = torch.zeros((c, n), dtype=torch.bool, device=dev)
+    # ktpu: ignore[TPU001]: the argument is a host numpy class table (the session keeps class tables on the host); no card value is read
     for col in np.asarray(ipa["cls_req_anti"])[classes].T:
         j, live = _slot(col, dev)
         if live is not None:
@@ -319,8 +331,10 @@ def _interpod(ipa, interpod, classes, inv, node_valid, p: int, dev, score: bool)
     allowed = ~blocked & ~viol[inv]
 
     # 3. incoming required affinity + first-pod special case
+    # ktpu: ignore[TPU001]: the argument is a host numpy class table (the session keeps class tables on the host); no card value is read
     req_aff = np.asarray(ipa["cls_req_aff"])[classes]
     has_aff = req_aff[:, 0] >= 0
+    # ktpu: ignore[TPU002]: .any() of a host numpy column of a class table; no card value is read
     if has_aff.any():
         all_ok = torch.ones((c, n), dtype=torch.bool, device=dev)
         has_all_keys = torch.ones((c, n), dtype=torch.bool, device=dev)
@@ -344,7 +358,9 @@ def _interpod(ipa, interpod, classes, inv, node_valid, p: int, dev, score: bool)
     raw = torch.zeros((p, n), dtype=torch.int32, device=dev)
     if score:
         pref = torch.zeros((c, n), dtype=torch.int32, device=dev)
+        # ktpu: ignore[TPU001]: the argument is a host numpy class table (the session keeps class tables on the host); no card value is read
         w_all = np.asarray(ipa["in_pref_w"])
+        # ktpu: ignore[TPU001]: the argument is a host numpy class table (the session keeps class tables on the host); no card value is read
         for col in np.asarray(ipa["cls_pref"])[classes].T:
             j, live = _slot(col, dev)
             if live is None:
@@ -363,6 +379,7 @@ def _slot(col: np.ndarray, dev):
     """One slot column of a class table: (row index per class, on the
     device; live per class, or None when no class uses the slot)."""
     live = col >= 0
+    # ktpu: ignore[TPU002]: .any() of a host numpy column of a class table; no card value is read
     if not live.any():
         return None, None
     return to_dev(np.maximum(col, 0), dev, torch.int64), to_dev(live, dev)
@@ -374,12 +391,16 @@ def _soft_spread(spr, cnt, node_cnt, class_of, mask, fdtype):
     count, so this tier is per pod)."""
     dev = mask.device
     p, n = mask.shape
+    # ktpu: ignore[TPU001]: the argument is a host numpy class table (the session keeps class tables on the host); no card value is read
     soft = np.asarray(spr["soft"])[class_of]  # [P, Ss]
     raw = torch.zeros((p, n), dtype=fdtype, device=dev)
     ignored = torch.zeros((p, n), dtype=torch.bool, device=dev)
     n_feasible = torch.sum(mask.to(torch.int32), dim=1).to(fdtype)
+    # ktpu: ignore[TPU001]: the argument is a host numpy class table (the session keeps class tables on the host); no card value is read
     n_dom = np.asarray(spr["n_dom_host"])
+    # ktpu: ignore[TPU001]: the argument is a host numpy class table (the session keeps class tables on the host); no card value is read
     is_host = np.asarray(spr["is_hostname"])
+    # ktpu: ignore[TPU001]: the argument is a host numpy class table (the session keeps class tables on the host); no card value is read
     skew = np.asarray(spr["max_skew"])
     for col in soft.T:
         j, live = _slot(col, dev)

@@ -169,7 +169,9 @@ def grouped_eligible(
 def _fit_scorer(scoring_strategy: str, rtc_shape: tuple):
     """Scoring-strategy dispatch (resource_allocation.go scorer selection)."""
     if scoring_strategy == "RequestedToCapacityRatio" and rtc_shape:
+        # ktpu: ignore[TPU001]: rtc_shape is the config's host tuple of Python ints; no card value is read
         sx = [int(p[0]) for p in rtc_shape]
+        # ktpu: ignore[TPU001]: rtc_shape is the config's host tuple of Python ints; no card value is read
         sy = [int(p[1]) for p in rtc_shape]
         return lambda requested, alloc, w: nr.rtc_score(requested, alloc, w, sx, sy)
     if scoring_strategy == "MostAllocated":
@@ -469,6 +471,11 @@ class ExactSolver:
         # "compact_batches" compact-wire solves, "chained_subbatches" and
         # "stream_chained" the chained dispatches
         self.dispatch_counts: Counter = Counter()
+        # the kernel build directory is the solver's one durable warm
+        # state: a restart loads the libraries instead of running nvcc
+        from ..utils.compile_cache import enable_persistent_cache
+
+        enable_persistent_cache()
 
     def _transferred(self, direction: str, nbytes: int) -> None:
         """Count a solve's host-to-device or device-to-host bytes into the
@@ -927,6 +934,7 @@ class _Run:
         )
         for c in range(lo // group, hi // group):
             base = c * group
+            # ktpu: ignore[TPU001]: kinds is the host numpy chunk-kind vector from chunk_kinds; no card value is read
             kind = int(self.kinds[c])
             if kind == gp.KIND_SLOW:
                 for t in range(group):
@@ -934,6 +942,7 @@ class _Run:
                         r = c if self.compact else base + t
                         asg[base + t] = step(st, packed, self.xs.row(r))
                 continue
+            # ktpu: ignore[TPU001]: vcnt is the host numpy count of valid pods per chunk; no card value is read
             vc = int(self.vcnt[c])
             if vc == 0:
                 continue  # an all-padding chunk places nothing

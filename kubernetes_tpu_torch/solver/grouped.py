@@ -289,6 +289,7 @@ def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
     n = alloc.shape[1]
     dev = alloc.device
     req, nz = x["req"], x["nonzero_req"]
+    # ktpu: ignore[TPU001]: h is the pod's host row (_PodRows.host_row); no card value is read
     cls = int(h["class_of"])
 
     # how many more identical pods each node can take
@@ -304,10 +305,13 @@ def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
     )
     takes = h["pod_takes"]
     conflict = h["pod_conflict"]
+    # ktpu: ignore[TPU002]: conflict is the pod's host numpy port row; no card value is read
     if conflict.any():  # else the pod conflicts with nothing
         conflict_now = pl.ports_conflict_mask(x["pod_conflict"], st["port_used"])
+        # ktpu: ignore[TPU002]: takes is the pod's host numpy port row; no card value is read
         if (takes > 0).any():
             cap = torch.where(conflict_now, 0, cap)
+        # ktpu: ignore[TPU002]: host numpy port rows; no card value is read
         if ((takes > 0) & conflict).any():
             cap = torch.where(~conflict_now, torch.clamp(cap, max=1), cap)
     base_mask = tables["static_mask"][cls] & tables["node_valid"]
@@ -372,8 +376,8 @@ def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
             asg[t] = torch.where(feasible, pick, -1)
         return asg, m
 
-    iota_n = torch.arange(n, device=dev)
-    iota_g = torch.arange(group, device=dev)
+    iota_n = torch.arange(n, dtype=torch.int64, device=dev)
+    iota_g = torch.arange(group, dtype=torch.int64, device=dev)
     ones_g = torch.ones(group, dtype=torch.int32, device=dev)
     placed = torch.zeros((), dtype=torch.int64, device=dev)
     placed_h = 0
@@ -440,6 +444,7 @@ def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
             m_ext[:n] += take.to(torch.int32)
             m_ext.index_add_(0, pick.view(1), single.to(torch.int32).view(1))
         placed = torch.where(feasible, placed + n_placed, vcnt)
+        # ktpu: ignore[TPU001]: the chunk loop's exit test, one card read per iteration, counted in READS; a card-side loop would remove it (ROADMAP speed levers)
         placed_h = int(placed)  # the loop's exit test: one read per iteration
         READS += 1
     return asg, m

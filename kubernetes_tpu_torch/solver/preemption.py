@@ -210,6 +210,7 @@ class PreemptionEvaluator:
             up(cand_start, np.float32),
         )
         fits_all, victims, n_victims, n_viol, max_prio, sum_prio, latest = (
+            # ktpu: ignore[TPU004]: the dry-run's verdicts must reach the host to pick victims: one card read per dry-run, after the batch's solve (ROADMAP speed levers)
             x.cpu().numpy() for x in out
         )
         return (

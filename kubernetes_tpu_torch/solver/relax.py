@@ -193,6 +193,7 @@ def _relax(
         res = residual_of(primal(lam, mu))
         going = iters < max_iters
         if going:
+            # ktpu: ignore[TPU001]: the planner's convergence test, one card read per iteration, counted in reads; a card-side loop would remove it (ROADMAP speed levers)
             going = bool(res > tol)
             if reads is not None:
                 reads.append(1)

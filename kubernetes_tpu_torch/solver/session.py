@@ -38,6 +38,7 @@ CLASS_CACHE_SIZE = 8
 
 def to_dev(a, dev, dtype=None) -> torch.Tensor:
     """A device copy of a host array (never an alias of the numpy buffer)."""
+    # ktpu: ignore[TPU003]: the argument is a typed host numpy array, whose dtype torch.tensor keeps; no literal default applies
     t = torch.tensor(np.ascontiguousarray(a), device=dev)
     return t if dtype is None else t.to(dtype)
 
@@ -84,10 +85,15 @@ class DeferredAssignments:
     def count(self) -> int:
         return self._num_pods
 
+    # sanctioned deferred-read point (analysis/registry.py) -- the copy
+    # issued in __init__ makes this read post-overlap: ktpu: hot
     def get(self) -> np.ndarray:
         self.wait()
         return self._host.numpy()[: self._num_pods].astype(np.int32)
 
+    # sanctioned deferred-read point (analysis/registry.py): the
+    # streaming dispatcher's completion thread parks here; it never
+    # converts the value (the apply path's get() stays the one read): ktpu: hot
     def wait(self) -> None:
         if self._event is not None:
             self._event.synchronize()

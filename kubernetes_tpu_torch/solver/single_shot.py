@@ -259,6 +259,7 @@ def _single_shot(
     def read(x):
         if reads is not None:
             reads.append(1)
+        # ktpu: ignore[TPU001]: the auction's per-round exit test and its final read, one card read per round, counted in last_reads (ROADMAP speed levers)
         return x.tolist()
 
     carry = (
@@ -333,6 +334,7 @@ def solve_args(nodes: NodeBatch, pods: PodBatch, static: StaticPluginTensors, cl
         pods.priority,
         pods.valid & pods.feasible_static,
     ]
+    # ktpu: ignore[TPU003]: each argument is a typed host numpy array, whose dtype torch.tensor keeps; no literal default applies
     return [torch.tensor(np.ascontiguousarray(a), device=dev) for a in host]
 
 

@@ -1155,3 +1155,81 @@ def test_two_process_race_exactly_one_winner_on_the_card(cuda_device):
             if p.is_alive():
                 p.terminate()
         server.stop(grace=None)
+
+
+# -- the kernel build cache (utils/compile_cache.py) ------------------------
+
+# one child process: domain_counts at 6b's in + ex shape, built and loaded
+# through $KUBERNETES_TPU_COMPILE_CACHE, held exactly to its plain version;
+# "prebuilt" takes the compiler away
+_CACHE_CHILD = r"""
+import json, sys
+import numpy as np
+import torch
+from kubernetes_tpu_torch import build
+from kubernetes_tpu_torch.ops import domain_counts as dc
+
+builds = []
+build.BUILD_LISTENERS.append(lambda name, s: builds.append(name))
+if sys.argv[1] == "prebuilt":
+    def no_compiler():
+        raise build.KernelError("a prebuilt directory needs no compiler")
+    build.nvcc = no_compiler
+rng = np.random.default_rng(3)
+sets = [(torch.from_numpy(rng.integers(-1, 8192, (8, 5120)).astype(np.int32)).cuda(),
+         torch.from_numpy(rng.integers(0, 5, (8, 5120)).astype(np.int32)).cuda(), None)
+        for _ in range(2)]
+try:
+    got = dc.aggregate(sets, 8192)
+except build.KernelError as e:
+    print(json.dumps({"error": str(e), "builds": len(builds)}))
+    sys.exit(0)
+want = dc.aggregate_plain(sets, 8192)
+torch.cuda.synchronize()
+exact = all(torch.equal(g, w) for gp, wp in zip(got, want) for g, w in zip(gp, wp))
+print(json.dumps({"builds": len(builds), "launches": dc.LAUNCHES, "exact": exact,
+                  "library": str(build.library_path("domain_counts"))}))
+"""
+
+
+def _cache_child(mode, cache_dir):
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "KUBERNETES_TPU_COMPILE_CACHE": str(cache_dir)}
+    proc = subprocess.run([sys.executable, "-c", _CACHE_CHILD, mode], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_build_cache_cold_warm_prebuilt_on_the_card(cuda_device, tmp_path):
+    """A cold directory builds once, the same directory in a new process
+    builds nothing, a read-only copy with no compiler builds nothing; each
+    launch is exact. A directory that cannot be created raises KernelError
+    naming it."""
+    import shutil
+
+    cold = tmp_path / "cache"
+    got = _cache_child("cold", cold)
+    assert got == {**got, "builds": 1, "launches": 1, "exact": True}
+    assert got["library"].startswith(str(cold))
+    got = _cache_child("warm", cold)
+    assert got == {**got, "builds": 0, "launches": 1, "exact": True}
+    pre = tmp_path / "prebuilt"
+    shutil.copytree(cold, pre)
+    pre.chmod(0o555)
+    try:
+        got = _cache_child("prebuilt", pre)
+    finally:
+        pre.chmod(0o755)
+    assert got == {**got, "builds": 0, "launches": 1, "exact": True}
+    assert got["library"].startswith(str(pre))
+    blocker = tmp_path / "a-file"
+    blocker.write_text("")
+    got = _cache_child("unwritable", blocker / "cache")
+    assert str(blocker / "cache") in got["error"] and got["builds"] == 0

@@ -11,7 +11,9 @@ client and HA rotation), never at module level (``perf/runner.py`` and ``tuning/
 import ``yaml`` inside their loaders too) — the simulator, the perf
 runner, the CLI and its ``__main__``, the obs and metrics tools, leader
 election and structured logging import with the rest, as do the fleet
-(``fleet/*``) and its simulator drive (``sim/fleet.py``), the config bridge
+(``fleet/*``) and its simulator drive (``sim/fleet.py``), the analyzer
+(``analysis/*``), the oracle scheduler (``ops/oracle/scheduler.py``) and the
+kernel build cache (``utils/compile_cache.py``), the config bridge
 loads a mapping and JSON text
 with ``yaml`` blocked, the extender's ``make_app`` names ``aiohttp`` when
 it is missing, and an entry point asked for no device does not fall back
@@ -93,6 +95,17 @@ print("slice9=" + ",".join(
                 "fleet.runtime", "sim.fleet")
     if "kubernetes_tpu_torch." + n in sys.modules
 ))
+print("slice10=" + ",".join(
+    n for n in ("analysis", "analysis.__main__", "analysis.callgraph", "analysis.core",
+                "analysis.project", "analysis.ratchet", "analysis.registry",
+                "analysis.sarif", "analysis.passes", "analysis.passes.dtypes",
+                "analysis.passes.fence", "analysis.passes.hostsync",
+                "analysis.passes.lockorder", "analysis.passes.locks",
+                "analysis.passes.metricnames", "analysis.passes.metricsdoc",
+                "analysis.passes.retry", "analysis.passes.tracedbranch",
+                "analysis.passes.xsync", "ops.oracle.scheduler", "utils.compile_cache")
+    if "kubernetes_tpu_torch." + n in sys.modules
+))
 from kubernetes_tpu_torch.server.extender import ExtenderCore, make_app
 from kubernetes_tpu_torch.state.cluster import ClusterState
 core = ExtenderCore(ClusterState(), backend="oracle")
@@ -155,6 +168,14 @@ def test_import_every_module_leaves_jax_and_reference_out():
     assert out["slice9"].split(",") == [
         "fleet", "fleet.ring", "fleet.membership", "fleet.drain", "fleet.occupancy",
         "fleet.reconciler", "fleet.ha", "fleet.leasestore", "fleet.runtime", "sim.fleet"]
+    assert out["slice10"].split(",") == [
+        "analysis", "analysis.__main__", "analysis.callgraph", "analysis.core",
+        "analysis.project", "analysis.ratchet", "analysis.registry", "analysis.sarif",
+        "analysis.passes", "analysis.passes.dtypes", "analysis.passes.fence",
+        "analysis.passes.hostsync", "analysis.passes.lockorder", "analysis.passes.locks",
+        "analysis.passes.metricnames", "analysis.passes.metricsdoc",
+        "analysis.passes.retry", "analysis.passes.tracedbranch", "analysis.passes.xsync",
+        "ops.oracle.scheduler", "utils.compile_cache"]
 
 
 @pytest.mark.parametrize(

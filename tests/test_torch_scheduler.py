@@ -29,7 +29,9 @@ from kubernetes_tpu.state.cluster import ClusterState
 from kubernetes_tpu_torch import convert
 from kubernetes_tpu_torch.config.types import Extender
 from kubernetes_tpu_torch.framework.interface import FilterPlugin, ScorePlugin, Status
+from kubernetes_tpu_torch.api import objects as port_objects
 from kubernetes_tpu_torch.metrics import prom
+from kubernetes_tpu_torch.ops.oracle import scheduler as port_osched
 from kubernetes_tpu_torch.ops.oracle.profile import FullOracle, make_oracle_nodes
 from kubernetes_tpu_torch.scheduler import Scheduler, SchedulerConfig
 from kubernetes_tpu_torch.solver.exact import ExactSolverConfig
@@ -87,6 +89,14 @@ def test_bindings_match_sequential_oracle():
     names = [n.name for n in node_objs]
     want = {p.key: (names[a] if a >= 0 else "") for p, a in zip(pods, oracle.assignments)}
     assert pair.bindings()[1] == want
+    # and the port's own oracle, on the port's objects
+    port_nodes = [convert.api_object(n, port_objects.Node) for n in node_objs]
+    port_pods = [convert.api_object(p, port_objects.Pod) for p in pods]
+    port_oracle = port_osched.schedule(port_pods, port_osched.make_node_states(port_nodes))
+    assert port_oracle.assignments == oracle.assignments
+    assert pair.bindings()[1] == {
+        p.key: (names[a] if a >= 0 else "") for p, a in zip(port_pods, port_oracle.assignments)
+    }
 
 
 def test_infeasible_pod_parked_then_rescued_by_node_add():
