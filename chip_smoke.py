@@ -63,7 +63,7 @@ Phases (a failure in any of them propagates and exits nonzero):
       north-star shape, 50,000 plain 250m / 512Mi pods on 10,000 nodes of
       16 CPU / 64Gi / 110 pods in 3 zones;
    d. full width, preemption: 5,120 nodes each full of 16 low-priority
-      pods (created bound), then 128 higher-priority pods that fit only by
+      pods (created bound), then 64 higher-priority pods that fit only by
       preemption: every preemptor nominated, every victim of lower
       priority, and every preemptor bound once the victims are gone;
       dry-runs per second, and torch launches per dry-run from
@@ -183,7 +183,7 @@ Phases (a failure in any of them propagates and exits nonzero):
     over localhost gRPC, every replica reaching it through
     ``RemoteOccupancyExchange``; each path's launches counted and its first
     launch held to plain as phase 9 does:
-   a. 4 replicas over 6b's 5,120 nodes and 2,048 pods of the mixed
+   a. 4 replicas over 6b's 5,120 nodes and 1,024 pods of the mixed
       workload (depth cut from 5,120: see ``fleet_full``), "first" mode, driven round-robin on one thread until every
       pod is bound or two rounds bind nothing: pods bound per second (call
       to last bind), admissions, rejections, hand-offs and requeues per
@@ -192,7 +192,7 @@ Phases (a failure in any of them propagates and exits nonzero):
       pod bound twice, every bind on a node its replica owned, no
       overcommit, hostPort or anti-affinity violation fleet-wide, and every
       unbound pod parked by the fleet's own cross-shard spread rule. Then
-      1,024 x 1,024 on the card and on the CPU must bind alike;
+      512 x 512 on the card and on the CPU must bind alike;
    b. bench.py ladder #17's protocol at 7d's scale: 100,000 plain pods on
       20,480 nodes, one global relax plan, ``drain.partition_backlog``
       (every 512th pod forced into the residual), the ledger installed at
@@ -229,6 +229,35 @@ Phases (a failure in any of them propagates and exits nonzero):
    c. ``python -m kubernetes_tpu_torch.analysis --ratchet`` and
       ``--check-lock-order`` in child processes on the card's machine (which
       has no JAX): both exit 0, 0 active findings, seconds each.
+13. The node-axis mesh (``parallel/sharding.py``): k shards of the one
+    card (``force_device_count`` makes k entries of it visible), each run
+    against the unsharded card run of the same inputs, each shard's first
+    domain_counts launch held to plain:
+   a. 6b's InterPodAffinity workload in parity mode through
+      ``ExactSolver.solve`` at 5,120 nodes, 1,024 pods (depth cut: the
+      sharded step's host cost is k times the unsharded one's), on 4 and
+      on 2 shards: equal to the unsharded solve and to 6b's bindings, with
+      exactly k times the unsharded launches; pods/s, solve seconds,
+      launches per step, combines and their host seconds;
+   b. the grouped kinds 2 and 3 (phase 4's zone spread and hostname anti
+      pods on 5,120 nodes, one batch of 1,024) in both tie-break modes,
+      and kind 2 through the device session with the heal of the columns
+      the first batch placed on, on 4 shards;
+   c. the Scheduler on 4 shards: 6a's mixed run and the north star (6c's
+      50,000 plain pods on 10,000 nodes, the production default config),
+      every batch at the mesh rung, the bindings equal to the unsharded
+      Scheduler's (6c's, by digest); ``scheduler_mesh_devices`` reads 4;
+   d. the auction at the north star (10a's inputs) on 4 shards, bit for
+      bit; the relax plan at 10b's 512,000 x 102,400 on 4 shards, within
+      the planner's tolerance (the same iterations, 99 % of assignments
+      equal), no overcommit;
+   e. the simulator's churn_heavy at ``--mesh-devices 2`` against 1, trace
+      and journal byte-identical; then ``resolve_mesh`` on the real device
+      list: meshDevices 8 is the unsharded path on one card, meshSlice 0/1
+      a 1-way mesh pinning the card (a fleet replica schedules on it), 0/2
+      the JAX package's ValueError.
+   The kernel's case list gains one shard's launch of 13a (T 8 + 8, N
+   1,280, d_pad 8,192, counts only).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -252,6 +281,7 @@ from kubernetes_tpu_torch import build  # noqa: E402
 from kubernetes_tpu_torch import metrics  # noqa: E402
 from kubernetes_tpu_torch.api.wrappers import MakeNode, MakePod  # noqa: E402
 from kubernetes_tpu_torch.ops import domain_counts as dc  # noqa: E402
+from kubernetes_tpu_torch.parallel import sharding as sh  # noqa: E402
 from kubernetes_tpu_torch.scheduler import Scheduler, SchedulerConfig  # noqa: E402
 from kubernetes_tpu_torch.state.cluster import ClusterState  # noqa: E402
 from kubernetes_tpu_torch.solver import grouped as gp  # noqa: E402
@@ -1220,6 +1250,8 @@ def scheduler_mixed(dev, n_nodes=240, n_pods=480, batch=128):
     if not cs.get_pod("default", "nominee").node_name:
         raise AssertionError("6a mixed: the nominated pod did not bind")
     noms = {p.key: p.nominated_node_name for p in cs.list_pods()}
+    if sched.mesh is not None and sched.resilience.ladder[0] != "mesh":
+        raise AssertionError("6a mixed: a mesh scheduler's ladder does not start at the mesh")
     return _bindings(cs), noms, views
 
 
@@ -1341,11 +1373,20 @@ def scheduler_random(dev, n_nodes, n_pods, batch=1024, label="6c"):
         raise AssertionError(f"{label}: {reading['bound']} of {n_pods} bound")
     check_cluster(cs, label)
     reading.update({"nodes": n_nodes, "pods": n_pods, "setup_s": setup,
-                    "dispatch": dict(sched.solver.dispatch_counts)})
+                    "dispatch": dict(sched.solver.dispatch_counts),
+                    "mesh_devices": metrics.mesh_devices.value(),
+                    "bindings_digest": bindings_digest(cs)})
     return reading
 
 
-def scheduler_phase(dev, full=(5120, 5120), north_star=(10_000, 50_000), preempt=(5120, 128)):
+def bindings_digest(cs):
+    import hashlib
+
+    return hashlib.blake2b(json.dumps(sorted(_bindings(cs).items())).encode(),
+                           digest_size=16).hexdigest()
+
+
+def scheduler_phase(dev, full=(5120, 5120), north_star=(10_000, 50_000), preempt=(5120, 64)):
     """6a-6d; the keyword sizes are the full-width shapes (smaller ones
     rehearse the phase on the CPU)."""
     cpu = torch.device("cpu")
@@ -2150,32 +2191,38 @@ PREEMPTION_CASES = ("SchedulingPreemption", "SchedulingPreemptionUnderChurn")
 
 
 class HeldLaunch:
-    """While active, the first domain_counts launch on the card is held
-    against its plain version on the same inputs, read right after the
-    launch (a comparison launches no kernel, so the path's count is
+    """While active, the first ``n`` domain_counts launches on the card
+    (a sharded aggregation's first launch on each of its n shards) are
+    held against the plain version on the same inputs, read right after
+    each launch (a comparison launches no kernel, so the path's count is
     untouched). Nothing is raised inside the launch: the Scheduler's
     ladder would take an error there for a solve failure and retry the
     batch, unchecked. The verdict is kept and ``require`` raises it once
     the run is over; a comparison that did not finish fails it too."""
 
-    def __init__(self, label):
+    def __init__(self, label, n=1):
         self.label, self.tried, self.checked = label, False, False
         self.max_abs_err = self.first = None
+        self.n, self.held = n, []
 
     def __enter__(self):
         call = self._call = dc.Aggregation.__call__
 
         def held(agg):
             out = call(agg)
-            if not self.tried and agg._args is not None:
+            if len(self.held) < self.n and agg._args is not None:
                 self.tried = True
                 want = dc.aggregate_plain(agg.sets, agg.d_pad, counts=agg.counts,
                                           gather=agg.gather)
                 torch.cuda.synchronize()
-                self.max_abs_err, first = _max_err(out, want)
+                err, first = _max_err(out, want)
                 shapes = [tuple(x[0].shape) for x in agg.sets]
-                self.first = first and f"T x N {shapes}, d_pad {agg.d_pad}: {first}"
-                self.checked = True
+                self.held.append({"T x N": shapes, "d_pad": agg.d_pad, "counts": agg.counts,
+                                  "gather": agg.gather, "max_abs_err": err})
+                self.max_abs_err = max(self.max_abs_err or 0, err)
+                if first and self.first is None:
+                    self.first = f"T x N {shapes}, d_pad {agg.d_pad}: {first}"
+                self.checked = len(self.held) == self.n
             return out
 
         dc.Aggregation.__call__ = held
@@ -2187,7 +2234,8 @@ class HeldLaunch:
 
     def state(self):
         return {"launch_held_to_plain": self.checked, "comparison_started": self.tried,
-                "max_abs_err": self.max_abs_err, "first_mismatch": self.first}
+                "max_abs_err": self.max_abs_err, "first_mismatch": self.first,
+                "launches_held": len(self.held)}
 
     def require(self, launches):
         return held_verdict(self.label, self.state(), launches)
@@ -3371,8 +3419,8 @@ def fleet_run(dev, n_nodes, n_pods, rounds=24):
         hub.close()
 
 
-def fleet_full(dev, full=(5120, 2048), parity=(1024, 1024)):
-    """11a: 4 replicas over 6b's cluster and 2,048 of its pods (``full``)
+def fleet_full(dev, full=(5120, 1024), parity=(512, 512)):
+    """11a: 4 replicas over 6b's cluster and 1,024 of its pods (``full``)
     through a real gRPC hub on ``dev``, its first launch held to plain;
     then the same fleet at reduced depth (``parity``) on ``dev`` and on the
     CPU must bind alike, parked pods included (tie_break "first"). Depth
@@ -3855,6 +3903,394 @@ def phase12(dev):
             "phase_s": time.perf_counter() - t0}
 
 
+
+# -- phase 13: the node-axis mesh, k shards on the one card -----------------
+
+SHARDS = 4
+
+
+class forced:
+    """``k`` entries of ``dev`` visible (``sharding.force_device_count``)
+    while active; the visible list restored after."""
+
+    def __init__(self, k, dev):
+        self.k, self.dev = k, dev
+
+    def __enter__(self):
+        self.saved = sh.forced_device_count()
+        sh.force_device_count(self.k, self.dev)
+        return self
+
+    def __exit__(self, *exc):
+        sh.force_device_count(*self.saved)
+        return False
+
+
+def shard_mesh(dev, k):
+    with forced(k, dev):
+        return sh.node_mesh(k, dev)
+
+
+def _combines():
+    return {"combines": sh.COMBINES, "combine_s": sh.COMBINE_S}
+
+
+def _reset_combines():
+    sh.COMBINES, sh.COMBINE_S = 0, 0.0
+
+
+def sharded_scan(dev, bindings_6b, ks=(SHARDS, 2), n_nodes=5120, n_pods=1024, batch=1024):
+    """13a: 6b's InterPodAffinity mixed workload in parity mode through
+    ``ExactSolver.solve`` on ``n_nodes`` nodes, unsharded and on k shards
+    of the card; depth ``n_pods`` (batches of ``batch``). Every sharded
+    run equals the unsharded one and 6b's bindings; each shard's first
+    launch is held to plain; a sharded run launches k times the unsharded
+    kernel launches (one counts-only launch per shard per aggregation)."""
+    nodes = make_nodes(n_nodes)
+    pods = [make_pod(i) for i in range(n_pods)]
+    vocab = ResourceVocab.build(pods, nodes)
+    cfg = ExactSolverConfig(tie_break="first", balanced_fdtype="float64")
+
+    def run(mesh):
+        solver = ExactSolver(cfg)
+        placed, out, solve_s = {}, [], []
+        for lo in range(0, n_pods, batch):
+            bp = pods[lo : lo + batch]
+            inputs = tensorize(nodes, bp, placed, vocab)
+            _sync(dev)
+            t = time.perf_counter()
+            a = solver.solve(*inputs, device=dev, mesh=mesh)
+            _sync(dev)
+            solve_s.append(time.perf_counter() - t)
+            out.append(np.asarray(a))
+            for i, s_ in enumerate(a):
+                if s_ >= 0:
+                    placed.setdefault(nodes[s_].name, []).append(bp[i])
+        return np.concatenate(out), solve_s
+
+    dc.LAUNCHES = 0
+    want, flat_s = run(None)
+    flat_launches = dc.LAUNCHES
+    if (want < 0).any():
+        raise AssertionError("13a: an unsharded pod did not place")
+    if bindings_6b is not None:
+        bad = [i for i, a in enumerate(want)
+               if bindings_6b.get(f"default/pod-{i:05}") != nodes[a].name]
+        if bad:
+            raise AssertionError(f"13a: the unsharded solve != 6b's bindings at {len(bad)} pods, "
+                                 f"first {bad[:4]}")
+    out = {"nodes": n_nodes, "pods": n_pods, "batch": batch,
+           "unsharded": {"solve_s": flat_s, "pods_per_s": n_pods / sum(flat_s),
+                         "domain_counts_launches": flat_launches,
+                         "launches_per_step": flat_launches / n_pods},
+           "equals_6b_bindings": bindings_6b is not None}
+    for k in ks:
+        mesh = shard_mesh(dev, k)
+        dc.LAUNCHES = 0
+        _reset_combines()
+        with HeldLaunch(f"13a k={k}", n=k) as held:
+            got, secs = run(mesh)
+        launches = dc.LAUNCHES
+        reading = {"k": k, "solve_s": secs, "pods_per_s": n_pods / sum(secs),
+                   "domain_counts_launches": launches, "launches_per_step": launches / n_pods,
+                   **_combines(), "per_shard_first_launches": held.held,
+                   **held.require(launches)}
+        if not np.array_equal(got, want):
+            bad = np.flatnonzero(got != want)
+            raise AssertionError(f"13a k={k}: sharded != unsharded at {bad.size} pods, "
+                                 f"first {bad[:4]}")
+        if dev.type == "cuda" and launches != k * flat_launches:
+            raise AssertionError(f"13a k={k}: {launches} launches, expected {k} x {flat_launches}")
+        reading["equals_unsharded"] = True
+        out[f"k{k}"] = reading
+        log("sharded 13a " + json.dumps({f"k{k}": reading}))
+    return out
+
+
+def _session_pair(dev, mesh, tie, nodes, pods, batch, vocab):
+    """The kind-2 pods in two session batches, the second healing the
+    columns the first placed on: the assignments and the seconds."""
+    solver = ExactSolver(ExactSolverConfig(tie_break=tie, seed=SEED))
+    placed, versions, out, secs = {}, None, [], []
+    for lo in range(0, 2 * batch, batch):
+        bp = pods[lo : lo + batch]
+        inputs = tensorize(nodes, bp, placed, vocab)
+        if versions is None:
+            versions = np.zeros(inputs[0].padded, np.int64)
+        _sync(dev)
+        t = time.perf_counter()
+        a = solver.solve(*inputs, col_versions=versions.copy(), device=dev, mesh=mesh)
+        _sync(dev)
+        secs.append(time.perf_counter() - t)
+        out.append(np.asarray(a))
+        for i, s_ in enumerate(a):
+            if s_ >= 0:
+                placed.setdefault(nodes[s_].name, []).append(bp[i])
+                versions[s_] += 1
+    return np.concatenate(out), secs
+
+
+def sharded_grouped(dev, k=SHARDS, n_nodes=5120, batch=1024):
+    """13b: the grouped kinds 2 (zone spread) and 3 (hostname anti) on the
+    phase-4 cluster, one batch each, and kind 2 through the device session
+    with a dirty-column heal (two batches), on k shards against the
+    unsharded card run, in both tie-break modes; each shard's first launch
+    held to plain."""
+    mesh = shard_mesh(dev, k)
+    nodes = make_nodes(n_nodes)
+    out = {}
+    for kind in ("spread", "anti"):
+        pods = [make_kind_pod(kind, i) for i in range(2 * batch)]
+        vocab = ResourceVocab.build(pods, nodes)
+        for tie in ("first", "random"):
+            runs = {}
+            for label, m in (("unsharded", None), (f"k{k}", mesh)):
+                solver = ExactSolver(ExactSolverConfig(tie_break=tie, seed=SEED))
+                inputs = tensorize(nodes, pods[:batch], {}, vocab)
+                dc.LAUNCHES = 0
+                _reset_combines()
+                with HeldLaunch(f"13b {kind} {tie} {label}", n=k if m else 1) as held:
+                    _sync(dev)
+                    t = time.perf_counter()
+                    a = np.asarray(solver.solve(*inputs, device=dev, mesh=m))
+                    _sync(dev)
+                    secs = time.perf_counter() - t
+                runs[label] = (a, {"solve_s": secs, "domain_counts_launches": dc.LAUNCHES,
+                                   "dispatch": dict(solver.dispatch_counts), **_combines(),
+                                   **held.require(dc.LAUNCHES)})
+            if not np.array_equal(runs[f"k{k}"][0], runs["unsharded"][0]):
+                raise AssertionError(f"13b {kind} {tie}: sharded != unsharded")
+            if (runs["unsharded"][0] < 0).any():
+                raise AssertionError(f"13b {kind} {tie}: a pod did not place")
+            if dev.type == "cuda" and not runs[f"k{k}"][1]["domain_counts_launches"]:
+                raise AssertionError(f"13b {kind} {tie}: the sharded chunks launched nothing")
+            out[f"{kind}/{tie}"] = {lbl: r for lbl, (_, r) in runs.items()}
+            log("sharded 13b " + json.dumps({f"{kind}/{tie}": out[f"{kind}/{tie}"]}))
+        if kind == "spread":
+            for tie in ("first", "random"):
+                want, flat_s = _session_pair(dev, None, tie, nodes, pods, batch, vocab)
+                dc.LAUNCHES = 0
+                got, secs = _session_pair(dev, mesh, tie, nodes, pods, batch, vocab)
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"13b session {tie}: sharded != unsharded")
+                out[f"session/{tie}"] = {"unsharded_s": flat_s, f"k{k}_s": secs,
+                                         "domain_counts_launches": dc.LAUNCHES,
+                                         "equals_unsharded": True}
+                log("sharded 13b " + json.dumps({f"session/{tie}": out[f"session/{tie}"]}))
+    return out
+
+
+def sharded_scheduler(dev, digest_6c, k=SHARDS, north_star=(10_000, 50_000)):
+    """13c: the Scheduler on k shards, every batch at the mesh rung: 6a's
+    mixed run (reduced depth) against the unsharded Scheduler's, and the
+    north star (the production default config, kind 1) against 6c's
+    bindings."""
+    b_flat, n_flat, v_flat = scheduler_mixed(dev)
+    dc.LAUNCHES = 0
+    with forced(k, dev):
+        with HeldLaunch("13c mixed", n=k) as held:
+            b_sh, n_sh, v_sh = scheduler_mixed(dev)
+    mesh_gauge = metrics.mesh_devices.value()
+    mixed_launches = dc.LAUNCHES
+    if (b_sh, n_sh, v_sh) != (b_flat, n_flat, v_flat):
+        bad = [key for key in b_flat if b_sh.get(key) != b_flat[key]]
+        raise AssertionError(f"13c mixed: sharded != unsharded ({len(bad)} bindings differ)")
+    if mesh_gauge != k:
+        raise AssertionError(f"13c: scheduler_mesh_devices reads {mesh_gauge}, not {k}")
+    out = {"mixed": {"batches": len(v_sh), "bound": sum(1 for v in b_sh.values() if v),
+                     "equals_unsharded": True, "domain_counts_launches": mixed_launches,
+                     **held.require(mixed_launches)},
+           "scheduler_mesh_devices": mesh_gauge}
+    with forced(k, dev):
+        reading = scheduler_random(dev, *north_star, label=f"13c north star k={k}")
+    if digest_6c is not None and reading["bindings_digest"] != digest_6c:
+        raise AssertionError("13c north star: sharded bindings != 6c's")
+    if reading["mesh_devices"] != k:
+        raise AssertionError(f"13c north star: the Scheduler solved on {reading['mesh_devices']}")
+    reading["equals_6c_bindings"] = digest_6c is not None
+    out["north_star"] = reading
+    log("sharded 13c " + json.dumps(out))
+    return out
+
+
+def sharded_args(mesh, host_args):
+    """The auction's inputs on a mesh: the six node-resident tables split
+    over the shards, the rest on the lead device."""
+    return [mesh.split(np.asarray(a)) for a in host_args[:6]] + [
+        torch.tensor(a, device=mesh.lead) for a in host_args[6:]]
+
+
+def sharded_plans(dev, k=SHARDS, north_star=(NS_NODES, NS_PODS), plan=(BD_NODES, BD_PODS)):
+    """13d: the auction at the north star (10a's inputs) on k shards, bit
+    for bit against the unsharded card run; the relax plan (10b's inputs,
+    its tail repaired by the plan auction) on k shards within the planner's
+    tolerance (the same iterations, at least 99 % of assignments equal) and
+    with no overcommit."""
+    from kubernetes_tpu_torch.rebalance.planner import plan_auction_config
+    from kubernetes_tpu_torch.solver.relax import RelaxConfig, _relax
+    from kubernetes_tpu_torch.solver.single_shot import SingleShotConfig, _single_shot
+
+    mesh = shard_mesh(dev, k)
+    cfg = SingleShotConfig()
+    host_args = north_star_inputs(False, *north_star)
+
+    def auction_sharded(args, c, pod_valid=None):
+        reads = []
+        if pod_valid is not None:
+            args = args[:10] + [pod_valid]
+        a, used, cnt, _, rounds = _single_shot(
+            *args, max_rounds=c.max_rounds, price_step=c.price_step, top_t=c.top_t,
+            repair_rounds=c.repair_rounds, pack=c.objective == "pack", reads=reads)
+        return a, used, cnt, rounds, len(reads)
+
+    flat_s, flat = median_timed(lambda: auction(dev, host_args, cfg), dev)
+    _reset_combines()
+    sh_s, got = median_timed(lambda: auction_sharded(sharded_args(mesh, host_args), cfg), dev)
+    flat_h, got_h = _host(flat), _host(got)
+    for name, g, w in zip(("assignments", "used", "pod_count"), got_h, flat_h):
+        if not np.array_equal(g, w):
+            raise AssertionError(f"13d auction: sharded {name} != unsharded: "
+                                 f"{_first_mismatch(g, w)}")
+    if got_h[3:] != flat_h[3:]:
+        raise AssertionError(f"13d auction: rounds/reads {got_h[3:]} != {flat_h[3:]}")
+    out = {"auction": {"pods": north_star[1], "nodes": north_star[0], "k": k,
+                       "unsharded_s": flat_s, "sharded_s": sh_s, "rounds": got_h[3],
+                       "placed": int((got_h[0] >= 0).sum()), "equals_unsharded": True}}
+    log("sharded 13d " + json.dumps(out))
+
+    rcfg, acfg = RelaxConfig(objective="pack"), plan_auction_config()
+    host2, _ = megaplan_inputs(*plan)
+    flat_s, flat = median_timed(lambda: relax_plan(dev, host2, rcfg, acfg), dev, runs=1)
+
+    def relax_sharded():
+        args = sharded_args(mesh, host2)
+        a, used, cnt, _, _, _, iters, res = _relax(
+            *args, rcfg.tol, rcfg.temp, rcfg.step, max_iters=rcfg.max_iters,
+            pack=rcfg.objective == "pack")
+        tail = args[10] & (a < 0)
+        rep = auction_sharded(args[:1] + [mesh.split(used), mesh.split(cnt)] + args[3:], acfg,
+                              pod_valid=tail)
+        return torch.where(tail, rep[0], a).cpu().numpy(), iters, float(res)
+
+    sh_s, (got_a, iters, res) = median_timed(relax_sharded, dev, runs=1)
+    want_a = flat[0]
+    share = float(np.mean(got_a == want_a))
+    placed = check_no_overcommit("13d relax sharded", host2, got_a)
+    placed_flat = check_no_overcommit("13d relax unsharded", host2, want_a)
+    out["relax"] = {"pods": plan[1], "nodes": plan[0], "k": k, "unsharded_s": flat_s,
+                    "sharded_s": sh_s, "iterations": iters, "unsharded_iterations": flat[1],
+                    "residual": res, "unsharded_residual": flat[2],
+                    "equal_assignment_share": share, "placed": placed,
+                    "unsharded_placed": placed_flat, "no_overcommit": True}
+    log("sharded 13d " + json.dumps({"relax": out["relax"]}))
+    if iters != flat[1] or share < 0.99:
+        raise AssertionError(f"13d relax: outside the tolerance: {out['relax']}")
+    return out
+
+
+def sharded_sim_and_resolution(dev, k=2, cycles=SIM_CYCLES):
+    """13e: the sim CLI's churn_heavy at --mesh-devices k on the card (the
+    trace, the journal and the printed summary byte-identical to
+    --mesh-devices 1), then resolve_mesh on
+    the real device list: meshDevices 8 -> None, meshSlice 0/1 -> a 1-way
+    mesh on the first card with a fleet replica scheduling on it, 0/2 ->
+    the JAX package's ValueError (with one card)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from kubernetes_tpu_torch.fleet import FleetConfig, OccupancyExchange
+    from kubernetes_tpu_torch.sim.__main__ import main as sim_main
+
+    def drive(n, tmp):
+        paths = [os.path.join(tmp, f"{what}{n}.jsonl") for what in ("trace", "journal")]
+        argv = ["--device", str(dev), "--profile", "churn_heavy", "--seed", "0", "--cycles",
+                str(cycles), "--mesh-devices", str(n), "--trace", paths[0], "--journal", paths[1]]
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            rc = sim_main(argv)
+        if rc != 0:
+            raise AssertionError(f"13e: sim --mesh-devices {n} exited {rc}")
+        summary = [ln for ln in printed.getvalue().splitlines() if " written: " not in ln]
+        return [open(p, "rb").read() for p in paths], summary
+
+    with tempfile.TemporaryDirectory() as tmp:
+        one, printed1 = drive(1, tmp)
+        dc.LAUNCHES = 0
+        with HeldLaunch(f"13e sim k={k}", n=k) as held:
+            many, printed_k = drive(k, tmp)
+        launches = dc.LAUNCHES
+    if sh.forced_device_count() != (None, None):
+        raise AssertionError("13e: the sim left the visible device list forced")
+    if one != many or printed1 != printed_k or "  invariants: OK" not in printed_k:
+        raise AssertionError(f"13e: --mesh-devices {k} trace, journal or summary != "
+                             "--mesh-devices 1")
+    out = {"sim": {"profile": "churn_heavy", "cycles": cycles, "k": k, "identical": True,
+                   "trace_bytes": len(many[0]), "journal_bytes": len(many[1]),
+                   "domain_counts_launches": launches, **held.require(launches)}}
+    visible = len(sh.visible_devices(dev))
+    out["visible_devices"] = visible
+    if visible == 1:
+        if sh.resolve_mesh(8, None, dev) is not None:
+            raise AssertionError("13e: meshDevices 8 on one card must be the unsharded path")
+        one = sh.resolve_mesh(0, (0, 1), dev)
+        if one is None or one.size != 1:
+            raise AssertionError(f"13e: meshSlice 0/1 gave {one}")
+        try:
+            sh.resolve_mesh(0, (0, 2), dev)
+        except ValueError as e:
+            out["slice_0_of_2"] = str(e)
+        else:
+            raise AssertionError("13e: meshSlice 0/2 on one card must raise ValueError")
+        nodes = make_nodes(16)
+        cs = _cluster(nodes, [make_pod(i) for i in range(32)])
+        sched = Scheduler(cs, SchedulerConfig(
+            batch_size=16, mesh_slice=(0, 1),
+            fleet=FleetConfig(replica="r0", replicas=("r0",), exchange=OccupancyExchange()),
+            solver=ExactSolverConfig(tie_break="first")), device=dev)
+        guard = TopTier(sched, "13e replica")
+        while True:
+            r = sched.schedule_batch()
+            guard.batch(r)
+            if not r.progressed:
+                break
+        guard.close()
+        check_cluster(cs, "13e replica")
+        bound = sum(1 for p in cs.list_pods() if p.node_name)
+        if bound != 32 or sched.resilience.ladder[0] != "mesh":
+            raise AssertionError(f"13e replica: {bound} of 32 bound, ladder "
+                                 f"{sched.resilience.ladder}")
+        out["slice_0_of_1"] = {"mesh": [str(d) for d in one.devices], "replica_bound": bound,
+                               "fleet_mesh_slice_devices":
+                                   metrics.fleet_mesh_slice_devices.value()}
+    log("sharded 13e " + json.dumps(out))
+    return out
+
+
+def sharded_kernel_case(dev, interpod, k=SHARDS):
+    """The kernel at one shard's launch of the sharded scan: 6b's in + ex
+    rows over the first of k node blocks, counts only."""
+    rng = np.random.default_rng(SEED)
+    w = interpod.in_dom.shape[1] // k
+    sets = []
+    for name in ("in_dom", "ex_dom"):
+        dom_np = np.ascontiguousarray(getattr(interpod, name)[:, :w])
+        sets.append((_dev(dom_np, dev),
+                     _dev(rng.integers(0, 4, dom_np.shape).astype(np.int32), dev), None))
+    return kernel_case(f"interpod in+ex, one of {k} shards, counts only (13a's launch)",
+                       sets, interpod.d_pad, counts=True, gather=False)
+
+
+def phase13(dev, bindings_6b, digest_6c):
+    """Phase 13, each part with its own readings and checks."""
+    t0 = time.perf_counter()
+    a = sharded_scan(dev, bindings_6b)
+    b = sharded_grouped(dev)
+    c = sharded_scheduler(dev, digest_6c)
+    d = sharded_plans(dev)
+    e = sharded_sim_and_resolution(dev)
+    return {"scan_13a": a, "grouped_13b": b, "scheduler_13c": c, "plans_13d": d,
+            "sim_13e": e, "phase_s": time.perf_counter() - t0}
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU")
@@ -3900,6 +4336,8 @@ def main():
     p10 = phase10(dev)
     p11 = phase11(dev)
     p12 = phase12(dev)
+    p13 = phase13(dev, bindings_6b, sched["6c"]["bindings_digest"])
+    cases.append(sharded_kernel_case(dev, interpod))
     # the kernel at the evaluator's launches: exact, and timed as the others
     for i, (sets, d_pad, counts, gather) in enumerate(ext.pop("8b_launch_sets")):
         rows = "+".join(str(x[0].shape[0]) for x in sets)
@@ -3931,6 +4369,16 @@ def main():
         **{f"cache 12a {m}": p12["cache_12a"][m]["launches"] for m in ("cold", "warm", "prebuilt")},
         **{f"oracle 12b {t}": p12["oracle_12b"][t]["domain_counts_launches"]
            for t in ("first", "random")},
+        **{f"sharded 13a k={r['k']}": r["domain_counts_launches"]
+           for key, r in p13["scan_13a"].items() if key.startswith("k")},
+        **{f"sharded 13b {kt} {lbl}": r["domain_counts_launches"]
+           for kt, runs in p13["grouped_13b"].items() if not kt.startswith("session")
+           for lbl, r in runs.items()},
+        **{f"sharded 13b {kt}": r["domain_counts_launches"]
+           for kt, r in p13["grouped_13b"].items() if kt.startswith("session")},
+        "sharded 13c mixed": p13["scheduler_13c"]["mixed"]["domain_counts_launches"],
+        "sharded 13c north star": p13["scheduler_13c"]["north_star"]["domain_counts_launches"],
+        "sharded 13e sim": p13["sim_13e"]["sim"]["domain_counts_launches"],
     }
     main_case = cases[0]
     # phase 9's first launches, held to plain on the path's own inputs
@@ -3938,7 +4386,14 @@ def main():
                                             serve, p10["bulk_10c"], p10["rebalance_10d"],
                                             p11["fleet_11a"], p11["fleet_11a"]["parity"],
                                             p11["fleet_drain_11b"], p11["fleet_sim_11c"],
-                                            p11["fleet_serve_11d"], p12["cache_12a"])
+                                            p11["fleet_serve_11d"], p12["cache_12a"],
+                                            p13["scheduler_13c"]["mixed"],
+                                            p13["sim_13e"]["sim"],
+                                            *[r for key, r in p13["scan_13a"].items()
+                                              if key.startswith("k")],
+                                            *[r for kt, runs in p13["grouped_13b"].items()
+                                              if not kt.startswith("session")
+                                              for r in runs.values()])
                  if r["max_abs_err"] is not None]
     max_abs_err = max([c["max_abs_err"] for c in cases] + held_errs)
     record = {
@@ -4009,7 +4464,8 @@ def main():
                     "card": smi}))
     log(json.dumps({"phase10": p10, "card": smi}))
     log(json.dumps({"phase11": p11, "card": smi}))
-    log(json.dumps({"phase12": p12, "script_s": time.perf_counter() - t_start, "card": smi}))
+    log(json.dumps({"phase12": p12, "card": smi}))
+    log(json.dumps({"phase13": p13, "script_s": time.perf_counter() - t_start, "card": smi}))
     log(smi)  # the card's name and power limit, on the line before the last
     print(json.dumps({
         "ok": True,

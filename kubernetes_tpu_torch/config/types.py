@@ -46,9 +46,9 @@ Copied from ``kubernetes_tpu/config/types.py``. What differs:
 - ``scheduler_config`` builds ``rebalance.RebalanceConfig`` from the
   ``rebalance`` section and ``fleet.runtime.FleetConfig`` from the
   ``fleet`` section, as the JAX package does, and hands
-  ``fleet.meshSlice`` as ``mesh_slice``: the port's Scheduler refuses a
-  mesh slice at construction (``parallel/sharding.resolve_mesh``), naming
-  its ROADMAP item, instead of ignoring it.
+  ``fleet.meshSlice`` as ``mesh_slice``: the port's Scheduler resolves it
+  with the JAX package's arithmetic over its visible devices
+  (``parallel/sharding.resolve_mesh``) and pins its solves there.
 """
 
 from __future__ import annotations

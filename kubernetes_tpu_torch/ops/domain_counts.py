@@ -200,6 +200,7 @@ class Aggregation:
             raise ValueError(f"domain_counts runs on cuda or cpu, not {dom0.device}")
         self.sets, self.d_pad, self.counts, self.gather = list(sets), d_pad, counts, gather
         self._args = None
+        self.out = None  # the card's [rows, d_pad] counts, both sets in one
         self.cluster = self.is_global = None  # the launch's, on the card
         if not on_card:
             return
@@ -216,6 +217,7 @@ class Aggregation:
         want_out = counts or is_global
         dev = dom0.device
         out = torch.empty((rows, d_pad), dtype=torch.int32, device=dev) if want_out else None
+        self.out = out if counts else None
         tot = torch.empty((rows, n), dtype=torch.int32, device=dev) if gather else None
         t0 = sets[0][0].shape[0]
         if len(sets) == 1:

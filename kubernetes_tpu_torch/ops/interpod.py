@@ -23,33 +23,51 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import sharding as sh
 from . import domain_counts as dc
 
 MAX_NODE_SCORE = 100
 INF = 2**30
 
 
-# device-scope op, called per step by the solver: ktpu: hot
 def node_totals(ipa, in_cnt, ex_cnt, d_pad: int, ident: bool = False):
+    """``node_totals_g`` on one shard."""
+    return sh.run_local(node_totals_g(ipa, in_cnt, ex_cnt, d_pad, ident))
+
+
+# device-scope op, called per step by the solver: ktpu: hot
+def node_totals_g(ipa, in_cnt, ex_cnt, d_pad: int, ident: bool = False):
     """(in totals [Ti, N], ex totals [Te, N]): the per-node domain totals
     of both tables -- the JAX package's ``domain_counts`` of each -- from
-    one launch of the kernel over both row sets.
+    one launch of the kernel over both row sets. A generator of the shard
+    protocol: on a mesh of more than one shard (``ipa["shards"] > 1``)
+    each shard launches counts-only over its block, the [Ti + Te, d_pad]
+    sums add up on the lead device in shard order, and each shard gathers
+    its nodes' totals from the global sums.
 
     ``ident=True``: every valid node has a unique domain in every row (the
     hostname-topology case, verified by the tensorizer), so the per-node
     total is the per-node count (masked by has_key) and no aggregation
-    runs."""
+    runs, sharded or not."""
     if ident:
         return (torch.where(ipa["in_hk"], in_cnt, 0),
                 torch.where(ipa["ex_hk"], ex_cnt, 0))
+    sharded = ipa.get("shards", 1) > 1
     cache = ipa.get("launch", {})
     agg = cache.get("totals")
     if agg is None or agg.sets[0][1] is not in_cnt or agg.sets[1][1] is not ex_cnt:
         agg = cache["totals"] = dc.Aggregation(
             [(ipa["in_dom"], in_cnt, None), (ipa["ex_dom"], ex_cnt, None)],
-            d_pad, counts=False,
+            d_pad, counts=sharded, gather=not sharded,
         )
-    (_, in_tot), (_, ex_tot) = agg()
+    (in_out, in_tot), (ex_out, ex_tot) = agg()
+    if sharded:
+        ti = in_out.shape[0]
+        # the two sets' counts are one [Ti + Te, d_pad] allocation
+        out = agg.out if agg.out is not None else torch.cat([in_out, ex_out])
+        out = yield sh.c_sum, out
+        in_tot = dc.gather_plain(out[:ti], ipa["in_dom"])
+        ex_tot = dc.gather_plain(out[ti:], ipa["ex_dom"])
     return in_tot, ex_tot
 
 
@@ -59,19 +77,30 @@ def static_tables(in_dom, ex_dom) -> dict:
     return {"in_hk": in_dom >= 0, "ex_hk": ex_dom >= 0}
 
 
-# device-scope op, called per step by the solver: ktpu: hot
 def filter_and_score(
     ipa, in_cnt, ex_cnt, cls: int, x, d_pad: int, node_valid,
     ident: bool = False, score: bool = True,
 ):
-    """Returns (allowed [N] bool, raw_score [N] int32).
+    """``filter_and_score_g`` on one shard."""
+    return sh.run_local(filter_and_score_g(ipa, in_cnt, ex_cnt, cls, x, d_pad, node_valid,
+                                           ident, score))
+
+
+# device-scope op, called per step by the solver: ktpu: hot
+def filter_and_score_g(
+    ipa, in_cnt, ex_cnt, cls: int, x, d_pad: int, node_valid,
+    ident: bool = False, score: bool = True,
+):
+    """Returns (allowed [N] bool, raw_score [N] int32). A generator of the
+    shard protocol: the domain sums combine (``node_totals_g``) and the
+    first-pod test's ``total_any`` is a cross-shard sum.
 
     ipa: tables (see the module note); in_cnt/ex_cnt: carried [T, N] int32
     counts; cls: the pod's class (host int); x: the pod's rows. Raw scores
     are unnormalized -- normalization runs over the final feasible mask.
     ``score=False``: the batch has no preferred terms and no symmetry
     weights, so the scoring section is skipped (raw is all-zero)."""
-    in_counts, ex_counts = node_totals(ipa, in_cnt, ex_cnt, d_pad, ident)
+    in_counts, ex_counts = yield from node_totals_g(ipa, in_cnt, ex_cnt, d_pad, ident)
     in_hk, ex_hk = ipa["in_hk"], ipa["ex_hk"]
     n = in_counts.shape[1]
     dev = in_counts.device
@@ -100,6 +129,7 @@ def filter_and_score(
             total_any = total_any + torch.sum(
                 torch.where(in_hk[j] & node_valid, in_cnt[j], 0)
             )
+        total_any = yield sh.c_sum, total_any
         # the first-pod special case never admits a node missing a topology
         # key (filtering.go#satisfyPodAffinity)
         first_pod = (total_any == 0) & x["ipa_self_aff"] & has_all_keys
@@ -120,12 +150,19 @@ def filter_and_score(
     return allowed, raw
 
 
-# device-scope op, called per step by the solver: ktpu: hot
 def normalize(raw, mask):
+    """``normalize_g`` on one shard."""
+    return sh.run_local(normalize_g(raw, mask))
+
+
+# device-scope op, called per step by the solver: ktpu: hot
+def normalize_g(raw, mask):
     """scoring.go#NormalizeScore: 100*(s-min)/(max-min) over the feasible
-    set; all-equal -> 0. raw, mask: [..., N]; each row on its own."""
-    mx = torch.amax(torch.where(mask, raw, -INF), dim=-1, keepdim=True)
-    mn = torch.amin(torch.where(mask, raw, INF), dim=-1, keepdim=True)
+    set; all-equal -> 0. raw, mask: [..., N]; each row on its own. A
+    generator of the shard protocol: the maximum and minimum are
+    cross-shard."""
+    mx = yield sh.c_max, torch.amax(torch.where(mask, raw, -INF), dim=-1, keepdim=True)
+    mn = yield sh.c_min, torch.amin(torch.where(mask, raw, INF), dim=-1, keepdim=True)
     diff = mx - mn
     norm = torch.div(
         MAX_NODE_SCORE * (raw - mn), torch.clamp(diff, min=1), rounding_mode="floor"

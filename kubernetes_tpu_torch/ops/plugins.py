@@ -11,17 +11,25 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import sharding as sh
+
 MAX_NODE_SCORE = 100
 
 
 def normalize_score(raw: torch.Tensor, mask: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """``normalize_score_g`` on one shard."""
+    return sh.run_local(normalize_score_g(raw, mask, reverse))
+
+
+def normalize_score_g(raw: torch.Tensor, mask: torch.Tensor, reverse: bool):
     """DefaultNormalizeScore over the feasible (masked) set.
 
     raw: [..., N] int32 non-negative, mask: [..., N] bool; each row (one
     pod's nodes) normalizes on its own. Returns [..., N] int32; values on
-    masked-out lanes are unspecified (the caller masks the total)."""
+    masked-out lanes are unspecified (the caller masks the total). A
+    generator of the shard protocol: the maximum is cross-shard."""
     s = torch.where(mask, raw, 0).to(torch.int32)
-    max_count = torch.amax(s, dim=-1, keepdim=True)
+    max_count = yield sh.c_max, torch.amax(s, dim=-1, keepdim=True)
     scaled = torch.div(
         MAX_NODE_SCORE * s, torch.clamp(max_count, min=1), rounding_mode="floor"
     )

@@ -30,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel import sharding as sh
 from . import domain_counts as dc
 
 MAX_NODE_SCORE = 100
@@ -59,28 +60,45 @@ def static_tables(dom, elig, d_pad: int) -> dict:
     }
 
 
-def _domain_aggregate(spr, j: int, cnt, d_pad: int):
+def _domain_aggregate_g(spr, j: int, cnt, d_pad: int):
     """Returns (per-node domain count, #registered domains, min over
     registered domains, has_key) of constraint ``j``; cnt: [J, N] int32
-    carried per-node match counts.
+    carried per-node match counts. A generator of the shard protocol
+    (``parallel/sharding.py``): on a mesh of more than one shard it yields
+    the domain sum.
 
-    One launch of the kernel sums ``cnt[j]`` per domain over the counted
-    lanes (``counted_dom``) and gathers each node's domain total by its own
-    domain (``dom``), equal to the reference's segment sum and gather;
-    presence and the domain count come from ``static_tables``. The prepared
-    launch and the constraint's static rows are kept in ``spr["launch"]``
-    from one step to the next."""
+    Unsharded, one launch of the kernel sums ``cnt[j]`` per domain over the
+    counted lanes (``counted_dom``) and gathers each node's domain total by
+    its own domain (``dom``), equal to the reference's segment sum and
+    gather. Sharded (``spr["shards"] > 1``), each shard launches the kernel
+    counts-only over its own block, the shards' [1, d_pad] sums add up on
+    the lead device in shard order, and each shard gathers its nodes'
+    totals from the global sum (the fused gather would need the global
+    histogram). Presence and the domain count come from ``static_tables``.
+    The prepared launch and the constraint's static rows are kept in
+    ``spr["launch"]`` from one step to the next."""
+    sharded = spr.get("shards", 1) > 1
     cache = spr.get("launch", {})
     hit = cache.get(j)
     if hit is None or hit[0] is not cnt:
         agg = dc.Aggregation(
-            [(spr["counted_dom"][j : j + 1], cnt[j : j + 1], spr["dom"][j : j + 1])], d_pad
+            [(spr["counted_dom"][j : j + 1], cnt[j : j + 1],
+              None if sharded else spr["dom"][j : j + 1])],
+            d_pad, gather=not sharded,
         )
         hit = cache[j] = (cnt, agg, spr["present"][j], spr["n_dom"][j], spr["hk"][j])
     _, agg, present, n_dom, hk = hit
     ((dom_counts, node_cnt),) = agg()
+    if sharded:
+        dom_counts = yield sh.c_sum, dom_counts
+        node_cnt = dc.gather_plain(dom_counts, spr["dom"][j : j + 1])
     min_match = torch.min(torch.where(present, dom_counts[0], INF_COUNT))
     return node_cnt[0], n_dom, min_match, hk
+
+
+def _domain_aggregate(spr, j: int, cnt, d_pad: int):
+    """``_domain_aggregate_g`` on one shard."""
+    return sh.run_local(_domain_aggregate_g(spr, j, cnt, d_pad))
 
 
 def aggregate_rows(spr, cnt, d_pad: int):
@@ -94,9 +112,16 @@ def aggregate_rows(spr, cnt, d_pad: int):
     return node_cnt, min_match
 
 
-# device-scope op, called per step by the solver: ktpu: hot
 def hard_violations(spr, cnt, cls: int, d_pad: int):
+    """``hard_violations_g`` on one shard."""
+    return sh.run_local(hard_violations_g(spr, cnt, cls, d_pad))
+
+
+# device-scope op, called per step by the solver: ktpu: hot
+def hard_violations_g(spr, cnt, cls: int, d_pad: int):
     """[N] bool -- any hard spread constraint of class ``cls`` violated.
+    A generator of the shard protocol: the domain sums combine; the rest
+    is local once they are global.
 
     spr: spread tables (see the module note); cnt: [J, N] int32 carried
     per-node match counts."""
@@ -106,7 +131,7 @@ def hard_violations(spr, cnt, cls: int, d_pad: int):
         j = int(j)
         if j < 0:
             continue
-        node_cnt, _, min_match, hk = _domain_aggregate(spr, j, cnt, d_pad)
+        node_cnt, _, min_match, hk = yield from _domain_aggregate_g(spr, j, cnt, d_pad)
         md = int(spr["min_domains"][j])
         if md >= 0 and spr["n_dom_host"][j] < md:
             min_match = 0
@@ -115,10 +140,18 @@ def hard_violations(spr, cnt, cls: int, d_pad: int):
     return viol
 
 
-# device-scope op, called per step by the solver: ktpu: hot
 def soft_scores(spr, cnt, cls: int, mask, d_pad: int, fdtype=torch.float32):
+    """``soft_scores_g`` on one shard."""
+    return sh.run_local(soft_scores_g(spr, cnt, cls, mask, d_pad, fdtype))
+
+
+# device-scope op, called per step by the solver: ktpu: hot
+def soft_scores_g(spr, cnt, cls: int, mask, d_pad: int, fdtype=torch.float32):
     """[N] int32 -- normalized 0-100 PodTopologySpread score over the
-    feasible set ``mask`` (scoring.go#Score + #NormalizeScore).
+    feasible set ``mask`` (scoring.go#Score + #NormalizeScore). A
+    generator of the shard protocol: the feasible count is a cross-shard
+    sum, the domain sums combine, and the normalization's maximum and
+    minimum are cross-shard.
 
     ``fdtype`` mirrors the solver's balanced_fdtype: float64 matches the
     oracle's Go float64 math."""
@@ -129,9 +162,9 @@ def soft_scores(spr, cnt, cls: int, mask, d_pad: int, fdtype=torch.float32):
     slots = [int(j) for j in spr["soft"][cls] if j >= 0]
     raw = torch.zeros(n, dtype=fdtype, device=dev)
     ignored = torch.zeros(n, dtype=torch.bool, device=dev)
-    n_feasible = torch.sum(mask.to(torch.int32))
+    n_feasible = yield sh.c_sum, torch.sum(mask.to(torch.int32))
     for j in slots:
-        node_cnt, n_dom, _, hk = _domain_aggregate(spr, j, cnt, d_pad)
+        node_cnt, n_dom, _, hk = yield from _domain_aggregate_g(spr, j, cnt, d_pad)
         if spr["is_hostname"][j]:
             c, size = cnt[j].to(fdtype), n_feasible.to(fdtype)
         else:
@@ -142,9 +175,9 @@ def soft_scores(spr, cnt, cls: int, mask, d_pad: int, fdtype=torch.float32):
     raw_i = torch.round(raw).to(torch.int32)
 
     considered = mask & ~ignored
-    mx = torch.max(torch.where(considered, raw_i, -INF_COUNT))
-    mn = torch.min(torch.where(considered, raw_i, INF_COUNT))
-    any_considered = torch.any(considered)
+    mx = yield sh.c_max, torch.max(torch.where(considered, raw_i, -INF_COUNT))
+    mn = yield sh.c_min, torch.min(torch.where(considered, raw_i, INF_COUNT))
+    any_considered = yield sh.c_any, torch.any(considered)
     norm = torch.div(
         MAX_NODE_SCORE * (mx + mn - raw_i), torch.clamp(mx, min=1),
         rounding_mode="floor",

@@ -48,7 +48,8 @@ two same-seed simulator runs stay byte-identical
 
 Ported from ``kubernetes_tpu/resilience.py``: the ladder's rungs are
 torch devices here (``build_ladder``, ``tier_device``), where the JAX
-package has a mesh rung and a ``jax.default_device`` context.
+package has a ``jax.default_device`` context; the mesh rung (TIER_MESH)
+heads the ladder when a node-axis mesh is configured, as there.
 
 Copied from ``kubernetes_tpu/resilience.py``.
 """
@@ -62,6 +63,7 @@ import numpy as np
 from . import metrics
 
 # ladder tiers, best first (build_ladder trims to what exists)
+TIER_MESH = "mesh"  # the exact solver sharded over the configured NodeMesh
 TIER_SINGLE = "single"  # the exact solver on the scheduler's device
 TIER_CPU = "cpu"  # same exact solver, on the CPU
 TIER_HOST = "host"  # pure-host serial greedy (ops/oracle), no torch
@@ -116,12 +118,14 @@ def card_fault(e: BaseException) -> bool:
     return isinstance(e, RuntimeError) and "CUDA" in str(e)
 
 
-def build_ladder(device) -> tuple[str, ...]:
+def build_ladder(device, have_mesh: bool = False) -> tuple[str, ...]:
     """The fallback tiers for a scheduler on ``device`` (a torch.device),
-    best first. ``TIER_CPU`` is only a distinct rung when ``device`` is
+    best first: the sharded mesh solve when a mesh is configured, then the
+    unsharded one. ``TIER_CPU`` is only a distinct rung when ``device`` is
     the card (on the CPU, single == CPU and a duplicate rung would just
     slow the descent)."""
-    tiers = [TIER_SINGLE]
+    tiers = [TIER_MESH] if have_mesh else []
+    tiers.append(TIER_SINGLE)
     if device.type != "cpu":
         tiers.append(TIER_CPU)
     tiers.append(TIER_HOST)

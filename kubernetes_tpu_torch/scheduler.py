@@ -34,10 +34,12 @@ card, raising without CUDA) and hands it to every solve — deferred, split,
 chained and streamed ones too, the rebalancer's plan and the relax plan —
 and to every preemption dry-run; the resilience ladder's CPU rung solves
 on the CPU, after an injected solve fault or an output that failed
-validation; a kernel or card failure is raised instead. Not ported yet,
-and refused at construction with NotImplementedError naming the ROADMAP
-item: a multi-device mesh or mesh slice (item 11). Fleet replicas in one
-process share the one card.
+validation; a kernel or card failure is raised instead. A node-axis mesh
+(``mesh_devices``, or a fleet replica's ``mesh_slice``; resolved by
+``parallel/sharding.resolve_mesh`` over the visible devices) shards every
+dispatch at the ladder's top rung, TIER_MESH, bit for bit equal to the
+unsharded solve. Fleet replicas in one process share the one card unless
+their mesh slices give each its own.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from .resilience import (
     ACT_DESCEND,
     ACT_REBUILD,
     TIER_HOST,
+    TIER_MESH,
     SolveCorruptError,
     SolveResilience,
     SolverFaultError,
@@ -138,15 +141,13 @@ class SchedulerConfig:
     # of devices to shard the node axis over. 0 = all visible devices,
     # 1 = force the single-device (unsharded) path, N > 1 = the first
     # min(N, visible) devices. A resolved count of 1 is the unsharded
-    # path either way. The mesh threads through BOTH scheduling loops —
-    # overlap, carry, and sync batches all dispatch sharded — and
-    # results are bit-exactly device-count invariant
-    # (tests/test_sharding.py). Note for tier-1: conftest forces 8
-    # virtual CPU devices, so default-config Scheduler tests exercise
-    # the SHARDED path; the UNSHARDED path keeps coverage through the
-    # sim suite (SimHarness pins mesh_devices=1), the direct-solver
-    # parity tests (ExactSolver defaults to mesh=None), and the
-    # mesh_devices=1 arms of the equivalence tests.
+    # path either way. The mesh threads through every scheduling loop —
+    # overlap, carry, sync and stream batches all dispatch sharded — and
+    # results are bit-exactly shard-count invariant
+    # (tests/test_torch_sharding.py). The visible devices are the cards
+    # (the host's one CPU for a CPU scheduler), unless
+    # parallel/sharding.force_device_count made k entries of one device
+    # visible: a default-config CPU Scheduler is unsharded.
     mesh_devices: int = 0
     # per-replica EXCLUSIVE mesh slice (fleet device-tier scale-out;
     # config key fleet.meshSlice = "rank/count"): (rank, count) cuts
@@ -492,16 +493,18 @@ class Scheduler:
         self.config = config or SchedulerConfig()
         from .parallel.sharding import resolve_mesh
 
-        # the single card (mesh_devices 0/1); more, or a mesh slice,
-        # raises NotImplementedError naming ROADMAP item 11
-        self.mesh = resolve_mesh(
-            self.config.mesh_devices, self.config.mesh_slice
-        )
         # the device every solve and dry-run runs on: the argument, else
         # the config's; None resolves to the card and raises without CUDA
         self.device = device_mod.resolve(
             device if device is not None else self.config.device
         )
+        # node-axis solve mesh (SchedulerConfig.mesh_devices / mesh_slice)
+        # over the devices visible to this scheduler's device type; None =
+        # the unsharded path (a resolved count of 1 without a slice)
+        self.mesh = resolve_mesh(
+            self.config.mesh_devices, self.config.mesh_slice, device=self.device
+        )
+        self._mesh_devices = self.mesh.size if self.mesh is not None else 1
         self.clock = clock or Clock()
         # span/batch id shared by the profiler step annotation and
         # the obs span layer — initialized here instead of being
@@ -739,8 +742,10 @@ class Scheduler:
         # boundary where a concurrent actor's watch events can land
         # between a solve's dispatch and its apply
         self._post_dispatch_hook = None
-        metrics.mesh_devices.set(1)
-        metrics.fleet_mesh_slice_devices.set(0)
+        metrics.mesh_devices.set(self._mesh_devices)
+        metrics.fleet_mesh_slice_devices.set(
+            self._mesh_devices if self.config.mesh_slice is not None else 0
+        )
         # degraded-mode solve resilience (resilience.py): the fallback
         # ladder (this device -> the CPU -> host greedy) + per-profile
         # circuit breaker every dispatch runs through, pre-apply output
@@ -750,7 +755,8 @@ class Scheduler:
         self.resilience = SolveResilience(
             self.config.resilience,
             self.clock,
-            build_ladder(self.device),
+            build_ladder(self.device, have_mesh=True) if self.mesh is not None
+            else build_ladder(self.device),
             # the combiner ORs the breaker's state with the SLO
             # engine's health before publishing the fleet degraded
             # flag (no-op without a fleet runtime)
@@ -794,6 +800,8 @@ class Scheduler:
 
             self.rebalancer = Rebalancer(self.config.rebalance, self.clock)
         self.snapshot = Snapshot()
+        # the node padding divides over the mesh's shards (lcm(LANE, k))
+        self.snapshot.pad_multiple = self._mesh_devices
         from .state.volume_binder import VolumeBinder
 
         self.volume_binder = VolumeBinder(cluster)
@@ -3056,7 +3064,7 @@ class Scheduler:
         with self.obs.span(
             "dispatch", trace_id=prep.step, profile=prep.profile,
             defer=defer, healed=heal_stale, split=split,
-            mesh_devices=1, **span_extra,
+            mesh_devices=self._mesh_devices, **span_extra,
         ) as dsp, compile_scope:
             handle = solver.solve(
                 prep.batch, prep.pbatch, prep.static, prep.ports,
@@ -3068,6 +3076,7 @@ class Scheduler:
                 allow_heal=allow_heal,
                 split=split,
                 device=tier_device(tier_name, self.device),
+                mesh=self.mesh if tier_name == TIER_MESH else None,
                 chain_occupancy=chain,
                 stream_carry_out=stream,
                 chain_key=chain_key,
@@ -5494,11 +5503,17 @@ class Scheduler:
             d_pad=node_padding(max(n_nodes, 1), pad_mult)
             if (spread or interpod)
             else 8,
-            mesh_devices=1,
+            mesh_devices=self._mesh_devices,
             group=max(self.solver.config.group_size, 1),
             stream_depth=max(self.config.stream_depth, 1),
             pad_multiple=pad_mult,
         )
+
+    def _shards_per_device(self) -> int:
+        """The most mesh shards one device holds: k shards on one card hold
+        the whole resident set there, so the drain's per-shard budget is
+        the card's divided by k (``budget.device_budget_bytes``)."""
+        return self.mesh.shards_per_device() if self.mesh is not None else 1
 
     def drain_backlog(
         self,
@@ -5548,7 +5563,8 @@ class Scheduler:
             or self.config.batch_size
         )
         budget = hbm.device_budget_bytes(
-            budget_bytes or self.config.hbm_budget_bytes, self.device
+            budget_bytes or self.config.hbm_budget_bytes, self.device,
+            shards_per_device=self._shards_per_device(),
         )
         try:
             shape = self.drain_shape(base_chunk)
@@ -5702,7 +5718,8 @@ class Scheduler:
         if self.fleet is None:
             raise RuntimeError("fleet_drain_backlog requires fleet mode")
         total = hbm.device_budget_bytes(
-            budget_bytes or self.config.hbm_budget_bytes, self.device
+            budget_bytes or self.config.hbm_budget_bytes, self.device,
+            shards_per_device=self._shards_per_device(),
         )
         my_budget = hbm.split_fleet_budget(
             total,

@@ -15,7 +15,10 @@
 
 Runs on the card unless ``--device cpu`` is given. ``--fleet N`` drives N
 scheduler replicas over one cluster (``sim/fleet.py``), every replica on the
-one device; ``--mesh-devices > 1`` raises (ROADMAP queue 1 item 11).
+one device. ``--mesh-devices N`` shards the solve's node axis N ways: it
+makes N entries of the one device visible first
+(``parallel/sharding.force_device_count``, as the JAX package's sim forces
+N virtual CPU devices), and the trace is byte-identical to N = 1.
 
 Exit status: 0 clean; 1 invariant violations / failed settle / replay
 divergence; 2 usage errors.
@@ -27,6 +30,19 @@ from __future__ import annotations
 
 import argparse
 import sys
+
+
+def _configure_mesh(mesh_devices: int, device):
+    """``mesh_devices > 1``: make that many entries of the solve's device
+    visible (the JAX package's ``_configure_jax`` forces that many virtual
+    CPU devices), so the sim drives the node-axis-sharded solve path.
+    Returns the function that restores the visible list."""
+    from ..parallel import sharding
+
+    saved = sharding.forced_device_count()
+    if mesh_devices > 1:
+        sharding.force_device_count(mesh_devices, device)
+    return lambda: sharding.force_device_count(*saved)
 
 
 def _print_result(res) -> None:
@@ -373,8 +389,9 @@ def main(argv=None) -> int:
     )
     parser.add_argument(
         "--mesh-devices", type=int, default=1, metavar="N",
-        help="SchedulerConfig.mesh_devices; the port solves on one "
-        "device, and N > 1 raises (ROADMAP queue 1 item 11)",
+        help="SchedulerConfig.mesh_devices (the node-axis solve mesh); "
+        "N > 1 makes N entries of the solve's device visible first and "
+        "shards over them",
     )
     parser.add_argument(
         "--device", default=None,
@@ -423,6 +440,14 @@ def main(argv=None) -> int:
             print(line)
         return 0
 
+    restore = _configure_mesh(args.mesh_devices, args.device)
+    try:
+        return _drive(args)
+    finally:
+        restore()
+
+
+def _drive(args) -> int:
     if args.fleet:
         if args.tuning:
             # the multi-scheduler drive builds its own replica configs;

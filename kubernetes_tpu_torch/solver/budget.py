@@ -299,14 +299,25 @@ def relax_estimate(
     )
 
 
-def device_budget_bytes(override: int = 0, device=None) -> int:
+def device_budget_bytes(override: int = 0, device=None, shards_per_device: int = 1) -> int:
     """The per-device memory budget: an explicit override; else, on a
     CUDA ``device`` (None: the current card, when CUDA is available), the
     bytes this process can still allocate there -- the card's free memory
     plus the caching allocator's reserved bytes not allocated now, capped
     by the per-process memory fraction's limit on the allocator's
     reserve (the counterpart of the JAX package's ``bytes_limit``); else
-    the conservative DEFAULT_DEVICE_BUDGET_BYTES floor."""
+    the conservative DEFAULT_DEVICE_BUDGET_BYTES floor.
+
+    ``shards_per_device``: the most node-axis mesh shards one device
+    holds. ``estimate``'s per-device bytes are one shard's share (the
+    sharded tables divided by the shard count, as the JAX package divides
+    by its device count); k shards on one card hold all k shares there,
+    so the budget one shard plans against is the device's divided by k."""
+    spd = max(int(shards_per_device), 1)
+    return _device_budget_bytes(override, device) // spd
+
+
+def _device_budget_bytes(override: int, device) -> int:
     if override > 0:
         return override
     import torch

@@ -33,8 +33,10 @@ written back into the NodeBatch with one read), session (``col_versions``:
 the node tables and the carried fit state stay on the card between
 batches, ``solver/session.py``), deferred reads, sub-batches chained on
 the carried state (``split``) and the streaming carry across batches
-(``stream_carry_out`` / ``chain_occupancy``). Only ``mesh`` raises: the
-port runs on one device.
+(``stream_carry_out`` / ``chain_occupancy``), each on one device or on a
+node-axis mesh (``mesh=``, ``parallel/sharding.py``): the step and the
+fast chunks then run as one generator per shard in lockstep, and the
+result equals the unsharded one bit for bit.
 
 selectHost tie-break: "first" takes the lowest node index among the
 max-score ties and is bit-identical to the JAX package. "random" draws
@@ -64,6 +66,7 @@ from ..ops import interpod as ip
 from ..ops import noderesources as nr
 from ..ops import plugins as pl
 from ..ops import spread as sp
+from ..parallel import sharding as sh
 from ..tensorize.interpod import InterpodTensors, trivial_interpod_tensors
 from ..tensorize.plugins import (
     PortTensors,
@@ -83,8 +86,9 @@ from .session import (
     _class_table_digest,
     _DeviceSession,
     _node_bytes,
-    _node_tables,
-    _place_class_tables,
+    _shard_class_tables,
+    _shard_node_tables,
+    shard_view,
     to_dev,
 )
 
@@ -206,14 +210,21 @@ def _mask_and_score(
     use_nominated_ports: bool = False,
     use_extra_score: bool = False,
 ):
-    """One pod's filter + score pipeline over all nodes against node state
-    ``st``. Returns ``score`` [N] int32, -1 on infeasible lanes.
+    """One pod's filter + score pipeline over one shard's nodes against
+    node state ``st``. Returns ``score`` [w] int32, -1 on infeasible
+    lanes. A generator of the shard protocol (``parallel/sharding.py``):
+    the per-shard part computes the mask and the raw scores, and yields
+    its partials (domain counts, maxima, minima, counts) where the
+    normalizations and the domain aggregations need the whole node axis;
+    the finish runs on the combined values. ``tables["lo"]`` is the
+    shard's first global column.
 
     ``x`` holds the pod's rows as device tensors, plus host values: its
     class ``class_of``, ``has_port_conflicts`` (False when no port slot
     can conflict, which makes NodePorts a no-op for this pod, nominated
     hostPorts included) and, with nominated pods, its level row
-    ``nom_level`` and its own nominated slot ``nominated_slot``."""
+    ``nom_level`` and its own nominated slot ``nominated_slot`` (a global
+    index: only its owning shard subtracts the pod's own load)."""
     alloc = tables["alloc"]
     alloc2 = alloc[: MEM_IDX + 1]  # cpu, memory rows for scoring
     fit_scorer = _fit_scorer(scoring_strategy, rtc_shape)
@@ -231,10 +242,13 @@ def _mask_and_score(
         # outranks every nomination and carries none adds nothing.
         lvl = x["nom_level"]
         s = x["nominated_slot"]
-        if lvl > 0 or s >= 0:
+        w = tables["node_valid"].shape[0]
+        own = 0 <= s - tables["lo"] < w  # this shard holds the nominated slot
+        s = s - tables["lo"]
+        if lvl > 0 or x["nominated_slot"] >= 0:
             extra_u = tables["nom_used"][lvl] - st["nom_corr_used"][lvl]
             extra_c = tables["nom_cnt"][lvl] - st["nom_corr_cnt"][lvl]
-            if s >= 0:
+            if own:
                 extra_u[:, s] -= x["req"]
                 extra_c[s] -= 1
             used = used + extra_u
@@ -242,7 +256,7 @@ def _mask_and_score(
             if use_nominated_ports and x["has_port_conflicts"]:
                 # NodePorts is as monotone as resources
                 extra_p = tables["nom_ports"][lvl] - st["nom_corr_ports"][lvl]
-                if s >= 0:
+                if own:
                     extra_p[:, s] -= x["pod_takes"]
                 port_used = port_used + extra_p
     if "NodeResourcesFit" not in disabled:
@@ -252,9 +266,10 @@ def _mask_and_score(
     if "NodePorts" not in disabled and x["has_port_conflicts"]:
         mask = mask & ~pl.ports_conflict_mask(x["pod_conflict"], port_used)
     if use_spread and "PodTopologySpread" not in disabled:
-        mask = mask & ~sp.hard_violations(tables["spr"], st["spr_cnt"], cls, d_pad)
+        viol = yield from sp.hard_violations_g(tables["spr"], st["spr_cnt"], cls, d_pad)
+        mask = mask & ~viol
     if use_interpod:
-        ipa_allowed, ipa_raw = ip.filter_and_score(
+        ipa_allowed, ipa_raw = yield from ip.filter_and_score_g(
             tables["ipa"], st["ipa_in"], st["ipa_ex"], cls, x, ipa_d_pad,
             tables["node_valid"],
             ident=ipa_ident, score=ipa_score and w_interpod > 0,
@@ -269,70 +284,105 @@ def _mask_and_score(
     )
     score = score.to(torch.int32)
     if w_taint:
-        score = score + w_taint * pl.normalize_score(
+        score = score + w_taint * (yield from pl.normalize_score_g(
             tables["taint_cnt"][cls], mask, reverse=True
-        )
+        ))
     if w_nodeaff:
-        score = score + w_nodeaff * pl.normalize_score(
+        score = score + w_nodeaff * (yield from pl.normalize_score_g(
             tables["nodeaff_pref"][cls], mask, reverse=False
-        )
+        ))
     if w_image:
         score = score + w_image * tables["image_score"][cls]
     if use_extra_score:
         score = score + tables["extra_score"][cls]
     if use_spread and w_spread and spread_soft:
-        score = score + w_spread * sp.soft_scores(
+        score = score + w_spread * (yield from sp.soft_scores_g(
             tables["spr"], st["spr_cnt"], cls, mask, d_pad, fdtype=fdtype
-        )
+        ))
     if use_interpod and w_interpod and ipa_score:
-        score = score + w_interpod * ip.normalize(ipa_raw, mask)
+        score = score + w_interpod * (yield from ip.normalize_g(ipa_raw, mask))
     return torch.where(mask, score, -1)
 
 
 def _make_step(tables, *, tie_break: str, generator: torch.Generator | None, **pipe_kw):
-    """The per-pod scan step: the full filter + score pipeline, the
-    tie-break pick and the assume scatter. ``step(st, packed, x)`` updates
-    the packed carried state in place (the JAX scan returns a new carry;
-    updating in place saves a copy of the node state per pod) and returns
-    the pod's assignment as a 0-d device tensor (-1: unschedulable)."""
+    """The per-pod scan step of one shard: the full filter + score
+    pipeline, the tie-break pick and the assume scatter. ``step(st,
+    packed, x)`` is a generator of the shard protocol that updates the
+    shard's packed carried state in place (the JAX scan returns a new
+    carry; updating in place saves a copy of the node state per pod) and
+    returns the pod's assignment as a 0-d device tensor (-1:
+    unschedulable), a global node index.
+
+    Sharded, "first" takes each shard's maximum and first local index and
+    picks the lowest global index among the shards that hold the global
+    maximum. "random" draws one uniform per step from the one generator on
+    the lead device, whatever the shard count, counts the ties per shard
+    and finds the pick's shard from the prefix of the shard totals: the
+    unsharded draw and pick, bit for bit. Only the owning shard's assume
+    adds anything (the others add zero at a clamped index, which keeps the
+    loop free of device reads)."""
     use_nominated = pipe_kw.get("use_nominated", False)
     use_nominated_ports = pipe_kw.get("use_nominated_ports", False)
+    lo = tables["lo"]
+    sharded = tables["shards"] > 1
 
     def step(st, packed, x):
-        score = _mask_and_score(tables, st, x, **pipe_kw)
+        score = yield from _mask_and_score(tables, st, x, **pipe_kw)
+        w = score.shape[0]
         if tie_break == TIE_RANDOM:
-            best = torch.max(score)
+            best = yield sh.c_max, torch.max(score)
             ties = (score == best) & (score >= 0)
             csum = torch.cumsum(ties.to(torch.int32), dim=0)
-            m = torch.clamp(csum[-1], min=1).to(torch.int64)
-            u = torch.rand(
-                (), generator=generator, dtype=torch.float64, device=score.device
+            before, total = yield sh.c_prefix, csum[-1]
+            m = torch.clamp(total, min=1).to(torch.int64)
+            u = yield sh.c_draw, (
+                lambda: torch.rand((), generator=generator, dtype=torch.float64,
+                                   device=generator.device),
+                None, None, score.device,
             )
             rank = torch.minimum(torch.floor(u * m).to(torch.int64), m - 1)
-            # torch.argmax takes no bool: the first index with csum > rank
-            pick = torch.argmax((csum > rank).to(torch.int32))
+            if sharded:
+                local = rank - before
+                own = (local >= 0) & (local < csum[-1])
+                # torch.argmax takes no bool: the first index with csum > rank
+                lpick = torch.argmax((csum > local).to(torch.int32))
+                pick = yield sh.c_sum, torch.where(own, lpick + lo, 0)
+            else:
+                # torch.argmax takes no bool: the first index with csum > rank
+                pick = torch.argmax((csum > rank).to(torch.int32))
         else:
             # the first maximal index, as jnp.argmax gives it
-            best, pick = torch.max(score, dim=0)
+            best, pick = yield sh.c_first_max, (*torch.max(score, dim=0), lo)
         s_nom = x["nominated_slot"] if use_nominated else -1
+        own_nom = 0 <= s_nom - lo < w
         if s_nom >= 0:
             # schedule_one.go#evaluateNominatedNode: a pod carrying a
             # nomination takes that node if it is feasible, before any
-            # scoring of alternatives
-            pick = torch.where(score[s_nom] >= 0, s_nom, pick)
+            # scoring of alternatives (its score read on its owning shard)
+            nom_ok = yield sh.c_sum, (
+                (score[s_nom - lo] >= 0).to(torch.int32) if own_nom
+                else torch.zeros((), dtype=torch.int32, device=score.device)
+            )
+            pick = torch.where(nom_ok > 0, s_nom, pick)
         found = best >= 0
-        idx = pick.view(1)
-        packed["i64"].index_add_(1, idx, (x["take64"] * found.to(torch.int64))[:, None])
-        packed["i32"].index_add_(1, idx, (x["take32"] * found.to(torch.int32))[:, None])
-        if s_nom >= 0:
+        if sharded:
+            local = pick - lo
+            hit = found & (local >= 0) & (local < w)
+            idx = torch.clamp(local, 0, w - 1).view(1)
+        else:
+            hit, idx = found, pick.view(1)
+        packed["i64"].index_add_(1, idx, (x["take64"] * hit.to(torch.int64))[:, None])
+        packed["i32"].index_add_(1, idx, (x["take32"] * hit.to(torch.int32))[:, None])
+        if own_nom:
             # a placed nominated pod leaves the nominator map: its load, at
             # its nominated slot where the level tables counted it, goes
             # into every correction row its priority contributed to
             lvl = x["nom_level"]
-            st["nom_corr_used"][lvl:, :, s_nom] += (x["req"] * found)[None, :]
-            st["nom_corr_cnt"][lvl:, s_nom] += found.to(torch.int32)
+            ls = s_nom - lo
+            st["nom_corr_used"][lvl:, :, ls] += (x["req"] * found)[None, :]
+            st["nom_corr_cnt"][lvl:, ls] += found.to(torch.int32)
             if use_nominated_ports:
-                st["nom_corr_ports"][lvl:, :, s_nom] += (
+                st["nom_corr_ports"][lvl:, :, ls] += (
                     x["pod_takes"] * found.to(torch.int32)
                 )[None, :]
         return torch.where(found, pick, -1)
@@ -348,33 +398,43 @@ def _fold_seed(seed: int, i: int) -> int:
 
 class _PodRows:
     """The per-pod inputs of one solve: host numpy arrays, their device
-    copies, and row access for the scan step and the fast chunks. In
+    copies (one per distinct device of the mesh: the per-pod rows are
+    replicated), and row access for the scan step and the fast chunks. In
     compact mode each array holds one representative row per chunk."""
 
-    def __init__(self, host: dict, dev):
+    def __init__(self, host: dict, mesh):
         self.host = host
-        self.dev = {k: to_dev(host[k], dev) for k in _DEV_NAMES}
+        self.devices = mesh.devices
         k = host["req_mask"].shape[1]
-        self.dev["req"] = self.dev["take64"][:, :k]
-        self.dev["nonzero_req"] = self.dev["take64"][:, k:]
         b = host["pod_takes"].shape[1]
-        self.dev["pod_takes"] = self.dev["take32"][:, 1 : 1 + b]
+        self.by_dev = {}
+        for dev in mesh.distinct:
+            d = {name: to_dev(host[name], dev) for name in _DEV_NAMES}
+            d["req"] = d["take64"][:, :k]
+            d["nonzero_req"] = d["take64"][:, k:]
+            d["pod_takes"] = d["take32"][:, 1 : 1 + b]
+            self.by_dev[dev] = d
         self.host_names = tuple(
             n for n in ("class_of", "has_port_conflicts", "nom_level", "nominated_slot")
             if n in host
         )
 
     def nbytes(self) -> int:
-        return sum(self.host[k].nbytes for k in self.dev if k in self.host)
+        return sum(self.host[k].nbytes for k in _DEV_NAMES + ("pod_takes",) if k in self.host)
 
-    def row(self, i: int) -> dict:
-        """The pod rows the scan step reads: device row views plus host
-        ints."""
-        x = {name: a[i] for name, a in self.dev.items()}
+    def row(self, i: int) -> list:
+        """The pod rows the scan step reads, per shard: device row views
+        plus host ints (shards on one device share one dict)."""
+        hostv = {}
         for name in self.host_names:
             v = self.host[name][i]
-            x[name] = bool(v) if v.dtype == bool else int(v)
-        return x
+            hostv[name] = bool(v) if v.dtype == bool else int(v)
+        rows = {}
+        for dev, d in self.by_dev.items():
+            x = {name: a[i] for name, a in d.items()}
+            x.update(hostv)
+            rows[dev] = x
+        return [rows[dev] for dev in self.devices]
 
     def host_row(self, i: int) -> dict:
         return {name: a[i] for name, a in self.host.items()}
@@ -456,8 +516,11 @@ class ExactSolver:
     """Host-facing wrapper: NodeBatch/PodBatch (+ plugin tensors) in,
     assignments out, node state written back (the device-side assume)."""
 
-    def __init__(self, config: ExactSolverConfig | None = None):
+    def __init__(self, config: ExactSolverConfig | None = None, mesh=None):
         self.config = config or ExactSolverConfig()
+        # the node-axis mesh solves run on by default (a NodeMesh;
+        # solve(mesh=...) overrides per call). None = unsharded
+        self.mesh = mesh
         self._step_count = 0
         self._session = _DeviceSession()
         # flight-telemetry input snapshot hook (obs/bundle.py): when set,
@@ -509,11 +572,11 @@ class ExactSolver:
         occupancy state shape- and meaning-compatible with the next
         batch's dispatch: the class-table content, the ordered port
         vocabulary, the packed row layout, the node padding and resource
-        width, and the domain paddings (the JAX package's key; its mesh
-        component is None here). Two consecutive batches with equal keys
-        may chain."""
-        if mesh is not None:
-            raise NotImplementedError("mesh is not ported; the port runs on one device")
+        width, the domain paddings, and the mesh's fingerprint (the JAX
+        package's key; None unsharded). Two consecutive batches with equal
+        keys may chain. ``mesh`` defaults to the constructor's."""
+        if mesh is None:
+            mesh = self.mesh
         if ports is None:
             ports = trivial_port_tensors(pods, nodes.padded)
         if spread is None:
@@ -523,7 +586,7 @@ class ExactSolver:
         return (
             _class_table_digest(static, spread, interpod),
             hashlib.blake2b(repr(ports.vocab).encode(), digest_size=16).digest(),
-            None,
+            sh.mesh_fingerprint(mesh),
             nodes.padded,
             nodes.allocatable.shape[0],
             ports.used.shape[0],
@@ -608,12 +671,17 @@ class ExactSolver:
         batches never split or stream.
 
         ``device``: where the solve runs; None is the card (and raises when
-        CUDA is absent). ``mesh`` raises NotImplementedError. Without
+        CUDA is absent). ``mesh`` (default: the constructor's): a NodeMesh
+        whose shards split the node axis (``parallel/sharding.py``); the
+        solve then runs on the mesh's devices, ``device`` aside, and equals
+        the unsharded solve bit for bit. Without
         ``static``/``ports``/``spread``/``interpod`` tensors, trivial ones
         reproduce the resources-only pipeline."""
-        if mesh is not None:
-            raise NotImplementedError("mesh is not ported; the port runs on one device")
-        dev = device_mod.resolve(device)
+        if mesh is None:
+            mesh = self.mesh
+        dev = mesh.lead if mesh is not None else device_mod.resolve(device)
+        shards = mesh if mesh is not None else sh.single(dev)
+        w = shards.width(nodes.padded)
         cfg = self.config
         if self.capture_hook is not None:
             # step_count is exactly what a replay must restore, and None
@@ -663,7 +731,8 @@ class ExactSolver:
 
         h2d = 0
         if session:
-            h2d += self._session.sync(nodes, col_versions, dev, allow_heal=allow_heal)
+            h2d += self._session.sync(nodes, col_versions, dev, allow_heal=allow_heal,
+                                      mesh=mesh)
             nt, persist = self._session.nt, self._session.persist
             ct, ct_bytes = self._session.class_tables(
                 static, spread, interpod,
@@ -671,8 +740,8 @@ class ExactSolver:
             )
             h2d += ct_bytes
         else:
-            nt, persist = _node_tables(nodes, dev)
-            ct = _place_class_tables(static, spread, interpod, dev)
+            nt, persist = _shard_node_tables(nodes, shards)
+            ct = _shard_class_tables(static, spread, interpod, shards)
             h2d += _node_bytes(nodes) + sum(
                 np.asarray(a).nbytes for a in _class_table_arrays(static, spread, interpod)
             )
@@ -684,28 +753,36 @@ class ExactSolver:
         layout = (ports.used.shape[0], spread.cnt0.shape[0], interpod.in_cnt0.shape[0],
                   interpod.ex_cnt0.shape[0])
 
-        tables = {
+        placed = {
             **nt,
             **ct,
-            "fit_weights": torch.tensor([cfg.cpu_weight, cfg.mem_weight],
-                                        dtype=torch.int64, device=dev),
-            # each solve keeps its own prepared kernel launches
-            "spr": {**ct["spr"], "launch": {}},
-            "ipa": {**ct["ipa"], "launch": {}},
-            "ipa_d_pad": interpod.d_pad,
+            "fit_weights": shards.replicate(
+                np.array([cfg.cpu_weight, cfg.mem_weight], np.int64)),
         }
-        nom_state = {}
         if use_nominated:
-            tables["nom_used"] = to_dev(nominated.used, dev, torch.int64)
-            tables["nom_cnt"] = to_dev(nominated.count, dev, torch.int32)
+            placed["nom_used"] = shards.split(nominated.used, torch.int64)
+            placed["nom_cnt"] = shards.split(nominated.count, torch.int32)
             h2d += nominated.used.nbytes + nominated.count.nbytes
-            # the placed-nominated correction carry starts empty each batch
-            nom_state["nom_corr_used"] = torch.zeros_like(tables["nom_used"])
-            nom_state["nom_corr_cnt"] = torch.zeros_like(tables["nom_cnt"])
             if use_nominated_ports:
-                tables["nom_ports"] = to_dev(nominated.port_takes, dev, torch.int32)
+                placed["nom_ports"] = shards.split(nominated.port_takes, torch.int32)
                 h2d += nominated.port_takes.nbytes
-                nom_state["nom_corr_ports"] = torch.zeros_like(tables["nom_ports"])
+        # one table view per shard; each solve keeps its own prepared
+        # kernel launches
+        tables, nom_state = [], []
+        for s_i in range(shards.size):
+            t = shard_view(placed, s_i)
+            t["spr"]["launch"] = {}
+            t["ipa"]["launch"] = {}
+            t.update(ipa_d_pad=interpod.d_pad, lo=s_i * w, shards=shards.size)
+            tables.append(t)
+            ns = {}
+            if use_nominated:
+                # the placed-nominated correction carry starts empty each batch
+                ns["nom_corr_used"] = torch.zeros_like(t["nom_used"])
+                ns["nom_corr_cnt"] = torch.zeros_like(t["nom_cnt"])
+                if use_nominated_ports:
+                    ns["nom_corr_ports"] = torch.zeros_like(t["nom_ports"])
+            nom_state.append(ns)
 
         host = _pod_inputs(pods, static, ports, spread, interpod, nominated,
                            nominated_slot, use_nominated)
@@ -760,7 +837,7 @@ class ExactSolver:
         else:
             group = 1
             self.dispatch_counts["scan"] += 1
-        xs = _PodRows(host, dev)
+        xs = _PodRows(host, shards)
 
         stream = (
             session and defer_read and not use_nominated
@@ -776,7 +853,7 @@ class ExactSolver:
         self._transferred("h2d", h2d)
 
         run = _Run(tables, nom_state, xs, valid, layout, kinds, vcnt, group, compact,
-                   cfg.tie_break, kw, dev)
+                   cfg.tie_break, kw, shards)
         want_chain = split > 1 and session and defer_read
         if (want_chain or stream) and not use_nominated:
             k_split = self._feasible_split(max(split, 1), pods.padded, grouped, group)
@@ -796,10 +873,10 @@ class ExactSolver:
             # this solve writes persist in place, and the stream carry shares
             # persist's tensors: the carry cannot survive it
             self._session.drop_stream_carry()
-        packed = run.packed(persist, to_dev(bstate, dev))
+        packed = run.packed(persist, shards.split(bstate))
         run(packed, 0, pods.padded, seed)
         if session:
-            persist["pod_count"] = packed["i32"][0]
+            persist["pod_count"] = tuple(p[0] for p in packed["i32"])
             self._transferred("d2h", pods.padded * 8)
             if defer_read:
                 handle = DeferredAssignments(run.assignments, pods.num_pods)
@@ -808,8 +885,12 @@ class ExactSolver:
             return run.assignments.cpu().numpy()[: pods.num_pods].astype(np.int32)
 
         # standalone: one device-to-host read, node state and assignments
+        # (the shards' columns joined on the lead device first)
+        lead = shards.lead
+        i64 = torch.cat([t.to(lead) for t in packed["i64"]], dim=1)
+        pod_count = torch.cat([t[0].to(lead) for t in packed["i32"]])
         flat = torch.cat(
-            [packed["i64"].reshape(-1), packed["i32"][0].to(torch.int64), run.assignments]
+            [i64.reshape(-1), pod_count.to(torch.int64), run.assignments]
         ).cpu().numpy()
         self._transferred("d2h", flat.nbytes)
         k = nodes.allocatable.shape[0]
@@ -850,7 +931,7 @@ class ExactSolver:
             self.dispatch_counts["stream_chained"] += 1
             carry = BatchCarriedUsage(chain_start)
         else:
-            carry = BatchCarriedUsage(run.packed(persist, to_dev(bstate, run.dev)))
+            carry = BatchCarriedUsage(run.packed(persist, run.mesh.split(bstate)))
         # the carry is consumed here, or the chain writes the tensors it shares
         self._session.drop_stream_carry()
         try:
@@ -867,7 +948,7 @@ class ExactSolver:
             # resident state is unusable, so the next solve uploads anew
             self.reset_session()
             raise
-        persist["pod_count"] = carry.state["i32"][0]
+        persist["pod_count"] = tuple(p[0] for p in carry.state["i32"])
         self._transferred("d2h", pods.padded * 8)
         if carry_out and chain_key is not None:
             self._session.stream_carry = carry.state
@@ -881,33 +962,41 @@ class ExactSolver:
 class _Run:
     """One solve's executable over its prepared inputs: ``packed`` builds
     the carried state, and a call runs the per-pod scan, or the grouped
-    path chunk by chunk, over the pods [lo, hi) into ``assignments``."""
+    path chunk by chunk, over the pods [lo, hi) into ``assignments``.
+    ``tables`` and ``nom_state`` hold one view per shard of ``mesh``; the
+    packed state is a dict of tuples of per-shard tensors, and each step
+    or chunk runs one generator per shard in lockstep
+    (``parallel/sharding.py``). The assignments live on the lead device."""
 
     def __init__(self, tables, nom_state, xs, valid, layout, kinds, vcnt, group, compact,
-                 tie_break, kw, dev):
+                 tie_break, kw, mesh):
         self.tables, self.nom_state, self.xs, self.valid = tables, nom_state, xs, valid
         self.layout, self.kinds, self.vcnt = layout, kinds, vcnt
-        self.group, self.compact, self.tie_break, self.kw, self.dev = (
-            group, compact, tie_break, kw, dev,
+        self.group, self.compact, self.tie_break, self.kw, self.mesh = (
+            group, compact, tie_break, kw, mesh,
         )
-        self.assignments = torch.full((valid.shape[0],), -1, dtype=torch.int64, device=dev)
+        self.dev = mesh.lead
+        self.assignments = torch.full((valid.shape[0],), -1, dtype=torch.int64,
+                                      device=self.dev)
 
     def packed(self, persist, bstate_dev) -> dict:
         """The carried state of a solve: the fit rows (the session's
-        resident tensor, or the standalone upload) and the batch's int32
-        rows behind the pod count."""
+        resident tensors, or the standalone upload) and the batch's int32
+        rows behind the pod count, per shard."""
         return {"i64": persist["i64"],
-                "i32": torch.cat([persist["pod_count"][None], bstate_dev])}
+                "i32": tuple(torch.cat([pc[None], b])
+                             for pc, b in zip(persist["pod_count"], bstate_dev))}
 
-    def state_views(self, packed) -> dict:
-        k = packed["i64"].shape[0] - 2
-        i32 = packed["i32"]
-        st = {"used": packed["i64"][:k], "nonzero_used": packed["i64"][k:], "pod_count": i32[0]}
+    def state_views(self, packed, s: int) -> dict:
+        i64 = packed["i64"][s]
+        k = i64.shape[0] - 2
+        i32 = packed["i32"][s]
+        st = {"used": i64[:k], "nonzero_used": i64[k:], "pod_count": i32[0]}
         off = 1
         for name, rows in zip(("port_used", "spr_cnt", "ipa_in", "ipa_ex"), self.layout):
             st[name] = i32[off : off + rows]
             off += rows
-        st.update(self.nom_state)
+        st.update(self.nom_state[s])
         return st
 
     def __call__(self, packed, lo: int, hi: int, seed: int) -> None:
@@ -915,14 +1004,18 @@ class _Run:
         if self.tie_break == TIE_RANDOM:
             generator = torch.Generator(device=self.dev)
             generator.manual_seed(seed)
-        st = self.state_views(packed)
-        step = _make_step(self.tables, tie_break=self.tie_break, generator=generator,
-                          **self.kw)
+        k = self.mesh.size
+        sts = [self.state_views(packed, s) for s in range(k)]
+        shard_packed = [{"i64": packed["i64"][s], "i32": packed["i32"][s]} for s in range(k)]
+        steps = [_make_step(self.tables[s], tie_break=self.tie_break, generator=generator,
+                            **self.kw) for s in range(k)]
         asg = self.assignments
         if self.kinds is None:
             for i in range(lo, hi):
                 if self.valid[i]:
-                    asg[i] = step(st, packed, self.xs.row(i))
+                    xr = self.xs.row(i)
+                    asg[i] = sh.lockstep(
+                        steps[s](sts[s], shard_packed[s], xr[s]) for s in range(k))[0]
             return
         group, kw = self.group, self.kw
         fast_kw = dict(
@@ -940,7 +1033,9 @@ class _Run:
                 for t in range(group):
                     if self.valid[base + t]:
                         r = c if self.compact else base + t
-                        asg[base + t] = step(st, packed, self.xs.row(r))
+                        xr = self.xs.row(r)
+                        asg[base + t] = sh.lockstep(
+                            steps[s](sts[s], shard_packed[s], xr[s]) for s in range(k))[0]
                 continue
             # ktpu: ignore[TPU001]: vcnt is the host numpy count of valid pods per chunk; no card value is read
             vc = int(self.vcnt[c])
@@ -948,9 +1043,13 @@ class _Run:
                 continue  # an all-padding chunk places nothing
             mode = {gp.KIND_PLAIN: None, gp.KIND_SPREAD: "spread", gp.KIND_ANTI: "anti"}[kind]
             r = c if self.compact else base
-            x = self.xs.row(r)
-            chunk_asg, m = gp.fast_chunk(mode, self.tables, st, x, self.xs.host_row(r), vc,
-                                         **fast_kw)
-            asg[base : base + group] = chunk_asg
-            packed["i64"] += x["take64"][:, None] * m.to(torch.int64)[None, :]
-            packed["i32"] += x["take32"][:, None] * m[None, :]
+            xr = self.xs.row(r)
+            h = self.xs.host_row(r)
+            out = sh.lockstep(
+                gp.fast_chunk(mode, self.tables[s], sts[s], xr[s], h, vc, **fast_kw)
+                for s in range(k))
+            asg[base : base + group] = out[0][0]
+            for s in range(k):
+                m = out[s][1]
+                shard_packed[s]["i64"] += xr[s]["take64"][:, None] * m.to(torch.int64)[None, :]
+                shard_packed[s]["i32"] += xr[s]["take32"][:, None] * m[None, :]

@@ -39,6 +39,18 @@ every iteration (``ops/domain_counts.py`` ``Aggregation``). The random
 mode's eligible-node count per domain is a plain ``index_add_``, and its
 per-domain maximum key a ``scatter_reduce`` "amax".
 
+On a mesh (``parallel/sharding.py``) ``fast_chunk`` is a generator per
+shard, run in lockstep: argmax and max combine as in the scan step, the
+domain counts add up across shards (one counts-only launch per shard per
+evaluation), and the random keys are one draw over the whole node axis on
+the lead device, sliced to the shards, so the stream is the unsharded one.
+Four steps need a global order or prefix over nodes; each gathers its
+[N] key vectors to the lead device in shard order and computes there (the
+named gathers, counted in PERF.md): the plain mode's ``argsort`` and the
+water-fill's ranking ``argsort``; ``_winner_accept``'s per-domain "amax"
+and its ``cumsum`` need no gather (a per-domain max and a prefix of the
+shard totals). The loop's exit test is one read of the lead's count.
+
 Two JAX constructs have no torch counterpart: ``.at[...].set(...,
 mode="drop")`` scatters into a buffer one slot longer whose last slot is
 never read, and ``lax.associative_scan(jnp.maximum)`` is ``torch.cummax``.
@@ -55,6 +67,7 @@ import torch
 from ..ops import domain_counts as dc
 from ..ops import noderesources as nr
 from ..ops import plugins as pl
+from ..parallel import sharding as sh
 from ..tensorize.schema import MEM_IDX
 
 INF_COUNT = 2**30
@@ -205,13 +218,15 @@ def chunk_kinds(pods, static, ports, spread, interpod, group: int,
 
 
 class _DomainModel:
-    """The domain bookkeeping of one spread or anti chunk: the constraint's
-    rows, resolved on the host from the chunk's class, and one prepared
-    ``domain_counts`` launch over a scratch row that each iteration
-    rewrites in place."""
+    """The domain bookkeeping of one spread or anti chunk on one shard: the
+    constraint's rows, resolved on the host from the chunk's class, and one
+    prepared ``domain_counts`` launch over a scratch row that each
+    iteration rewrites in place (counts-only on a mesh of more than one
+    shard, whose sums combine before the per-node gather)."""
 
     def __init__(self, mode: str, tables, st, x, h, group: int):
         self.mode = mode
+        self.sharded = tables["shards"] > 1
         cls = int(h["class_of"])
         if mode == "spread":
             spr = tables["spr"]
@@ -242,10 +257,14 @@ class _DomainModel:
             d_pad = tables["ipa_d_pad"]
             agg_dom, gather_dom = dom, None
         self.dd = torch.clamp(dom[0], min=0).to(torch.int64)
+        self.gather_dom = dom
         self.d_pad = d_pad
         self.group = group
         self.buf = torch.empty_like(dom)
-        self.agg = dc.Aggregation([(agg_dom, self.buf, gather_dom)], d_pad)
+        if self.sharded:
+            self.agg = dc.Aggregation([(agg_dom, self.buf, None)], d_pad, gather=False)
+        else:
+            self.agg = dc.Aggregation([(agg_dom, self.buf, gather_dom)], d_pad)
         if mode == "spread":
             # the water-fill's domain ranks: present domains in index order
             self.d_present = int(present_host.sum())
@@ -256,12 +275,16 @@ class _DomainModel:
     def eval(self, m, quota: bool = True):
         """(extra feasibility mask [N], quota per domain [d_pad], domain
         counts [d_pad]) with ``m`` more pods placed per node; without
-        ``quota`` (first mode) only the mask."""
+        ``quota`` (first mode) only the mask. A generator of the shard
+        protocol (the domain sum combines)."""
         if self.v == 1:
             torch.add(self.base, m, out=self.buf[0])
         else:
             torch.add(self.base, m, alpha=self.v, out=self.buf[0])
         ((counts, node_dc),) = self.agg()
+        if self.sharded:
+            counts = yield sh.c_sum, counts
+            node_dc = dc.gather_plain(counts, self.gather_dom)
         counts, node_dc = counts[0], node_dc[0]
         if self.mode == "spread":
             mn = torch.min(torch.where(self.present, counts, INF_COUNT))
@@ -275,6 +298,29 @@ class _DomainModel:
         return ok, (counts == 0).to(torch.int32), counts
 
 
+def _read_placed(parts):
+    """The random loop's exit test: one read of the lead's count, whatever
+    the shard count."""
+    global READS
+    v = int(parts[0])
+    READS += 1
+    return [v] * len(parts)
+
+
+def _global_order(group: int):
+    """The plain random mode's ``argsort`` over the whole node axis: a
+    named [N] gather of the shards' keys to the lead device; every shard
+    gets the first ``group`` global node ids."""
+
+    def fn(keys):
+        lead = keys[0].device
+        full = keys[0] if len(keys) == 1 else torch.cat([k.to(lead) for k in keys])
+        order = torch.argsort(full)[:group]
+        return [order if k.device == lead else order.to(k.device) for k in keys]
+
+    return fn
+
+
 def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
                generator, fit_scorer, fdtype, w_fit: int, w_balanced: int,
                w_taint: int, w_nodeaff: int, w_image: int, use_extra: bool):
@@ -282,11 +328,15 @@ def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
     ``x`` on the device, ``h`` on the host) and returns (assignments
     [group] int64, per-node placements ``m`` [N] int32). ``mode``: None
     (plain), "spread" or "anti". The caller adds ``m`` times the pod's
-    rows into the carried state."""
-    global READS
+    rows into the carried state. A generator of the shard protocol over
+    one shard's block (``tables["lo"]`` its first global column); the
+    lead shard's assignments are the chunk's."""
     alloc = tables["alloc"]
     alloc2 = alloc[: MEM_IDX + 1]
     n = alloc.shape[1]
+    lo = tables["lo"]
+    n_all = n * tables["shards"]
+    lead = lo == 0
     dev = alloc.device
     req, nz = x["req"], x["nonzero_req"]
     # ktpu: ignore[TPU001]: h is the pod's host row (_PodRows.host_row); no card value is read
@@ -353,45 +403,70 @@ def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
         # precondition of the kind): a constant cannot move the argmax
         if mode is None:
             if w_taint:
-                total = total + w_taint * pl.normalize_score(taint_row, mask_t, reverse=True)
+                total = total + w_taint * (
+                    yield from pl.normalize_score_g(taint_row, mask_t, reverse=True))
             if w_nodeaff:
-                total = total + w_nodeaff * pl.normalize_score(nodeaff_row, mask_t, reverse=False)
+                total = total + w_nodeaff * (
+                    yield from pl.normalize_score_g(nodeaff_row, mask_t, reverse=False))
         return torch.where(mask_t, total, -1), mask_t
 
     model = _DomainModel(mode, tables, st, x, h, group) if mode is not None else None
     # m_ext / asg_ext: one slot longer than their use, the slot that the
-    # JAX package's mode="drop" scatters leave out
+    # JAX package's mode="drop" scatters leave out (and that the shards
+    # that do not own a pick add to)
     m_ext = torch.zeros(n + 1, dtype=torch.int32, device=dev)
     m = m_ext[:n]
     asg_ext = torch.full((group + 1,), -1, dtype=torch.int64, device=dev)
     asg = asg_ext[:group]
 
+    def own(idx, ok):
+        """(local index, or the drop slot n, and whether this shard owns
+        the global index ``idx`` where ``ok``)."""
+        if tables["shards"] == 1:
+            return torch.where(ok, idx, n), ok
+        local = idx - lo
+        hit = ok & (local >= 0) & (local < n)
+        return torch.where(hit, local, n), hit
+
     if tie_break != "random":
         for t in range(vcnt):
-            extra_ok = model.eval(m, quota=False)[0] if model is not None else None
-            total, _ = scores_at(m, extra_ok, frontier_rows(m, 1)[0])
-            best, pick = torch.max(total, dim=0)
+            extra_ok = (yield from model.eval(m, quota=False))[0] if model is not None else None
+            total, _ = yield from scores_at(m, extra_ok, frontier_rows(m, 1)[0])
+            best, pick = yield sh.c_first_max, (*torch.max(total, dim=0), lo)
             feasible = best >= 0
-            m_ext.index_add_(0, pick.view(1), feasible.to(torch.int32).view(1))
-            asg[t] = torch.where(feasible, pick, -1)
+            idx, hit = own(pick, feasible)
+            m_ext.index_add_(0, idx.view(1), hit.to(torch.int32).view(1))
+            if lead:
+                asg[t] = torch.where(feasible, pick, -1)
         return asg, m
 
+    def draw(fn):
+        return sh.c_draw, (fn, lo, n, dev)
+
+    gdev = generator.device
     iota_n = torch.arange(n, dtype=torch.int64, device=dev)
     iota_g = torch.arange(group, dtype=torch.int64, device=dev)
     ones_g = torch.ones(group, dtype=torch.int32, device=dev)
     placed = torch.zeros((), dtype=torch.int64, device=dev)
     placed_h = 0
+
+    def scatter_takes(parts):
+        # every shard's taken nodes into the lead's assignments, in shard order
+        for idx, val in parts:
+            asg_ext.scatter_(0, idx.to(dev), val.to(dev))
+        return [None] * len(parts)
+
     while placed_h < vcnt:
         if model is not None:
-            extra_ok, quota_d, dc_now = model.eval(m)
+            extra_ok, quota_d, dc_now = yield from model.eval(m)
         else:
             extra_ok = quota_d = dc_now = None
         # anti mode never reads the next frontier row
         n_rows = 1 if mode == "anti" else 2
         fr = frontier_rows(m, n_rows)
         f_now, next_f = fr[0], fr[n_rows - 1]
-        total, mask_t = scores_at(m, extra_ok, f_now)
-        best = torch.max(total)
+        total, mask_t = yield from scores_at(m, extra_ok, f_now)
+        best = yield sh.c_max, torch.max(total)
         feasible = best >= 0
         tie = (total == best) & mask_t
         if mode is None:
@@ -403,27 +478,31 @@ def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
         remaining = vcnt - placed
 
         if mode is None:
-            r = torch.rand(n, generator=generator, dtype=torch.float64, device=dev)
-            pick = torch.argmin(torch.where(tie, r, 2.0))
-            order = torch.argsort(torch.where(eligible, r, 2.0))
-            q = torch.minimum(torch.sum(eligible.to(torch.int64)), remaining)
+            r = yield draw(lambda: torch.rand(n_all, generator=generator, dtype=torch.float64,
+                                              device=gdev))
+            keyed = torch.where(tie, r, 2.0)
+            _, pick = yield sh.c_first_min, (torch.min(keyed), torch.argmin(keyed), lo)
+            order = yield sh.c_apply, (_global_order(group), torch.where(eligible, r, 2.0))
+            q = torch.minimum((yield sh.c_sum, torch.sum(eligible.to(torch.int64))), remaining)
         else:
             charged, dd = model.charged, model.dd
             ec = eligible & charged
-            # unique per-node random keys
-            rb = torch.randint(0, 1 << 20, (n,), generator=generator, dtype=torch.int64,
-                               device=dev) * n + iota_n
-            accept, pos_iter = _winner_accept(model, m, cap, extra_ok, quota_d, f_now, best,
-                                              eligible, ec, rb)
+            # unique per-node random keys (one draw over the whole node axis)
+            rb = yield draw(lambda: torch.randint(
+                0, 1 << 20, (n_all,), generator=generator, dtype=torch.int64, device=gdev,
+            ) * n_all + torch.arange(n_all, dtype=torch.int64, device=gdev))
+            accept, pos_iter = yield from _winner_accept(model, m, cap, extra_ok, quota_d,
+                                                         f_now, best, eligible, ec, rb)
             if mode == "spread":
-                wf_acc, wf_pos, waterfill = _waterfill_accept(
-                    model, m, cap, extra_ok, dc_now, f_now, best, ec, remaining, iota_n,
-                    generator,
+                wf_acc, wf_pos, waterfill = yield from _waterfill_accept(
+                    model, m, cap, extra_ok, dc_now, f_now, best, ec, remaining, n_all,
+                    draw, generator,
                 )
                 accept = torch.where(waterfill, wf_acc, accept)
                 pos_iter = torch.where(waterfill, wf_pos, pos_iter)
-            q = torch.minimum(torch.sum(accept.to(torch.int64)), remaining)
-            pick = torch.argmax(torch.where(tie, rb, -1))
+            q = torch.minimum((yield sh.c_sum, torch.sum(accept.to(torch.int64))), remaining)
+            keyed = torch.where(tie, rb, -1)
+            _, pick = yield sh.c_first_max, (torch.max(keyed), torch.argmax(keyed), lo)
 
         multi = q > 0
         n_placed = torch.where(feasible, torch.where(multi, q, 1), 0)
@@ -434,51 +513,102 @@ def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
                 torch.where(iota_g < 1, pick, -1),
             )
             chosen = torch.where(feasible, chosen, -1)
-            asg_ext.scatter_(0, torch.where(chosen >= 0, placed + iota_g, group), chosen)
-            m_ext.index_add_(0, torch.where(chosen >= 0, chosen, n), ones_g)
+            if lead:
+                asg_ext.scatter_(0, torch.where(chosen >= 0, placed + iota_g, group), chosen)
+            idx, _ = own(chosen, chosen >= 0)
+            m_ext.index_add_(0, idx, ones_g)
         else:
             take = accept & (pos_iter < q) & multi & feasible
-            asg_ext.scatter_(0, torch.where(take, placed + pos_iter, group), iota_n)
+            yield sh.c_apply, (scatter_takes,
+                               (torch.where(take, placed + pos_iter, group), iota_n + lo))
             single = ~multi & feasible
-            asg_ext.scatter_(0, torch.where(single, placed, group).view(1), pick.view(1))
+            if lead:
+                asg_ext.scatter_(0, torch.where(single, placed, group).view(1), pick.view(1))
             m_ext[:n] += take.to(torch.int32)
-            m_ext.index_add_(0, pick.view(1), single.to(torch.int32).view(1))
+            idx, hit = own(pick, single)
+            m_ext.index_add_(0, idx.view(1), hit.to(torch.int32).view(1))
         placed = torch.where(feasible, placed + n_placed, vcnt)
-        # ktpu: ignore[TPU001]: the chunk loop's exit test, one card read per iteration, counted in READS; a card-side loop would remove it (ROADMAP speed levers)
-        placed_h = int(placed)  # the loop's exit test: one read per iteration
-        READS += 1
+        placed_h = yield _read_placed, placed  # the loop's exit test: one read per iteration
     return asg, m
 
 
 def _winner_accept(model, m, cap, extra_ok, quota_d, f_now, best, eligible, ec, rb):
     """Single-round selection: one winner per domain with quota (the
     highest random key among its eligible charged nodes), plus every
-    eligible uncharged node; positions in index order."""
+    eligible uncharged node; positions in index order. A generator of the
+    shard protocol: the per-domain maximum and the positions' prefix
+    combine across shards."""
     seg_key = torch.full((model.d_pad,), torch.iinfo(torch.int64).min,
                          dtype=torch.int64, device=rb.device)
     seg_key.scatter_reduce_(0, model.dd, torch.where(ec, rb, -1), "amax")
+    seg_key = yield sh.c_max, seg_key
     quota_eff = quota_d
     if model.mode == "spread" and model.skew_lim > 1:
         # re-entry gate for maxSkew > 1 (the minimum may rise mid-iteration)
-        blocked_high = torch.any((m < cap) & model.hk & ~extra_ok & (f_now >= best))
+        blocked_high = yield sh.c_any, torch.any(
+            (m < cap) & model.hk & ~extra_ok & (f_now >= best))
         quota_eff = torch.where(blocked_high, 0, quota_d)
     win = ec & (rb == seg_key[model.dd]) & (quota_eff[model.dd] >= 1)
     acc = win | (eligible & ~model.charged)
-    return acc, torch.cumsum(acc.to(torch.int64), dim=0) - 1
+    csum = torch.cumsum(acc.to(torch.int64), dim=0)
+    before, _ = yield sh.c_prefix, csum[-1]
+    return acc, csum - 1 + before
+
+
+def _waterfill_ranking(group: int):
+    """The water-fill's ranking of eligible nodes within their domain by a
+    random key: a named [N] gather of the shards' keys, eligibility and
+    domains to the lead device, where the stable ``argsort`` and the
+    segment starts run; every shard gets its columns of (accept, rank)."""
+
+    def fn(parts):
+        lead = parts[0][0].device
+
+        def cat(i):
+            if len(parts) == 1:
+                return parts[0][i]
+            return torch.cat([p[i].to(lead) for p in parts])
+
+        keyf, ec, dd = cat(0), cat(1), cat(2)
+        kk = parts[0][3]
+        iota = torch.arange(keyf.shape[0], dtype=torch.int64, device=lead)
+        si = torch.argsort(keyf, stable=True)
+        sd = dd[si]
+        elig_s = ec[si]
+        is_start = elig_s & ((iota == 0) | (sd != torch.roll(sd, 1)))
+        start_pos = torch.cummax(torch.where(is_start, iota, -1), dim=0).values
+        rank = iota - start_pos
+        accept = torch.zeros_like(ec).scatter_(0, si, elig_s & (rank < kk))
+        # the rank is clamped to `group` before the position product
+        # (accepted ranks are below it; solver/budget.py
+        # assert_index_headroom polices the clamped bound)
+        rank_n = torch.zeros_like(iota).scatter_(0, si, torch.clamp(rank, max=group))
+        if len(parts) == 1:
+            return [(accept, rank_n)]
+        out, lo = [], 0
+        for p in parts:
+            w = p[0].shape[0]
+            d = p[0].device
+            out.append((accept[lo : lo + w].to(d), rank_n[lo : lo + w].to(d)))
+            lo += w
+        return out
+
+    return fn
 
 
 def _waterfill_accept(model, m, cap, extra_ok, dc_now, f_now, best, ec, remaining,
-                      iota_n, generator):
+                      n_all, draw, generator):
     """The water-fill: when every present domain sits at one count and no
     skew-blocked node could out-score today's best, k full rounds place at
     once, interleaved round-robin across domains. Returns (accept, pos,
-    whether the water-fill applies)."""
+    whether the water-fill applies). A generator of the shard protocol."""
     present, dd, group = model.present, model.dd, model.group
     seg_elig = torch.zeros(model.d_pad, dtype=torch.int64, device=dd.device)
     seg_elig.index_add_(0, dd, ec.to(torch.int64))
+    seg_elig = yield sh.c_sum, seg_elig
     mx_dc = torch.max(torch.where(present, dc_now, -1))
     mn_dc = torch.min(torch.where(present, dc_now, INF_COUNT))
-    blocked_over = torch.any((m < cap) & model.hk & ~extra_ok & (f_now > best))
+    blocked_over = yield sh.c_any, torch.any((m < cap) & model.hk & ~extra_ok & (f_now > best))
     kk = torch.minimum(
         torch.min(torch.where(present, seg_elig, INF_COUNT)),
         torch.div(remaining, max(model.d_present, 1), rounding_mode="floor"),
@@ -486,18 +616,10 @@ def _waterfill_accept(model, m, cap, extra_ok, dc_now, f_now, best, ec, remainin
     waterfill = (mx_dc == mn_dc) & ~blocked_over & (kk >= 1)
 
     # rank eligible nodes within their domain by a random key
-    u = torch.rand(dd.shape[0], generator=generator, dtype=torch.float32, device=dd.device)
+    gdev = generator.device
+    u = yield draw(lambda: torch.rand(n_all, generator=generator, dtype=torch.float32,
+                                      device=gdev))
     keyf = torch.where(ec, dd.to(torch.float32) * 2.0 + u, float("inf"))
-    si = torch.argsort(keyf, stable=True)
-    sd = dd[si]
-    elig_s = ec[si]
-    is_start = elig_s & ((iota_n == 0) | (sd != torch.roll(sd, 1)))
-    start_pos = torch.cummax(torch.where(is_start, iota_n, -1), dim=0).values
-    rank = iota_n - start_pos
-    accept = torch.zeros_like(ec).scatter_(0, si, elig_s & (rank < kk))
-    # the rank is clamped to `group` before the position product (accepted
-    # ranks are below it; solver/budget.py assert_index_headroom polices
-    # the clamped bound)
-    rank_n = torch.zeros_like(iota_n).scatter_(0, si, torch.clamp(rank, max=group))
+    accept, rank_n = yield sh.c_apply, (_waterfill_ranking(group), (keyf, ec, dd, kk))
     pos = rank_n * model.d_present + model.d_rank[dd]
     return accept, pos, waterfill

@@ -47,7 +47,19 @@ agrees with the JAX package's within a tolerance, not bit for bit; the
 matmuls run in full float32 (nothing here enables TF32). The rounding's
 integer clamps, the ``searchsorted(right=True)`` and the int64 flat-cell
 lane are exact. The dual-ascent loop reads its residual test once per
-iteration. ``mesh`` raises: the port runs on one device.
+iteration.
+
+On a mesh (``parallel/sharding.py``) the [RC, N] and [K, N] tables, the
+duals and the node state are tuples of per-shard blocks; the softmax's
+maximum and the residual are cross-shard maxima, its denominator a
+cross-shard sum, and the rounding's per-class quota prefix along the node
+axis a per-shard cumsum plus the earlier shards' totals (exact). The
+denominator's float32 sum changes order with the shard count, so the
+sharded plan agrees with the unsharded one within the tolerance
+``tests/test_torch_relax.py`` states, not bit for bit (ROADMAP's parity
+rules). The pods -> quota slots map needs the flat [RC * N] quota prefix
+in class-major order: the quotas are gathered to the lead device for it
+(the one named gather over nodes here).
 """
 
 from __future__ import annotations
@@ -58,11 +70,14 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
+from ..parallel import sharding as sh
 from ..tensorize.plugins import StaticPluginTensors, trivial_static_tensors
 from ..tensorize.schema import NodeBatch, PodBatch
 from .single_shot import (
     SingleShotConfig,
+    _blocks,
     _cumsum0,
+    _join,
     _segment_sum,
     _segmented_prefix,
     _single_shot,
@@ -94,7 +109,7 @@ class RelaxConfig:
 
 
 def _relax(
-    alloc,  # [K, N] int
+    alloc,  # [K, N] int, or a tuple of per-shard [K, w] blocks
     used0,  # [K, N] int
     pod_count0,  # [N] int32
     max_pods,  # [N] int32
@@ -114,67 +129,91 @@ def _relax(
     reads: list | None = None,
 ):
     """Returns (assigned_to [P] int32, used, pod_count, placed_total, lam
-    [K, N], mu [N], iterations, residual) on the inputs' device.
-    ``reads``, when given, gets one entry per device read the dual-ascent
-    loop makes (its residual tests)."""
+    [K, N], mu [N], iterations, residual), the node-axis results joined on
+    the lead device. The six node-resident inputs are tensors on one
+    device or tuples of per-shard blocks (one mesh); the pod-axis inputs
+    lie on the lead device. ``reads``, when given, gets one entry per
+    device read the dual-ascent loop makes (its residual tests)."""
+    alloc_b, used0_b, pc0_b, maxp_b, valid_b, smask_b = (
+        _blocks(a) for a in (alloc, used0, pod_count0, max_pods, node_valid, static_mask))
+    nsh = len(alloc_b)
+    widths = [a.shape[1] for a in alloc_b]
+    sdevs = [a.device for a in alloc_b]
     p = rc_of.shape[0]
-    n = alloc.shape[1]
+    n = sum(widths)
     rc = rc_req.shape[0]
-    dev = alloc.device
+    dev = rc_of.device
     f32 = torch.float32
     rc_of_l = rc_of.long()
 
+    def rep(x):
+        return [x if d == x.device else x.to(d) for d in sdevs]
+
+    def cmax(parts):
+        return sh.c_max(parts)[0]
+
     mass = _segment_sum(pod_valid.to(f32), rc_of, rc)  # [RC] valid pods per class
+    mass_b = rep(mass)
+    rc_req_b = rep(rc_req)
+    req_f_b = rep(rc_req.to(f32))  # [RC, K]
+    rc_static_b = rep(rc_static.long())
 
     # capacities and the static feasibility mask, fixed across iterations
     # (the relaxation prices the SNAPSHOT, like one auction solve)
-    free_i = torch.clamp(alloc - used0, min=0)  # [K, N] int64
-    cnt_free_i = torch.clamp((max_pods - pod_count0).to(torch.int32), min=0)  # [N]
-    free_f = free_i.to(f32)
-    cnt_free_f = cnt_free_i.to(f32)
-    req_f = rc_req.to(f32)  # [RC, K]
+    free_i = [torch.clamp(a - u, min=0) for a, u in zip(alloc_b, used0_b)]  # [K, w] int64
+    cnt_free_i = [torch.clamp((mp - pc).to(torch.int32), min=0)
+                  for mp, pc in zip(maxp_b, pc0_b)]  # [w]
+    free_f = [f.to(f32) for f in free_i]
+    cnt_free_f = [c.to(f32) for c in cnt_free_i]
 
     # single-pod fit at snapshot free capacity + folded static masks: a
     # cell that cannot host even one pod of the class carries no mass
-    fit = torch.all(rc_req[:, :, None] <= free_i[None, :, :], dim=1)
-    ok = (
-        fit
-        & static_mask[rc_static.long()]
-        & node_valid[None, :]
-        & (cnt_free_i >= 1)[None, :]
-    )  # [RC, N]
-    feas_any = torch.any(ok, dim=1)  # [RC]
+    ok = [
+        torch.all(rr[:, :, None] <= fi[None, :, :], dim=1)
+        & sm[rs] & nv[None, :] & (cf >= 1)[None, :]
+        for rr, fi, sm, rs, nv, cf in zip(rc_req_b, free_i, smask_b, rc_static_b, valid_b,
+                                          cnt_free_i)
+    ]  # [RC, w]
+    feas_any = sh.c_any([torch.any(o, dim=1) for o in ok])  # [RC]
 
     # same integer base score as the auction, so objectives compare
-    score_f = headroom_score(alloc, used0, pack).to(f32)  # [N]
-    inv_free = 1.0 / torch.clamp(free_f, min=1.0)  # [K, N]
-    inv_cnt = 1.0 / torch.clamp(cnt_free_f, min=1.0)  # [N]
-    neg = torch.full((), NEG_F, dtype=f32, device=dev)
-    zero = torch.zeros((), dtype=f32, device=dev)
+    score_f = [headroom_score(a, u, pack).to(f32) for a, u in zip(alloc_b, used0_b)]
+    inv_free = [1.0 / torch.clamp(f, min=1.0) for f in free_f]  # [K, w]
+    inv_cnt = [1.0 / torch.clamp(c, min=1.0) for c in cnt_free_f]  # [w]
+    neg = [torch.full((), NEG_F, dtype=f32, device=d) for d in sdevs]
+    zero = [torch.zeros((), dtype=f32, device=d) for d in sdevs]
 
     def primal(lam, mu):
         """Closed-form entropic primal: x = mass * softmax over the
         penalized score. Penalty = the duals paired with the NORMALIZED
         constraint coefficients req/free — one matmul."""
-        pen = req_f @ (lam * inv_free)  # [RC, N]
-        logits = (score_f[None, :] - pen - (mu * inv_cnt)[None, :]) / temp
-        logits = torch.where(ok, logits, neg)
-        m = torch.amax(logits, dim=1, keepdim=True)
-        z = torch.where(ok, torch.exp(logits - m), zero)
-        denom = torch.clamp(torch.sum(z, dim=1, keepdim=True), min=1e-30)
-        x = mass[:, None] * z / denom
-        return torch.where(feas_any[:, None], x, zero)
+        logits = []
+        for s in range(nsh):
+            pen = req_f_b[s] @ (lam[s] * inv_free[s])  # [RC, w]
+            lg = (score_f[s][None, :] - pen - (mu[s] * inv_cnt[s])[None, :]) / temp
+            logits.append(torch.where(ok[s], lg, neg[s]))
+        m = sh.c_max([torch.amax(lg, dim=1, keepdim=True) for lg in logits])
+        z = [torch.where(ok[s], torch.exp(logits[s] - m[s]), zero[s]) for s in range(nsh)]
+        denom = sh.c_sum([torch.sum(zz, dim=1, keepdim=True) for zz in z])
+        return [torch.where(feas_any[s][:, None],
+                            mass_b[s][:, None] * z[s] / torch.clamp(denom[s], min=1e-30),
+                            zero[s]) for s in range(nsh)]
 
     def residual_of(x):
-        load = req_f.T @ x  # [K, N]
-        over_res = torch.amax(torch.where(node_valid[None, :], load * inv_free - 1.0, zero))
-        cnt_load = torch.sum(x, dim=0)
-        over_cnt = torch.amax(torch.where(node_valid, cnt_load * inv_cnt - 1.0, zero))
-        return torch.clamp(torch.maximum(over_res, over_cnt), min=0.0)
+        over = []
+        for s in range(nsh):
+            load = req_f_b[s].T @ x[s]  # [K, w]
+            over_res = torch.amax(torch.where(valid_b[s][None, :], load * inv_free[s] - 1.0,
+                                              zero[s]))
+            cnt_load = torch.sum(x[s], dim=0)
+            over_cnt = torch.amax(torch.where(valid_b[s], cnt_load * inv_cnt[s] - 1.0,
+                                              zero[s]))
+            over.append(torch.maximum(over_res, over_cnt))
+        return torch.clamp(cmax(over), min=0.0)
 
-    k = alloc.shape[0]
-    lam = torch.zeros((k, n), dtype=f32, device=dev)
-    mu = torch.zeros(n, dtype=f32, device=dev)
+    k = alloc_b[0].shape[0]
+    lam = [torch.zeros((k, w), dtype=f32, device=d) for w, d in zip(widths, sdevs)]
+    mu = [torch.zeros(w, dtype=f32, device=d) for w, d in zip(widths, sdevs)]
     res = torch.full((), float("inf"), dtype=f32, device=dev)
     iters = 0
     # dual ascent with the residual early exit: one read per iteration
@@ -182,13 +221,14 @@ def _relax(
     going = max_iters > 0
     while going:
         x = primal(lam, mu)
-        load = req_f.T @ x  # [K, N]
-        cnt_load = torch.sum(x, dim=0)  # [N]
-        # projected dual ascent on relative overcommit: prices rise where
-        # the fractional plan overbooks, decay toward 0 where it leaves
-        # slack — the converged lam/mu ARE the exported prices
-        lam = torch.clamp(lam + step * (load * inv_free - 1.0), min=0.0)
-        mu = torch.clamp(mu + step * (cnt_load * inv_cnt - 1.0), min=0.0)
+        for s in range(nsh):
+            load = req_f_b[s].T @ x[s]  # [K, w]
+            cnt_load = torch.sum(x[s], dim=0)  # [w]
+            # projected dual ascent on relative overcommit: prices rise
+            # where the fractional plan overbooks, decay toward 0 where it
+            # leaves slack — the converged lam/mu ARE the exported prices
+            lam[s] = torch.clamp(lam[s] + step * (load * inv_free[s] - 1.0), min=0.0)
+            mu[s] = torch.clamp(mu[s] + step * (cnt_load * inv_cnt[s] - 1.0), min=0.0)
         iters += 1
         res = residual_of(primal(lam, mu))
         going = iters < max_iters
@@ -202,33 +242,44 @@ def _relax(
     # deterministic rounding: fractional mass -> integer per-class quotas,
     # clamped against remaining integer capacity (a loop over the small RC
     # axis — the only sequential chain, length RC not P)
-    q_des = torch.floor(x + 0.5).to(torch.int32)  # [RC, N]
+    q_des = [torch.floor(xx + 0.5).to(torch.int32) for xx in x]  # [RC, w]
     mass_i = mass.to(torch.int32)
-    free_c, cnt_c = free_i, cnt_free_i
-    quota_rows = []
+    free_c, cnt_c = list(free_i), list(cnt_free_i)
+    quota_rows = [[] for _ in range(nsh)]
     for r in range(rc):
-        req_row = rc_req[r]  # [K]
         m_rc = mass_i[r].to(torch.int64)
-        safe_req = torch.clamp(req_row, min=1)
-        cap_k = torch.div(free_c, safe_req[:, None], rounding_mode="floor")  # [K, N]
-        cap_k = torch.where(req_row[:, None] > 0, cap_k,
-                            torch.full_like(cap_k, 1 << 31))
-        # per-node admissible count for this class, bounded by the pod axis
-        # (mass <= P < 2^31) so the narrowing below cannot wrap
-        cap = torch.minimum(torch.amin(cap_k, dim=0), cnt_c.to(torch.int64))
-        cap = torch.clamp(torch.clamp(cap, min=0), max=m_rc).to(torch.int32)
-        q = torch.where(ok[r], torch.minimum(q_des[r], cap), torch.zeros_like(cap))
-        # mass clamp: the cumulative quota along the node axis never exceeds
-        # the class's pod count. The prefix accumulates in int64 — N * quota
-        # passes 2^31 at mega shapes — then narrows (bounded by q).
-        q64 = q.to(torch.int64)
-        cq = torch.cumsum(q64, dim=0)
-        q = torch.minimum(torch.clamp(m_rc - (cq - q64), min=0), q64).to(torch.int32)
-        free_c = free_c - q.to(torch.int64)[None, :] * req_row[:, None]
-        cnt_c = cnt_c - q
-        quota_rows.append(q)
-    quotas = torch.stack(quota_rows) if quota_rows else torch.zeros(
-        (0, n), dtype=torch.int32, device=dev)  # [RC, N] int32
+        qs = []
+        for s in range(nsh):
+            req_row = rc_req_b[s][r]  # [K]
+            safe_req = torch.clamp(req_row, min=1)
+            cap_k = torch.div(free_c[s], safe_req[:, None], rounding_mode="floor")  # [K, w]
+            cap_k = torch.where(req_row[:, None] > 0, cap_k,
+                                torch.full_like(cap_k, 1 << 31))
+            # per-node admissible count for this class, bounded by the pod
+            # axis (mass <= P < 2^31) so the narrowing below cannot wrap
+            cap = torch.minimum(torch.amin(cap_k, dim=0), cnt_c[s].to(torch.int64))
+            cap = torch.clamp(torch.clamp(cap, min=0), max=m_rc.to(cap.device)).to(torch.int32)
+            qs.append(torch.where(ok[s][r], torch.minimum(q_des[s][r], cap),
+                                  torch.zeros_like(cap)))
+        # mass clamp: the cumulative quota along the node axis never
+        # exceeds the class's pod count. The prefix accumulates in int64 —
+        # N * quota passes 2^31 at mega shapes — then narrows (bounded by
+        # q); across shards it is each shard's cumsum plus the earlier
+        # shards' totals.
+        q64 = [q.to(torch.int64) for q in qs]
+        cq = [torch.cumsum(q, dim=0) for q in q64]
+        before = sh.c_prefix([c[-1] for c in cq])
+        for s in range(nsh):
+            cqs = cq[s] + before[s][0]
+            q = torch.minimum(torch.clamp(m_rc.to(cqs.device) - (cqs - q64[s]), min=0),
+                              q64[s]).to(torch.int32)
+            free_c[s] = free_c[s] - q.to(torch.int64)[None, :] * rc_req_b[s][r][:, None]
+            cnt_c[s] = cnt_c[s] - q
+            quota_rows[s].append(q)
+    # [RC, N] int32, joined on the lead device (the named gather)
+    quotas = _join([torch.stack(rows) if rows else torch.zeros(
+        (0, w), dtype=torch.int32, device=d) for rows, w, d in zip(quota_rows, widths, sdevs)],
+        dev)
 
     # pods -> quota slots by priority rank within their class
     inv_prio = ((1 << 31) - 1) - priority.to(torch.int64)
@@ -266,10 +317,13 @@ def _relax(
     req_of_pod = rc_req[rc_of_l]
     req_add = torch.where(placed[:, None], req_of_pod, torch.zeros_like(req_of_pod))
     park = torch.where(placed, assigned_to, torch.full_like(assigned_to, n))
-    used = used0 + _segment_sum(req_add, park, n + 1)[:n].T
-    pod_count = pod_count0 + _segment_sum(placed.to(torch.int32), park, n + 1)[:n]
+    used0_j = _join(used0_b, dev)
+    pc0_j = _join(pc0_b, dev)
+    used = used0_j + _segment_sum(req_add, park, n + 1)[:n].T
+    pod_count = pc0_j + _segment_sum(placed.to(torch.int32), park, n + 1)[:n]
     placed_total = placed.sum()
-    return assigned_to, used, pod_count, placed_total, lam, mu, iters, res
+    return (assigned_to, used, pod_count, placed_total, _join(lam, dev), _join(mu, dev),
+            iters, res)
 
 
 @dataclass
@@ -316,10 +370,10 @@ class RelaxSolver:
         static: StaticPluginTensors | None = None,
         mesh=None,
     ) -> np.ndarray:
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh is not ported (ROADMAP queue 1 item 11); the port runs on one device"
-            )
+        """``mesh``: a NodeMesh whose shards split the node axis (the solve
+        then runs on the mesh's devices); the plan agrees with the
+        unsharded one within the planner's float32 tolerance, and the
+        repair auction runs on the same shards."""
         if static is None:
             static = trivial_static_tensors(pods, nodes.padded, nodes.schedulable)
         from .budget import assert_index_headroom
@@ -328,7 +382,9 @@ class RelaxSolver:
         # index-dtype audit including the relaxation's own flat-cell lane
         # (rc * node_pad quota prefix) — typed failure before dispatch
         assert_index_headroom(pods.padded, nodes.padded, rc_pad=classes[0].shape[0])
-        args = solve_args(nodes, pods, static, classes, self.device)
+        if mesh is not None:
+            mesh.width(nodes.padded)
+        args = solve_args(nodes, pods, static, classes, self.device, mesh)
         cfg = self.config
         pod_valid = args[10]
         assigned, used, pod_count, placed, lam, mu, iters, res = _relax(
@@ -353,8 +409,10 @@ class RelaxSolver:
             # post-rounding occupancy: only the still-unassigned pods bid,
             # everything the rounding seated is fixed load
             rep = self.repair
+            used_b, pc_b = (used, pod_count) if mesh is None else (
+                mesh.split(used), mesh.split(pod_count))
             rep_assigned, used, pod_count, _, rounds = _single_shot(
-                args[0], used, pod_count, *args[3:10], tail,
+                args[0], used_b, pc_b, *args[3:10], tail,
                 max_rounds=rep.max_rounds,
                 price_step=rep.price_step,
                 top_t=rep.top_t,

@@ -10,9 +10,13 @@ one device, and ``_DeviceSession`` (:1409).
 Resident layout. ``nt`` holds the node tables ``alloc`` [K, N] int64,
 ``max_pods`` [N] int32 and ``node_valid`` [N] bool; ``persist`` holds the
 carried fit state ``i64`` [K + 2, N] int64 (``used`` rows, then
-``nonzero_used``) and ``pod_count`` [N] int32. The solver's scan writes
+``nonzero_used``) and ``pod_count`` [N] int32. Each entry is a tuple of
+per-shard tensors over the node axis (``parallel/sharding.py``; one
+entry when the solve is not sharded). The solver's scan writes
 ``persist["i64"]`` in place and leaves ``persist["pod_count"]`` a view of
-the batch's packed int32 state, whose row 0 it is. Torch has no donation:
+the batch's packed int32 state, whose row 0 it is. The session is keyed
+on the mesh's fingerprint: a mesh change is a full re-upload, and a heal
+writes each dirty column into its owning shard only. Torch has no donation:
 the JAX package hands these buffers through each call and gets new ones
 back, where the port updates them in place. The stream carry (the full
 packed state of the last streaming solve) shares both, so every path that
@@ -30,17 +34,12 @@ import torch
 
 from ..ops import interpod as ip
 from ..ops import spread as sp
+from ..parallel import sharding as sh
+from ..parallel.sharding import to_dev
 from ..tensorize.schema import NodeBatch
 
 # the class-table cache holds this many uploads, least recently used first out
 CLASS_CACHE_SIZE = 8
-
-
-def to_dev(a, dev, dtype=None) -> torch.Tensor:
-    """A device copy of a host array (never an alias of the numpy buffer)."""
-    # ktpu: ignore[TPU003]: the argument is a typed host numpy array, whose dtype torch.tensor keeps; no literal default applies
-    t = torch.tensor(np.ascontiguousarray(a), device=dev)
-    return t if dtype is None else t.to(dtype)
 
 
 class SessionDrainRequired(Exception):
@@ -113,18 +112,19 @@ class BatchCarriedUsage:
         self.state = state
 
 
-def _heal(nt, persist, cols_i64, cols_i32, cols_bool, idx) -> None:
-    """Write dirty snapshot columns into the resident node tables and
-    carried state in place (cache.go#UpdateSnapshot's O(changed) contract,
-    on the card). ``idx`` [D] int64 node slots; ``cols_i64`` rows are
-    alloc [K], used [K], nonzero_used [2]; ``cols_i32`` rows max_pods and
-    pod_count; ``cols_bool`` row valid."""
-    k = nt["alloc"].shape[0]
-    nt["alloc"].index_copy_(1, idx, cols_i64[:k])
-    nt["max_pods"].index_copy_(0, idx, cols_i32[0])
-    nt["node_valid"].index_copy_(0, idx, cols_bool[0])
-    persist["i64"].index_copy_(1, idx, cols_i64[k:])
-    persist["pod_count"].index_copy_(0, idx, cols_i32[1])
+def _heal(nt, persist, cols_i64, cols_i32, cols_bool, idx, s: int = 0) -> None:
+    """Write dirty snapshot columns into shard ``s`` of the resident node
+    tables and carried state in place (cache.go#UpdateSnapshot's
+    O(changed) contract, on the card). ``idx`` [D] int64 node slots local
+    to the shard; ``cols_i64`` rows are alloc [K], used [K], nonzero_used
+    [2]; ``cols_i32`` rows max_pods and pod_count; ``cols_bool`` row
+    valid."""
+    k = nt["alloc"][s].shape[0]
+    nt["alloc"][s].index_copy_(1, idx, cols_i64[:k])
+    nt["max_pods"][s].index_copy_(0, idx, cols_i32[0])
+    nt["node_valid"][s].index_copy_(0, idx, cols_bool[0])
+    persist["i64"][s].index_copy_(1, idx, cols_i64[k:])
+    persist["pod_count"][s].index_copy_(0, idx, cols_i32[1])
 
 
 def _pack_cols(arrs: list[np.ndarray]) -> np.ndarray:
@@ -160,23 +160,31 @@ def _class_table_digest(static, spread, interpod) -> bytes:
     return h.digest()
 
 
-def _place_class_tables(static, spread, interpod, dev) -> dict:
-    """The per-batch class tables on ``dev``: per-node rows as device
-    tensors, the small per-class and per-instance slot tables as host
-    numpy (the pod's class is a host int, so its slots resolve on the
-    host), and the pieces of the spread and interpod tables that no step
-    changes (``ops/spread.py`` and ``ops/interpod.py`` ``static_tables``)."""
+def _shard_class_tables(static, spread, interpod, mesh) -> dict:
+    """The per-batch class tables on ``mesh``: per-node rows as tuples of
+    per-shard tensors, the per-domain and per-term rows replicated, the
+    small per-class and per-instance slot tables as host numpy (the pod's
+    class is a host int, so its slots resolve on the host), and the pieces
+    of the spread and interpod tables that no step changes
+    (``ops/spread.py`` and ``ops/interpod.py`` ``static_tables``; the
+    domain presence is global, so it is built over all nodes and
+    replicated)."""
     spr_static = sp.static_tables(spread.dom, spread.elig, spread.d_pad)
-    in_dom = to_dev(interpod.in_dom, dev)
-    ex_dom = to_dev(interpod.ex_dom, dev)
+    in_dom = mesh.split(np.asarray(interpod.in_dom))
+    ex_dom = mesh.split(np.asarray(interpod.ex_dom))
+    ipa_static = [ip.static_tables(i, e) for i, e in zip(in_dom, ex_dom)]
     ct = {
-        "static_mask": to_dev(static.mask, dev),
-        "taint_cnt": to_dev(static.taint_cnt, dev),
-        "nodeaff_pref": to_dev(static.nodeaff_pref, dev),
-        "image_score": to_dev(static.image_score, dev),
+        "static_mask": mesh.split(static.mask),
+        "taint_cnt": mesh.split(static.taint_cnt),
+        "nodeaff_pref": mesh.split(static.nodeaff_pref),
+        "image_score": mesh.split(static.image_score),
         "spr": {
-            "dom": to_dev(spread.dom, dev),
-            **{k: to_dev(v, dev) for k, v in spr_static.items()},
+            "shards": mesh.size,
+            "dom": mesh.split(np.asarray(spread.dom)),
+            "hk": mesh.split(spr_static["hk"]),
+            "counted_dom": mesh.split(spr_static["counted_dom"]),
+            "present": mesh.replicate(spr_static["present"]),
+            "n_dom": mesh.replicate(spr_static["n_dom"]),
             "n_dom_host": spr_static["n_dom"],
             "present_host": spr_static["present"],
             "max_skew": np.asarray(spread.max_skew),
@@ -187,10 +195,12 @@ def _place_class_tables(static, spread, interpod, dev) -> dict:
             "soft": np.asarray(spread.soft),
         },
         "ipa": {
+            "shards": mesh.size,
             "in_dom": in_dom,
             "ex_dom": ex_dom,
-            **ip.static_tables(in_dom, ex_dom),
-            "ex_anti": to_dev(interpod.ex_anti, dev),
+            "in_hk": tuple(t["in_hk"] for t in ipa_static),
+            "ex_hk": tuple(t["ex_hk"] for t in ipa_static),
+            "ex_anti": mesh.replicate(np.asarray(interpod.ex_anti)),
             "in_pref_w": np.asarray(interpod.in_pref_w),
             "cls_req_aff": np.asarray(interpod.cls_req_aff),
             "cls_req_anti": np.asarray(interpod.cls_req_anti),
@@ -198,22 +208,44 @@ def _place_class_tables(static, spread, interpod, dev) -> dict:
         },
     }
     if static.extra_score is not None:
-        ct["extra_score"] = to_dev(static.extra_score, dev)
+        ct["extra_score"] = mesh.split(static.extra_score)
     return ct
 
 
-def _node_tables(nodes: NodeBatch, dev) -> tuple[dict, dict]:
-    """(node tables, carried fit state) of a full upload."""
+def _shard_node_tables(nodes: NodeBatch, mesh) -> tuple[dict, dict]:
+    """(node tables, carried fit state) of a full upload, sharded on
+    ``mesh``."""
     nt = {
-        "alloc": to_dev(nodes.allocatable, dev),
-        "max_pods": to_dev(nodes.max_pods, dev),
-        "node_valid": to_dev(nodes.valid, dev),
+        "alloc": mesh.split(nodes.allocatable),
+        "max_pods": mesh.split(nodes.max_pods),
+        "node_valid": mesh.split(nodes.valid),
     }
     persist = {
-        "i64": to_dev(np.concatenate([nodes.used, nodes.nonzero_used]), dev, torch.int64),
-        "pod_count": to_dev(np.asarray(nodes.pod_count, np.int32), dev),
+        "i64": mesh.split(np.concatenate([nodes.used, nodes.nonzero_used]), torch.int64),
+        "pod_count": mesh.split(np.asarray(nodes.pod_count, np.int32)),
     }
     return nt, persist
+
+
+def shard_view(tree, s: int):
+    """Shard ``s``'s view of a placed tree: every tuple of per-shard
+    tensors replaced by its ``s``-th entry, everything else kept."""
+    if isinstance(tree, dict):
+        return {k: shard_view(v, s) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tree[s]
+    return tree
+
+
+def _place_class_tables(static, spread, interpod, dev) -> dict:
+    """``_shard_class_tables`` unsharded, on ``dev``: plain tensors."""
+    return shard_view(_shard_class_tables(static, spread, interpod, sh.single(dev)), 0)
+
+
+def _node_tables(nodes: NodeBatch, dev) -> tuple[dict, dict]:
+    """``_shard_node_tables`` unsharded, on ``dev``: plain tensors."""
+    nt, persist = _shard_node_tables(nodes, sh.single(dev))
+    return shard_view(nt, 0), shard_view(persist, 0)
 
 
 def _node_bytes(nodes: NodeBatch) -> int:
@@ -236,6 +268,10 @@ class _DeviceSession:
         self.padded = -1
         self.k = -1
         self.dev: torch.device | None = None
+        # the mesh the residents are sharded on (one shard when unsharded)
+        # and its fingerprint: a mesh change is a full re-upload
+        self.mesh = None
+        self.mesh_key: tuple | None = None
         self.nt: dict | None = None
         self.persist: dict | None = None
         self.seen_versions: np.ndarray | None = None
@@ -253,29 +289,34 @@ class _DeviceSession:
         self.stream_versions = None
 
     def sync(self, nodes: NodeBatch, col_versions: np.ndarray, dev,
-             allow_heal: bool = True) -> int:
+             allow_heal: bool = True, mesh=None) -> int:
         """Bring the resident node tables and state up to date with the
         snapshot; returns the host-to-device bytes this sync uploaded.
+        ``mesh``: the NodeMesh to shard the residents on (None: one shard
+        on ``dev``).
 
         ``allow_heal=False`` (an earlier solve still unapplied): dirty
         columns are not healed and ``seen_versions`` does not advance, so
-        the next healing sync picks them up; a shape or device change
+        the next healing sync picks them up; a shape, device or mesh change
         raises SessionDrainRequired instead of uploading over the carried
         state."""
-        dev = torch.device(dev)
+        shards = mesh if mesh is not None else sh.single(dev)
+        key = sh.mesh_fingerprint(shards)
         if (
             self.padded != nodes.padded
             or self.k != nodes.allocatable.shape[0]
-            or self.dev != dev
+            or self.mesh_key != key
         ):
             if not allow_heal and self.padded != -1:
                 raise SessionDrainRequired()
+            shards.width(nodes.padded)  # the padding divides over the shards
             self.padded = nodes.padded
             self.k = nodes.allocatable.shape[0]
-            self.dev = dev
+            self.dev = shards.lead
+            self.mesh, self.mesh_key = shards, key
             # a full upload replaces the resident state wholesale
             self.drop_stream_carry()
-            self.nt, self.persist = _node_tables(nodes, dev)
+            self.nt, self.persist = _shard_node_tables(nodes, shards)
             self.seen_versions = col_versions[: nodes.padded].copy()
             return _node_bytes(nodes)
         dirty = np.nonzero(col_versions[: self.padded] > self.seen_versions)[0]
@@ -295,26 +336,35 @@ class _DeviceSession:
             # the heal writes persist in place, and the stream carry shares
             # persist's tensors: it cannot survive a heal
             self.drop_stream_carry()
-            _heal(self.nt, self.persist, to_dev(cols_i64, dev, torch.int64),
-                  to_dev(cols_i32, dev), to_dev(cols_bool, dev),
-                  to_dev(dirty, dev, torch.int64))
+            # each dirty column goes to its owning shard only
+            w = shards.width(self.padded)
+            owner = dirty // w
+            for s, sdev in enumerate(shards.devices):
+                sel = owner == s
+                if not sel.any():
+                    continue
+                _heal(self.nt, self.persist, to_dev(cols_i64[:, sel], sdev, torch.int64),
+                      to_dev(cols_i32[:, sel], sdev), to_dev(cols_bool[:, sel], sdev),
+                      to_dev(dirty[sel] - s * w, sdev, torch.int64), s)
             nbytes = cols_i64.nbytes + cols_i32.nbytes + cols_bool.nbytes + dirty.size * 8
         self.seen_versions = col_versions[: self.padded].copy()
         return nbytes
 
     def class_tables(self, static, spread, interpod, digest: bytes | None = None):
         """Content-addressed cache of the per-batch class tables on the
-        session's device. Returns (tables, bytes uploaded): 0 bytes on a
+        session's mesh. Returns (tables, bytes uploaded): 0 bytes on a
         hit. ``digest`` short-circuits the content hash with a
-        precomputed ``_class_table_digest``."""
+        precomputed ``_class_table_digest``. The key includes the mesh
+        fingerprint: the same content placed on another mesh is another
+        entry."""
         if digest is None:
             digest = _class_table_digest(static, spread, interpod)
-        key = (digest, str(self.dev))
+        key = (digest, self.mesh_key)
         ct = self.class_cache.pop(key, None)
         if ct is not None:
             self.class_cache[key] = ct  # re-insert: LRU refresh on a hit
             return ct, 0
-        ct = _place_class_tables(static, spread, interpod, self.dev)
+        ct = _shard_class_tables(static, spread, interpod, self.mesh)
         if len(self.class_cache) >= CLASS_CACHE_SIZE:
             self.class_cache.pop(next(iter(self.class_cache)))
         self.class_cache[key] = ct

@@ -48,8 +48,17 @@ stable descending sort (``lax.top_k`` breaks ties toward the lower index,
 ``jnp.argsort`` is), and the segment reductions are integer scatters. The
 JAX package's two ``while_loop``s exit on a device-side test; here each
 round's exit test is one read (``SingleShotSolver.last_reads``): a round
-past the exit would escalate prices and change the result. ``mesh``
-raises: the port runs on one device.
+past the exit would escalate prices and change the result.
+
+On a mesh (``parallel/sharding.py``) the node-resident inputs, the
+prices and the node state are tuples of per-shard blocks; the claimants
+(the pod axis) live on the lead device. The top-T sort over nodes is a
+stable top-T per shard and a stable merge of the k*T candidates by score,
+descending, in shard order -- (score descending, global index ascending),
+the global stable sort's first T. The admission reads each target's free
+capacity from its owning shard (the other shards add zero), and the
+commit's segment sums write into the owning shards. Integer throughout,
+so the sharded auction equals the unsharded one bit for bit.
 """
 
 from __future__ import annotations
@@ -134,8 +143,14 @@ def headroom_score(alloc, used0, pack: bool):
     return (100 - headroom).to(torch.int32) if pack else headroom
 
 
+def _blocks(x) -> tuple:
+    """A node-resident input as a tuple of per-shard blocks (a tensor is
+    one block)."""
+    return (x,) if isinstance(x, torch.Tensor) else tuple(x)
+
+
 def _single_shot(
-    alloc,  # [K, N] int
+    alloc,  # [K, N] int, or a tuple of per-shard [K, w] blocks
     used0,  # [K, N] int
     pod_count0,  # [N] int32
     max_pods,  # [N] int32
@@ -154,43 +169,96 @@ def _single_shot(
     pack: bool = False,
     reads: list | None = None,
 ):
-    """The auction on torch tensors of one device. Returns (assigned_to
-    [P] int32, used [K, N], pod_count [N] int32, placed_total, rounds).
-    ``reads``, when given, gets one entry per device read the loops make
-    (the exit tests)."""
+    """The auction on torch tensors. The six node-resident inputs are
+    tensors on one device or tuples of per-shard blocks over the node axis
+    (one mesh); the pod-axis inputs are on the lead device. Returns
+    (assigned_to [P] int32, used [K, N], pod_count [N] int32, placed_total,
+    rounds), the node state joined on the lead device. ``reads``, when
+    given, gets one entry per device read the loops make (the exit
+    tests)."""
+    alloc_b, used0_b, pc0_b, maxp_b, valid_b, smask_b = (
+        _blocks(a) for a in (alloc, used0, pod_count0, max_pods, node_valid, static_mask))
+    nsh = len(alloc_b)
+    widths = [a.shape[1] for a in alloc_b]
+    los = [sum(widths[:i]) for i in range(nsh)]
+    sdevs = [a.device for a in alloc_b]
     p = rc_of.shape[0]
-    n = alloc.shape[1]
-    k = alloc.shape[0]
+    n = sum(widths)
+    k = alloc_b[0].shape[0]
     t = min(top_t, n)
-    dev = alloc.device
+    dev = rc_of.device
 
-    base_score = headroom_score(alloc, used0, pack)
+    def rep(x):
+        """A pod-axis or class-axis tensor on every shard's device."""
+        return [x if d == x.device else x.to(d) for d in sdevs]
+
+    base_b = [headroom_score(a, u, pack) for a, u in zip(alloc_b, used0_b)]
     pod_idx = torch.arange(p, dtype=torch.int64, device=dev)
     rc_of_l = rc_of.long()
     req_of_pod = rc_req[rc_of_l]  # [P, K]
     inv_prio = ((1 << 31) - 1) - priority.to(torch.int64)
-    static_rows = static_mask[rc_static.long()]  # [RC, N]
+    rc_req_b = rep(rc_req)
+    rc_static_b = rep(rc_static.long())
+    static_rows_b = [sm[rs] for sm, rs in zip(smask_b, rc_static_b)]  # [RC, w]
     park = torch.full((p,), n, dtype=torch.int32, device=dev)
     true1 = torch.ones(1, dtype=torch.bool, device=dev)
+
+    def top_nodes_of(score_b, t_r: int):
+        """The top ``t_r`` (score, global node) per class: a stable
+        descending sort per shard, then the stable merge of the shards'
+        candidates in shard order -- the lower global index first among
+        equal scores, as lax.top_k gives it."""
+        cand_s, cand_n = [], []
+        for sc, lo in zip(score_b, los):
+            ts, tn = torch.sort(sc, dim=1, descending=True, stable=True)
+            tk = min(t_r, sc.shape[1])
+            cand_s.append(ts[:, :tk].to(dev))
+            cand_n.append((tn[:, :tk] + lo).to(dev))
+        cs, cn = torch.cat(cand_s, dim=1), torch.cat(cand_n, dim=1)
+        ms, order = torch.sort(cs, dim=1, descending=True, stable=True)
+        return ms[:, :t_r], torch.gather(cn, 1, order[:, :t_r])
+
+    def at_targets(vals_b, t_sorted_l):
+        """``vals[..., t]`` for global targets ``t`` (the park slot n reads
+        0): each shard reads the targets it owns, the others add zero."""
+        out = None
+        for v, lo, w in zip(vals_b, los, widths):
+            tl = t_sorted_l.to(v.device) - lo
+            ownd = (tl >= 0) & (tl < w)
+            got = torch.where(ownd, v[..., torch.clamp(tl, 0, w - 1)], 0).to(dev)
+            out = got if out is None else out + got
+        return out
+
+    def seg_into_shards(vals, tgt):
+        """``segment_sum(vals, tgt)`` over the node axis, each shard's
+        block from the targets it owns (the rest go to its park slot)."""
+        out = []
+        for lo, w, d in zip(los, widths, sdevs):
+            tl = tgt.to(d).long() - lo
+            tl = torch.where((tl >= 0) & (tl < w), tl, w)
+            out.append(_segment_sum(vals.to(d), tl, w + 1)[:w])
+        return out
 
     def round_step(carry, t_r: int):
         """One auction round bidding over each class's top ``t_r``
         feasible nodes. The main loop uses t_r = top_t; the repair phase
         t_r = n (every node biddable)."""
-        used, pod_count, price, assigned_to = carry
+        used_b, pc_b, price_b, assigned_to = carry
         unassigned = (assigned_to < 0) & pod_valid
 
         # 1. class-level feasibility on REMAINING capacity: [RC, N]
-        free = alloc - used
-        fit = torch.all(rc_req[:, :, None] <= free[None, :, :], dim=1)
-        ok = fit & static_rows & node_valid[None, :] & (pod_count + 1 <= max_pods)[None, :]
-        score = torch.where(ok, (base_score - price)[None, :],
-                            torch.full_like(price, NEG)[None, :])
+        free_b = [a - u for a, u in zip(alloc_b, used_b)]
+        score_b = []
+        for s in range(nsh):
+            fit = torch.all(rc_req_b[s][:, :, None] <= free_b[s][None, :, :], dim=1)
+            ok = (fit & static_rows_b[s] & valid_b[s][None, :]
+                  & (pc_b[s] + 1 <= maxp_b[s])[None, :])
+            score_b.append(torch.where(ok, (base_b[s] - price_b[s])[None, :],
+                                       torch.full_like(price_b[s], NEG)[None, :]))
 
         # 2. top-T nodes per class: a stable descending sort keeps equal
         # scores in node order, the lower index first, as lax.top_k does
-        top_scores, top_nodes = torch.sort(score, dim=1, descending=True, stable=True)
-        top_scores, top_nodes = top_scores[:, :t_r], top_nodes[:, :t_r]
+        top_scores, top_nodes = top_nodes_of(score_b, t_r)
         top_ok = top_scores > NEG
         n_ok = top_ok.sum(dim=1, dtype=torch.int32)  # [RC]
 
@@ -229,11 +297,11 @@ def _single_shot(
         prefix = _segmented_prefix(req_sorted, seg_start, seg_id, p)
         cnt_prefix = _segmented_prefix(bidding_sorted.to(torch.int32), seg_start, seg_id, p)
 
-        free_t = torch.cat([free, torch.zeros((k, 1), dtype=free.dtype, device=dev)], dim=1)
-        cnt_free = torch.cat([(max_pods - pod_count).to(torch.int32),
-                              torch.zeros(1, dtype=torch.int32, device=dev)])
-        fits_res = torch.all(prefix <= free_t[:, t_sorted_l].T, dim=1)
-        fits_cnt = cnt_prefix <= cnt_free[t_sorted_l]
+        free_at = at_targets(free_b, t_sorted_l).T
+        cnt_at = at_targets([(mp - pc).to(torch.int32) for mp, pc in zip(maxp_b, pc_b)],
+                            t_sorted_l)
+        fits_res = torch.all(prefix <= free_at, dim=1)
+        fits_cnt = cnt_prefix <= cnt_at
         admit_sorted = bidding_sorted & fits_res & fits_cnt
         admit = torch.empty(p, dtype=torch.bool, device=dev)
         admit[order] = admit_sorted
@@ -241,17 +309,14 @@ def _single_shot(
         # 4. commit + price escalation on rejection
         assigned_to = torch.where(admit, target, assigned_to)
         tgt_or_park = torch.where(admit, target, park)
-        used = used + _segment_sum(
-            torch.where(admit[:, None], req_of_pod, torch.zeros_like(req_of_pod)),
-            tgt_or_park, n + 1,
-        )[:n].T
-        pod_count = pod_count + _segment_sum(admit.to(torch.int32), tgt_or_park, n + 1)[:n]
         rejected = bidding & ~admit
-        rej_per_node = _segment_sum(
-            rejected.to(torch.int32), torch.where(rejected, target, park), n + 1
-        )[:n]
-        price = price + torch.where(rej_per_node > 0, price_step, 0).to(torch.int32)
-        return (used, pod_count, price, assigned_to), admit.sum(), rejected.sum()
+        add_req = torch.where(admit[:, None], req_of_pod, torch.zeros_like(req_of_pod))
+        used_b = [u + d.T for u, d in zip(used_b, seg_into_shards(add_req, tgt_or_park))]
+        pc_b = [c + d for c, d in zip(pc_b, seg_into_shards(admit.to(torch.int32), tgt_or_park))]
+        rej_b = seg_into_shards(rejected.to(torch.int32), torch.where(rejected, target, park))
+        price_b = [pr + torch.where(r > 0, price_step, 0).to(torch.int32)
+                   for pr, r in zip(price_b, rej_b)]
+        return (used_b, pc_b, price_b, assigned_to), admit.sum(), rejected.sum()
 
     def remaining_of(assigned_to):
         return torch.any((assigned_to < 0) & pod_valid)
@@ -263,9 +328,9 @@ def _single_shot(
         return x.tolist()
 
     carry = (
-        used0,
-        pod_count0,
-        torch.zeros(n, dtype=torch.int32, device=dev),
+        list(used0_b),
+        list(pc0_b),
+        [torch.zeros(w, dtype=torch.int32, device=d) for w, d in zip(widths, sdevs)],
         torch.full((p,), -1, dtype=torch.int32, device=dev),
     )
     # the main loop exits early: placed == 0 means no further progress at
@@ -298,9 +363,16 @@ def _single_shot(
                 break
         rounds += rep
 
-    used, pod_count, _, assigned_to = carry
+    used_b, pc_b, _, assigned_to = carry
     placed_total = (assigned_to >= 0).sum()
-    return assigned_to, used, pod_count, placed_total, rounds
+    return (assigned_to, _join(used_b, dev), _join(pc_b, dev), placed_total, rounds)
+
+
+def _join(blocks, dev) -> torch.Tensor:
+    """Per-shard blocks joined over the node axis on ``dev``."""
+    if len(blocks) == 1:
+        return blocks[0]
+    return torch.cat([b.to(dev) for b in blocks], dim=-1)
 
 
 def request_classes(
@@ -317,9 +389,12 @@ def request_classes(
     return rc_req, rc_static, inverse.reshape(-1).astype(np.int32)
 
 
-def solve_args(nodes: NodeBatch, pods: PodBatch, static: StaticPluginTensors, classes, dev):
+def solve_args(nodes: NodeBatch, pods: PodBatch, static: StaticPluginTensors, classes, dev,
+               mesh=None):
     """The auction's (and the relax planner's) 11 positional inputs as
-    tensors on ``dev``; ``classes`` is ``request_classes(pods, static)``."""
+    tensors on ``dev``; ``classes`` is ``request_classes(pods, static)``.
+    With ``mesh`` the six node-resident inputs are tuples of per-shard
+    blocks and the rest lie on the mesh's lead device."""
     rc_req, rc_static, rc_of = classes
     host = [
         nodes.allocatable,
@@ -334,6 +409,9 @@ def solve_args(nodes: NodeBatch, pods: PodBatch, static: StaticPluginTensors, cl
         pods.priority,
         pods.valid & pods.feasible_static,
     ]
+    if mesh is not None:
+        return [mesh.split(np.asarray(a)) for a in host[:6]] + [
+            mesh.replicate(a)[0] for a in host[6:]]
     # ktpu: ignore[TPU003]: each argument is a typed host numpy array, whose dtype torch.tensor keeps; no literal default applies
     return [torch.tensor(np.ascontiguousarray(a), device=dev) for a in host]
 
@@ -360,11 +438,10 @@ class SingleShotSolver:
     ) -> np.ndarray:
         """Returns assignments [num_pods] (-1 = unplaced) and replaces
         ``nodes.used`` / ``nodes.pod_count`` with new arrays holding the
-        placements (the caller's arrays are not written)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh is not ported (ROADMAP queue 1 item 11); the port runs on one device"
-            )
+        placements (the caller's arrays are not written). ``mesh``: a
+        NodeMesh whose shards split the node axis (the solve then runs on
+        the mesh's devices); the result equals the unsharded one bit for
+        bit."""
         if static is None:
             static = trivial_static_tensors(pods, nodes.padded, nodes.schedulable)
         # index-dtype audit (solver/budget.py): the admission sort key
@@ -373,7 +450,10 @@ class SingleShotSolver:
         from .budget import assert_index_headroom
 
         assert_index_headroom(pods.padded, nodes.padded)
-        args = solve_args(nodes, pods, static, request_classes(pods, static), self.device)
+        if mesh is not None:
+            mesh.width(nodes.padded)
+        args = solve_args(nodes, pods, static, request_classes(pods, static), self.device,
+                          mesh)
         cfg = self.config
         reads: list = []
         assigned, used, pod_count, _, rounds = _single_shot(

@@ -1505,10 +1505,10 @@ def test_device_scope_reaches_the_solve_pipeline(head):
         ("solver/exact.py", "_make_step.step"),
         ("solver/exact.py", "_mask_and_score"),
         ("solver/grouped.py", "fast_chunk"),
-        ("ops/interpod.py", "filter_and_score"),
-        ("ops/interpod.py", "node_totals"),
+        ("ops/interpod.py", "filter_and_score_g"),
+        ("ops/interpod.py", "node_totals_g"),
         ("ops/noderesources.py", "fit_mask"),
-        ("ops/spread.py", "hard_violations"),
+        ("ops/spread.py", "hard_violations_g"),
         ("ops/domain_counts.py", "Aggregation.__call__"),
         ("solver/evaluate.py", "_interpod"),
     ]:
@@ -1516,7 +1516,9 @@ def test_device_scope_reaches_the_solve_pipeline(head):
 
 
 # the JAX package's seven jax.jit roots and seventeen hot roots, each
-# with the port's counterpart, or None where the port has no copy
+# with the port's counterpart, or None where the port has no copy (the
+# per-step ops' counterparts are their shard-protocol generators, which
+# the solve runs; the plain-named functions drive them on one shard)
 JIT_ROOTS = {
     ("ops/pallas_kernels.py", "domain_counts_pallas"): ("ops/domain_counts.py", "domain_counts"),
     ("solver/evaluate.py", "_eval_jit"): ("solver/evaluate.py", "BatchEvaluator.evaluate_tensors"),
@@ -1528,9 +1530,9 @@ JIT_ROOTS = {
 }
 HOT_ROOTS = {
     ("ops/fastmath.py", "floor_div_exact"): None,  # the port divides exactly
-    ("ops/interpod.py", "domain_counts"): ("ops/interpod.py", "node_totals"),
-    ("ops/interpod.py", "filter_and_score"): ("ops/interpod.py", "filter_and_score"),
-    ("ops/interpod.py", "normalize"): ("ops/interpod.py", "normalize"),
+    ("ops/interpod.py", "domain_counts"): ("ops/interpod.py", "node_totals_g"),
+    ("ops/interpod.py", "filter_and_score"): ("ops/interpod.py", "filter_and_score_g"),
+    ("ops/interpod.py", "normalize"): ("ops/interpod.py", "normalize_g"),
     ("ops/noderesources.py", "balanced_allocation_score"):
         ("ops/noderesources.py", "balanced_allocation_score"),
     ("ops/noderesources.py", "fit_mask"): ("ops/noderesources.py", "fit_mask"),
@@ -1539,8 +1541,8 @@ HOT_ROOTS = {
     ("ops/noderesources.py", "most_allocated_score"):
         ("ops/noderesources.py", "most_allocated_score"),
     ("ops/noderesources.py", "rtc_score"): ("ops/noderesources.py", "rtc_score"),
-    ("ops/spread.py", "hard_violations"): ("ops/spread.py", "hard_violations"),
-    ("ops/spread.py", "soft_scores"): ("ops/spread.py", "soft_scores"),
+    ("ops/spread.py", "hard_violations"): ("ops/spread.py", "hard_violations_g"),
+    ("ops/spread.py", "soft_scores"): ("ops/spread.py", "soft_scores_g"),
     ("scheduler.py", "Scheduler._apply_flight"): ("scheduler.py", "Scheduler._apply_flight"),
     ("scheduler.py", "Scheduler._completion_loop"): ("scheduler.py", "Scheduler._completion_loop"),
     ("scheduler.py", "_InFlightSolve.assignments"): ("scheduler.py", "_InFlightSolve.assignments"),

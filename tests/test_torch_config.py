@@ -128,8 +128,19 @@ def test_reference_style_yaml_parses():
     assert cfg.tpu_solver.mesh_devices == 4
     sc, _ = bridged(REFERENCE_STYLE_YAML)
     assert sc.mesh_devices == 4
-    with pytest.raises(NotImplementedError, match="item 11"):  # one card
-        Scheduler(convert.cluster_state(ClusterState()), sc, device="cpu")
+    # meshDevices 4 with one visible device resolves as the JAX package
+    # resolves it: min(4, 1) = 1 device, the unsharded path
+    sched = Scheduler(convert.cluster_state(ClusterState()), sc, device="cpu")
+    assert sched.mesh is None
+    # with 4 entries of the CPU visible, the Scheduler shards 4 ways
+    from kubernetes_tpu_torch.parallel import sharding
+
+    sharding.force_device_count(4, "cpu")
+    try:
+        sched = Scheduler(convert.cluster_state(ClusterState()), sc, device="cpu")
+    finally:
+        sharding.force_device_count(None)
+    assert sched.mesh.size == 4 and sched.snapshot.pad_multiple == 4
 
 
 def test_duplicate_profile_rejected():
@@ -517,9 +528,10 @@ def test_fleet_section_round_trip():
     assert sc.fleet.replica == "r2" and sc.fleet.max_row_age_s == 15.0
     assert sc.fleet.hub_address == "hub.scheduling.svc:9411"
     assert sc.fleet.replicas == ("r0", "r1", "r2", "r3") and sc.fleet.exchange is None
-    # an exclusive mesh slice is multi-device work: refused at
-    # construction (item 11), before anything dials the hub
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # a 2/4 slice of one visible device is the JAX package's ValueError
+    # (no disjoint per-replica share), raised at construction before
+    # anything dials the hub
+    with pytest.raises(ValueError, match="needs at least 4 visible devices"):
         Scheduler(convert.cluster_state(ClusterState()), sc, device="cpu")
     sc2, cfg2 = bridged("fleet:\n  replica: null\n  meshSlice: null\n  hubAddress: null\n")
     assert cfg2.fleet.replica == "" and cfg2.fleet.mesh_slice is None

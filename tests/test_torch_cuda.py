@@ -1233,3 +1233,97 @@ def test_build_cache_cold_warm_prebuilt_on_the_card(cuda_device, tmp_path):
     blocker.write_text("")
     got = _cache_child("unwritable", blocker / "cache")
     assert str(blocker / "cache") in got["error"] and got["builds"] == 0
+
+
+# -- the node-axis mesh: k shards on cuda:0 ---------------------------------
+
+
+def _card_mesh(k):
+    from kubernetes_tpu_torch.parallel.sharding import NodeMesh
+
+    return NodeMesh(("cuda:0",) * k)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_sharded_counts_only_launch_per_shard(cuda_device, k):
+    """A sharded aggregation: one counts-only launch per shard over its
+    node block, each exact against plain, and the shards' sums equal the
+    unsharded kernel's counts."""
+    dom, cnt = _inputs(k, 16, 5120, 8192, cuda_device)
+    w = 5120 // k
+    before = dc.LAUNCHES
+    parts = [dc.aggregate([(dom[:, s * w:(s + 1) * w].contiguous(),
+                            cnt[:, s * w:(s + 1) * w].contiguous(), None)], 8192,
+                          gather=False)[0][0] for s in range(k)]
+    torch.cuda.synchronize()
+    assert dc.LAUNCHES == before + k
+    for s, p in enumerate(parts):
+        assert_exact(p, dc.domain_counts_plain(dom[:, s * w:(s + 1) * w],
+                                               cnt[:, s * w:(s + 1) * w], 8192),
+                     f"seed {k}, shard {s} of {k}")
+    assert_exact(sum(parts[1:], parts[0]), dc.domain_counts(dom, cnt, 8192),
+                 f"seed {k}, the sum over {k} shards")
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("tie", ["first", "random"])
+def test_sharded_solve_equals_unsharded_on_the_card(cuda_device, k, tie):
+    """The scan (spread, interpod, hostPorts) and the grouped kinds on k
+    shards of the card equal the unsharded card solve bit for bit, in both
+    tie-break modes, and launch k counts-only kernels per aggregation."""
+    nodes, pods = _cluster(256, 96)
+    cfg = ExactSolverConfig(tie_break=tie, group_size=1)
+    flat = _tensorize(nodes, pods)
+    before = dc.LAUNCHES
+    want = ExactSolver(cfg).solve(*flat, device=cuda_device)
+    flat_launches = dc.LAUNCHES - before
+    sharded = _tensorize(nodes, pods)
+    before = dc.LAUNCHES
+    got = ExactSolver(cfg).solve(*sharded, mesh=_card_mesh(k))
+    assert dc.LAUNCHES - before == k * flat_launches
+    np.testing.assert_array_equal(got, want)
+    for key in ("used", "nonzero_used", "pod_count"):
+        np.testing.assert_array_equal(getattr(sharded[0], key), getattr(flat[0], key))
+    for kind in ("spread", "anti", "plain"):
+        kp = [MakePod().name(f"{kind}{i}").label("app", kind).req({"cpu": "250m"})
+              for i in range(128)]
+        if kind == "spread":
+            kp = [b.spread_constraint(1, ZONE, "DoNotSchedule", {"app": kind}) for b in kp]
+        elif kind == "anti":
+            kp = [b.pod_anti_affinity(HOST, {"app": kind}) for b in kp]
+        kp = [b.obj() for b in kp]
+        gcfg = ExactSolverConfig(tie_break=tie, group_size=64)
+        want = ExactSolver(gcfg).solve(*_tensorize(nodes, kp), device=cuda_device)
+        got = ExactSolver(gcfg).solve(*_tensorize(nodes, kp), mesh=_card_mesh(k))
+        np.testing.assert_array_equal(got, want, err_msg=kind)
+
+
+def test_sharded_scheduler_on_the_card(cuda_device):
+    """The Scheduler with 4 shards of the card (mesh_devices 4 over four
+    visible entries of cuda:0) binds the mixed cluster as the unsharded
+    Scheduler does, every batch at the mesh rung."""
+    from kubernetes_tpu_torch.parallel import sharding
+    from kubernetes_tpu_torch.scheduler import Scheduler, SchedulerConfig
+    from kubernetes_tpu_torch.state.cluster import ClusterState
+
+    def drive(k):
+        nodes, pods = _cluster(120, 160)
+        cs = ClusterState()
+        cs.create_nodes(nodes)
+        cs.create_pods(pods)
+        saved = sharding.forced_device_count()
+        sharding.force_device_count(k, cuda_device)
+        try:
+            s = Scheduler(cs, SchedulerConfig(
+                batch_size=64, mesh_devices=k,
+                solver=ExactSolverConfig(tie_break="first")), device=cuda_device)
+        finally:
+            sharding.force_device_count(*saved)
+        assert (s.mesh.size if s.mesh else 1) == k
+        s.run_until_settled()
+        return {p.key: p.node_name for p in cs.list_pods()}, s
+
+    want, _ = drive(1)
+    got, s = drive(4)
+    assert got == want and s.resilience.ladder[0] == "mesh"
+    assert set(s._tier_last.values()) == {"mesh"}

@@ -6,6 +6,7 @@ race the CAS exists to decide."""
 import multiprocessing
 
 import pytest
+import torch
 
 from kubernetes_tpu_torch.fleet import (
     AdmitConflict,
@@ -591,15 +592,19 @@ def test_fleet_sim_grpc_hub_clean_and_deterministic():
     assert sum(wired.summary["binds_by_replica"].values()) > 0
 
 
-# -- per-replica mesh slices: not ported (ROADMAP item 11) -----------------
+# -- per-replica mesh slices ------------------------------------------------
 
 
 def test_fleet_replica_with_a_mesh_slice_raises_naming_item_11():
-    """A fleet replica runs on the one card; an exclusive mesh slice is
-    multi-device work (ROADMAP queue 1 item 11), refused at construction
-    instead of ignored — also when it comes with a fleet config."""
+    """A fleet replica's exclusive mesh slice resolves with the JAX
+    package's arithmetic: a 0/2 slice of one visible device raises its
+    ValueError at construction (no disjoint share for each replica), and
+    with two visible devices the replica gets a 1-way mesh pinned to the
+    first and schedules on it."""
+    from kubernetes_tpu_torch.parallel import sharding
+
     cluster = ClusterState()
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="needs at least 2 visible devices"):
         Scheduler(
             cluster,
             SchedulerConfig(
@@ -611,3 +616,25 @@ def test_fleet_replica_with_a_mesh_slice_raises_naming_item_11():
             ),
             device="cpu",
         )
+    sharding.force_device_count(2, "cpu")
+    try:
+        sched = Scheduler(
+            cluster,
+            SchedulerConfig(
+                fleet=FleetConfig(
+                    replica="r0", replicas=("r0",), exchange=OccupancyExchange(),
+                ),
+                mesh_slice=(0, 2),
+            ),
+            device="cpu",
+        )
+    finally:
+        sharding.force_device_count(None)
+    assert sched.mesh.size == 1 and sched.mesh.devices == (torch.device("cpu"),)
+    assert sched.resilience.ladder[0] == "mesh"
+    for i in range(4):
+        cluster.create_node(make_node(f"n{i}", "8", "32Gi", labels={ZONE: f"z{i % 2}"}))
+    for i in range(6):
+        cluster.create_pod(make_pod(f"p{i}", "250m", shape="spread"))
+    sched.run_until_settled()
+    assert all(p.node_name for p in cluster.list_pods())

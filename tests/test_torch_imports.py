@@ -213,8 +213,9 @@ def test_solve_without_device_raises_when_cuda_absent(monkeypatch):
 
 
 def test_mesh_raises():
-    """The one branch of the JAX package's solve that the port does not
-    have: a node-axis mesh (the port runs on one device)."""
+    """A node-axis mesh naming a device that is not there raises at
+    construction; a mesh of two CPU shards solves as the unsharded path
+    does."""
     from kubernetes_tpu_torch.api.wrappers import MakeNode, MakePod
     from kubernetes_tpu_torch.solver.exact import ExactSolver
     from kubernetes_tpu_torch.tensorize.schema import (
@@ -226,5 +227,10 @@ def test_mesh_raises():
     pods = [MakePod().name("p0").req({"cpu": "100m"}).obj()]
     nb = build_node_batch(nodes)
     pb = build_pod_batch(pods, nb.vocab)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ExactSolver().solve(nb, pb, device="cpu", mesh=object())
+    from kubernetes_tpu_torch.parallel.sharding import NodeMesh
+
+    with pytest.raises(ValueError, match="NodeMesh names cuda:7"):
+        NodeMesh(("cuda:7",))
+    want = ExactSolver().solve(nb, pb, device="cpu")
+    got = ExactSolver().solve(build_node_batch(nodes), pb, mesh=NodeMesh(("cpu", "cpu")))
+    assert list(got) == list(want)

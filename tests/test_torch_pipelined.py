@@ -178,14 +178,14 @@ def test_deferred_heal_skips_and_later_heals():
     sess = _DeviceSession()
     vers = np.zeros(_node_batch(4).padded, np.int64)
     sess.sync(_node_batch(4, 0, 100), vers, cpu)
-    assert int(sess.persist["i64"][0, 0]) == 0
+    assert int(sess.persist["i64"][0][0, 0]) == 0
     vers2 = vers.copy()
     vers2[0] = 1  # column 0 dirtied
     sess.sync(_node_batch(4, 7, 100), vers2, cpu, allow_heal=False)
-    assert int(sess.persist["i64"][0, 0]) == 0  # deferred
+    assert int(sess.persist["i64"][0][0, 0]) == 0  # deferred
     assert int(sess.seen_versions[0]) == 0
     sess.sync(_node_batch(4, 7, 100), vers2, cpu, allow_heal=True)
-    assert int(sess.persist["i64"][0, 0]) == 7
+    assert int(sess.persist["i64"][0][0, 0]) == 7
     assert int(sess.seen_versions[0]) == 1
 
 

@@ -352,9 +352,19 @@ def test_headroom_rejects_sort_key_collision_with_sentinel():
 
 
 def test_mesh_raises_naming_item_11():
+    """A mesh solve runs: on a 2-shard CPU mesh the plan seats what the
+    unsharded one seats (this small shape converges alike; the float32
+    tolerance is tests/test_torch_sharding.py's), and a padding that does
+    not divide over the shards raises ValueError."""
+    from kubernetes_tpu_torch.parallel.sharding import NodeMesh
+
     nodes, pods = mk_nodes(2), mk_pods(2)
     vocab = ResourceVocab.build(pods, nodes)
     nb, pb = build_node_batch(nodes, vocab=vocab), build_pod_batch(pods, vocab)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    want = RelaxSolver(device="cpu").solve(convert.node_batch(nb), convert.pod_batch(pb))
+    got = RelaxSolver(device="cpu").solve(convert.node_batch(nb), convert.pod_batch(pb),
+                                          mesh=NodeMesh(("cpu", "cpu")))
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="not a multiple of the mesh size"):
         RelaxSolver(device="cpu").solve(convert.node_batch(nb), convert.pod_batch(pb),
-                                        mesh=object())
+                                        mesh=NodeMesh(("cpu",) * 3))

@@ -432,10 +432,12 @@ def _one_replica_fleet():
     ],
 )
 def test_unported_config_features_raise(field, value, item):
-    """A multi-device mesh or a mesh slice (ROADMAP item 11) raises at
-    construction. Fleet mode (item 8, refused here until the fleet was
-    ported) now constructs: a one-replica fleet owns every node, publishes
-    its inventory to the hub and binds as a fleetless Scheduler does."""
+    """The features once refused here now construct. Fleet mode: a
+    one-replica fleet owns every node, publishes its inventory to the hub
+    and binds as a fleetless Scheduler does. A mesh resolves as the JAX
+    package resolves it over the visible devices: with one visible
+    device, mesh_devices 2 is the unsharded path, and a 0/2 mesh slice
+    raises the JAX package's ValueError (no disjoint share)."""
     cs = convert.cluster_state(mk_cluster(1))
     if field == "fleet":
         cfg = value()
@@ -444,7 +446,11 @@ def test_unported_config_features_raise(field, value, item):
         assert sorted(sched.cache.nodes) == sorted(n.name for n in cs.list_nodes())
         assert cfg.exchange.replica_rows("r0")[0]
         return
-    with pytest.raises(NotImplementedError, match=item):
+    if field == "mesh_devices":
+        sched = Scheduler(cs, SchedulerConfig(**{field: value}), device="cpu")
+        assert sched.mesh is None and sched.resilience.ladder[0] == "single"
+        return
+    with pytest.raises(ValueError, match="needs at least 2 visible devices"):
         Scheduler(cs, SchedulerConfig(**{field: value}), device="cpu")
 
 

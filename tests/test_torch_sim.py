@@ -186,12 +186,14 @@ def test_fleet_flag_raises(capsys):
     assert sim_main(["--device", "cpu", "--tuning"] + argv) == 2
 
 
-def test_mesh_devices_raise():
-    with pytest.raises(NotImplementedError, match=r"item 11"):
-        sim_main([
-            "--device", "cpu", "--profile", "node_flaps", "--cycles", "1",
-            "--mesh-devices", "2",
-        ])
+def test_mesh_devices_raise(capsys):
+    """``--mesh-devices 2`` shards the solve two ways and prints what
+    ``--mesh-devices 1`` prints, byte for byte (it once raised)."""
+    argv = ["--device", "cpu", "--profile", "node_flaps", "--cycles", "1"]
+    assert sim_main(argv + ["--mesh-devices", "2"]) == 0
+    sharded = capsys.readouterr().out
+    assert sim_main(argv + ["--mesh-devices", "1"]) == 0
+    assert sharded == capsys.readouterr().out and "invariants: OK" in sharded
 
 
 def test_default_device_is_the_card():

@@ -342,10 +342,23 @@ def test_caller_arrays_are_not_written():
 
 
 def test_mesh_raises_naming_item_11():
+    """A mesh solve runs and equals the unsharded one bit for bit on dense
+    ties (the merge of the shards' top-T keeps the lower global index
+    first); a padding that does not divide over the shards raises
+    ValueError."""
+    from kubernetes_tpu_torch.parallel.sharding import NodeMesh
+
     nb, pb, _ = dense_ties(n_nodes=8, n_pods=4)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    want_nb = convert.node_batch(nb)
+    want = SingleShotSolver(device="cpu").solve(want_nb, convert.pod_batch(pb))
+    got_nb = convert.node_batch(nb)
+    got = SingleShotSolver(device="cpu").solve(got_nb, convert.pod_batch(pb),
+                                               mesh=NodeMesh(("cpu",) * 4))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got_nb.used, want_nb.used)
+    with pytest.raises(ValueError, match="not a multiple of the mesh size"):
         SingleShotSolver(device="cpu").solve(convert.node_batch(nb), convert.pod_batch(pb),
-                                             mesh=object())
+                                             mesh=NodeMesh(("cpu",) * 3))
 
 
 def test_default_device_is_the_card(monkeypatch):
