@@ -55,13 +55,17 @@ Phases (a failure in any of them propagates and exits nonzero):
       nominated pod; a node added and a pod deleted between batches, so
       the session heals) and a preemption run, in "first" mode, must give
       equal bindings, nominations and victims on both; the production
-      default config ("random", group 64) holds every invariant on both;
+      default config ("random", group 64) holds every invariant on both
+      and binds alike on both (bindings digest: the card's threefry
+      kernel draws what the CPU port's plain versions draw);
    b. full width, parity mode: phase 4a's InterPodAffinity workload
       (5,120 pods x 5,120 nodes) drained by run_until_settled in batches
       of 1,024; every invariant held;
    c. full width, the production default config: BASELINE.json's
       north-star shape, 50,000 plain 250m / 512Mi pods on 10,000 nodes of
-      16 CPU / 64Gi / 110 pods in 3 zones;
+      16 CPU / 64Gi / 110 pods in 3 zones; then the card against the CPU
+      port at that width and a reduced depth (4,096 pods), by bindings
+      digest;
    d. full width, preemption: 5,120 nodes each full of 16 low-priority
       pods (created bound), then 64 higher-priority pods that fit only by
       preemption: every preemptor nominated, every victim of lower
@@ -246,7 +250,8 @@ Phases (a failure in any of them propagates and exits nonzero):
    c. the Scheduler on 4 shards: 6a's mixed run and the north star (6c's
       50,000 plain pods on 10,000 nodes, the production default config),
       every batch at the mesh rung, the bindings equal to the unsharded
-      Scheduler's (6c's, by digest); ``scheduler_mesh_devices`` reads 4;
+      Scheduler's (6c's, by digest), and 6c's reduced-depth run on 4
+      shards equal to the CPU port's; ``scheduler_mesh_devices`` reads 4;
    d. the auction at the north star (10a's inputs) on 4 shards, bit for
       bit; the relax plan at 10b's 512,000 x 102,400 on 4 shards, within
       the planner's tolerance (the same iterations, 99 % of assignments
@@ -258,6 +263,25 @@ Phases (a failure in any of them propagates and exits nonzero):
       the JAX package's ValueError.
    The kernel's case list gains one shard's launch of 13a (T 8 + 8, N
    1,280, d_pad 8,192, counts only).
+14. The threefry kernel (``csrc/threefry.cu`` through ``ops/threefry.py``),
+    random mode's draws, the JAX package's threefry2x32 stream:
+   a. both entry points against the plain versions (``ops/prng.py``),
+      exactly: the card's stream against the CPU's and against the plain
+      version on the card's tensors, over seeded keys, the scan's tie
+      counts (0 to 10,240) with skipped rows, and the grouped loop's
+      uniform and node-key draws at 5,120 and 10,240 columns, with and
+      without a split; the Random123 known answer; a 1,000-step scan
+      chain. Per-call and device times of each entry point beside its
+      plain version's, the ``torch.rand`` / ``torch.randint`` call it
+      replaces (another stream: a reference only) and its bound (integer
+      operations at the H100's INT32 rate, or bytes);
+   b. 13a's shape in random mode (6b's mixed workload, 1,024 pods on
+      5,120 nodes, one batch, unsharded): exactly one scan draw per pod,
+      pods/s, torch launches per step in random mode; then the card
+      against the CPU port at that width and 64 pods.
+   The kernels line lists both entry points beside domain_counts, each
+   with its launches on the random-mode paths (4b, 6a, 6c, 13b, 13c,
+   14b), every count set to 0 just before its path and read just after.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -281,6 +305,8 @@ from kubernetes_tpu_torch import build  # noqa: E402
 from kubernetes_tpu_torch import metrics  # noqa: E402
 from kubernetes_tpu_torch.api.wrappers import MakeNode, MakePod  # noqa: E402
 from kubernetes_tpu_torch.ops import domain_counts as dc  # noqa: E402
+from kubernetes_tpu_torch.ops import prng  # noqa: E402
+from kubernetes_tpu_torch.ops import threefry as tf  # noqa: E402
 from kubernetes_tpu_torch.parallel import sharding as sh  # noqa: E402
 from kubernetes_tpu_torch.scheduler import Scheduler, SchedulerConfig  # noqa: E402
 from kubernetes_tpu_torch.state.cluster import ClusterState  # noqa: E402
@@ -309,6 +335,15 @@ SEED = 0
 # cores, the table's rate for plain 32-bit lane arithmetic
 HBM_BYTES_PER_S = 3.35e12
 LANE_OPS_PER_S = 67e12
+
+
+def tf_reset():
+    """The threefry kernel's launch counts to 0 (both entry points)."""
+    tf.SCAN_LAUNCHES = tf.GROUPED_LAUNCHES = 0
+
+
+def tf_launches() -> dict:
+    return {"scan_draw": tf.SCAN_LAUNCHES, "grouped_draw": tf.GROUPED_LAUNCHES}
 
 
 def log(*a):
@@ -473,11 +508,17 @@ def device_ms(fn, calls=20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kernels = device_kernels(prof)
+    kernels = []
+    # CUDA activity alone; where that records no kernel, with the host's
+    # activity too (which some launches through ctypes need to be seen)
+    for activities in ([ProfilerActivity.CUDA], [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with profile(activities=activities) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        if kernels:
+            break
     if not kernels:
         return "not measured"
     return sum(e.device_time_total for e in kernels) / 1e3 / calls
@@ -859,6 +900,7 @@ def grouped_run(dev, kind, n_nodes, n_pods, batch, tie):
     zones_after, per_batch, tens_s, solve_s, h2d = [], [], [], [], []
     dc.LAUNCHES = 0
     gp.READS = 0
+    tf_reset()
     for lo in range(0, n_pods, batch):
         bp = pods[lo : lo + batch]
         t0 = time.perf_counter()
@@ -878,9 +920,11 @@ def grouped_run(dev, kind, n_nodes, n_pods, batch, tie):
         if kind == "spread":
             zones_after.append(np.bincount(np.fromiter(where.values(), np.int64) % 3,
                                            minlength=3))
-    launches, reads = dc.LAUNCHES, gp.READS
+    launches, reads, draws = dc.LAUNCHES, gp.READS, tf_launches()
     if len(where) != n_pods:
         raise AssertionError(f"{kind} {tie}: only {len(where)}/{n_pods} pods placed")
+    if dev.type == "cuda" and tie == "random" and draws["grouped_draw"] < reads:
+        raise AssertionError(f"{kind} random: {draws} threefry launches for {reads} iterations")
     _check_grouped(kind, where, n_nodes, zones_after)
     want = {"plain": "kind1", "spread": "kind2", "anti": "kind3"}[kind]
     chunks = solver.dispatch_counts[want]
@@ -892,7 +936,7 @@ def grouped_run(dev, kind, n_nodes, n_pods, batch, tie):
         "kind": kind, "tie_break": tie, "nodes": n_nodes, "pods": n_pods, "batch": batch,
         "placed": len(where), "pods_per_s": n_pods / (sum(tens_s) + sum(solve_s)),
         "solve_pods_per_s": n_pods / sum(solve_s), "solve_s": solve_s, "tensorize_s": tens_s,
-        "domain_counts_launches": launches, "device_reads": reads,
+        "domain_counts_launches": launches, "threefry_launches": draws, "device_reads": reads,
         "device_reads_per_chunk": reads / chunks, "h2d_bytes_per_batch": h2d,
         "dispatch": dict(solver.dispatch_counts),
     }
@@ -990,7 +1034,7 @@ def session_run(dev, variant, want, n_nodes=5120, n_pods=10240, batch=1024):
 # -- phase 5 ---------------------------------------------------------------
 
 
-def launches_per_step(dev, small=64, large=128):
+def launches_per_step(dev, small=64, large=128, tie="first"):
     """Kernels the card runs per scan step, from torch.profiler: two
     solves of the workload on the full-width node set that differ only by
     ``large - small`` pods (the kinds cycle every 4 pods), so the upload
@@ -1004,7 +1048,7 @@ def launches_per_step(dev, small=64, large=128):
     for n_pods in (small, large):
         pods = [make_pod(i) for i in range(n_pods)]
         inputs = tensorize(nodes, pods, {}, ResourceVocab.build(pods, nodes))
-        solver = ExactSolver(ExactSolverConfig(tie_break="first"))
+        solver = ExactSolver(ExactSolverConfig(tie_break=tie))
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1025,7 +1069,7 @@ def launches_per_step(dev, small=64, large=128):
             "device_busy_share": out[large][1] / out[large][2],
             "top_kernels": names.most_common(12),
         }
-    log("launches per step " + json.dumps(res))
+    log(f"launches per step ({tie}) " + json.dumps(res))
     return res
 
 
@@ -1133,6 +1177,7 @@ def drain(sched, label, max_batches=10_000):
     guard = TopTier(sched, label)
     tens0 = metrics.tensorize_seconds.sum()
     dc.LAUNCHES = 0
+    tf_reset()
     results = []
     t0 = time.perf_counter()
     idle_until = None
@@ -1150,7 +1195,7 @@ def drain(sched, label, max_batches=10_000):
             break
         idle_until = None
         results.append(r)
-    launches = dc.LAUNCHES
+    launches, draws = dc.LAUNCHES, tf_launches()
     bound = sum(len(r.scheduled) for r in results)
     last_bind = max((r.completed_at for r in results if r.scheduled), default=t0)
     wall = max(last_bind - t0, 1e-9)
@@ -1167,6 +1212,7 @@ def drain(sched, label, max_batches=10_000):
         "latency_p50_s": float(np.percentile(lat, 50)) if lat.size else None,
         "latency_p99_s": float(np.percentile(lat, 99)) if lat.size else None,
         "domain_counts_launches": launches,
+        "threefry_launches": draws,
         **guard.close(),
     }
     return results, reading
@@ -1353,6 +1399,11 @@ def dry_run_launches(dev, nodes, low, shape, runs=4):
     return mean, counts, differ
 
 
+# 6c's card == CPU check: the north star's 10,000 nodes, depth cut to this
+# many pods (the CPU port's grouped draws are tensor hashes on the host)
+NORTH_STAR_CPU_PODS = 4096
+
+
 def scheduler_random(dev, n_nodes, n_pods, batch=1024, label="6c"):
     """The production default config (tie_break "random", group 64) over
     plain 250m / 512Mi pods; returns the reading."""
@@ -1371,6 +1422,8 @@ def scheduler_random(dev, n_nodes, n_pods, batch=1024, label="6c"):
     results, reading = drain(sched, f"{label} {dev.type}")
     if reading["bound"] != n_pods:
         raise AssertionError(f"{label}: {reading['bound']} of {n_pods} bound")
+    if dev.type == "cuda" and not reading["threefry_launches"]["grouped_draw"]:
+        raise AssertionError(f"{label}: random mode launched no threefry_grouped_draw")
     check_cluster(cs, label)
     reading.update({"nodes": n_nodes, "pods": n_pods, "setup_s": setup,
                     "dispatch": dict(sched.solver.dispatch_counts),
@@ -1403,13 +1456,16 @@ def scheduler_phase(dev, full=(5120, 5120), north_star=(10_000, 50_000), preempt
         raise AssertionError("6a preemption: card != CPU in bindings, nominations or victims")
     r_dev = scheduler_random(dev, 256, 4096, label="6a random")
     r_cpu = scheduler_random(cpu, 256, 4096, label="6a random")
+    if r_dev["bindings_digest"] != r_cpu["bindings_digest"]:
+        raise AssertionError("6a random: card != CPU (bindings digest)")
     out["6a"] = {
         "mixed": {"batches": len(v_dev), "bound": sum(1 for v in b_dev.values() if v),
                   "card_equals_cpu": True},
         "preemption": {"preemptions": len(pp_dev), "card_equals_cpu": True,
                        "domain_counts_launches": pr_dev["domain_counts_launches"]},
         "random": {"bound": r_dev["bound"], "invariants_held_card_and_cpu": True,
-                   "cpu_bound": r_cpu["bound"]},
+                   "cpu_bound": r_cpu["bound"], "card_equals_cpu": True,
+                   "threefry_launches": r_dev["threefry_launches"]},
     }
     log("scheduler 6a " + json.dumps(out["6a"]))
     # 6b: full width, parity mode
@@ -1432,9 +1488,21 @@ def scheduler_phase(dev, full=(5120, 5120), north_star=(10_000, 50_000), preempt
     out["6b"] = reading
     out["6b_bindings"] = _bindings(cs)
     log("scheduler 6b " + json.dumps(reading))
-    # 6c: full width, the production default config
+    # 6c: full width, the production default config; then card == CPU at
+    # the north star's width and a reduced depth (the CPU port's draws are
+    # the plain versions of the card's threefry kernel)
     out["6c"] = scheduler_random(dev, *north_star)
     log("scheduler 6c " + json.dumps(out["6c"]))
+    shape = (north_star[0], min(north_star[1], NORTH_STAR_CPU_PODS))
+    r_dev = scheduler_random(dev, *shape, label="6c reduced")
+    r_cpu = scheduler_random(cpu, *shape, label="6c reduced")
+    if r_dev["bindings_digest"] != r_cpu["bindings_digest"]:
+        raise AssertionError(f"6c reduced {shape}: card != CPU (bindings digest)")
+    out["6c_reduced"] = {"nodes": shape[0], "pods": shape[1], "card_equals_cpu": True,
+                         "bindings_digest": r_cpu["bindings_digest"],
+                         "cpu_wall_s": r_cpu["wall_s"],
+                         "threefry_launches": r_dev["threefry_launches"]}
+    log("scheduler 6c reduced " + json.dumps(out["6c_reduced"]))
     # 6d: full width, preemption
     _, _, _, out["6d"] = scheduler_preempt(dev, *preempt, time_dry_runs=dev.type == "cuda")
     log("scheduler 6d " + json.dumps(out["6d"]))
@@ -4048,6 +4116,7 @@ def sharded_grouped(dev, k=SHARDS, n_nodes=5120, batch=1024):
                 solver = ExactSolver(ExactSolverConfig(tie_break=tie, seed=SEED))
                 inputs = tensorize(nodes, pods[:batch], {}, vocab)
                 dc.LAUNCHES = 0
+                tf_reset()
                 _reset_combines()
                 with HeldLaunch(f"13b {kind} {tie} {label}", n=k if m else 1) as held:
                     _sync(dev)
@@ -4056,6 +4125,7 @@ def sharded_grouped(dev, k=SHARDS, n_nodes=5120, batch=1024):
                     _sync(dev)
                     secs = time.perf_counter() - t
                 runs[label] = (a, {"solve_s": secs, "domain_counts_launches": dc.LAUNCHES,
+                                   "threefry_launches": tf_launches(),
                                    "dispatch": dict(solver.dispatch_counts), **_combines(),
                                    **held.require(dc.LAUNCHES)})
             if not np.array_equal(runs[f"k{k}"][0], runs["unsharded"][0]):
@@ -4080,11 +4150,13 @@ def sharded_grouped(dev, k=SHARDS, n_nodes=5120, batch=1024):
     return out
 
 
-def sharded_scheduler(dev, digest_6c, k=SHARDS, north_star=(10_000, 50_000)):
+def sharded_scheduler(dev, digest_6c, k=SHARDS, north_star=(10_000, 50_000),
+                      reduced_6c=None):
     """13c: the Scheduler on k shards, every batch at the mesh rung: 6a's
-    mixed run (reduced depth) against the unsharded Scheduler's, and the
+    mixed run (reduced depth) against the unsharded Scheduler's, the
     north star (the production default config, kind 1) against 6c's
-    bindings."""
+    bindings, and ``reduced_6c`` (6c's card == CPU check: nodes, pods and
+    the CPU port's bindings digest) on k shards against the CPU port."""
     b_flat, n_flat, v_flat = scheduler_mixed(dev)
     dc.LAUNCHES = 0
     with forced(k, dev):
@@ -4109,6 +4181,15 @@ def sharded_scheduler(dev, digest_6c, k=SHARDS, north_star=(10_000, 50_000)):
         raise AssertionError(f"13c north star: the Scheduler solved on {reading['mesh_devices']}")
     reading["equals_6c_bindings"] = digest_6c is not None
     out["north_star"] = reading
+    if reduced_6c is not None:
+        with forced(k, dev):
+            r = scheduler_random(dev, reduced_6c["nodes"], reduced_6c["pods"],
+                                 label=f"13c reduced k={k}")
+        if r["bindings_digest"] != reduced_6c["bindings_digest"]:
+            raise AssertionError(f"13c reduced k={k}: card != the CPU port (bindings digest)")
+        out["reduced"] = {"nodes": reduced_6c["nodes"], "pods": reduced_6c["pods"],
+                          "equals_cpu_port": True, "mesh_devices": r["mesh_devices"],
+                          "threefry_launches": r["threefry_launches"]}
     log("sharded 13c " + json.dumps(out))
     return out
 
@@ -4280,16 +4361,235 @@ def sharded_kernel_case(dev, interpod, k=SHARDS):
                        sets, interpod.d_pad, counts=True, gather=False)
 
 
-def phase13(dev, bindings_6b, digest_6c):
+def phase13(dev, bindings_6b, digest_6c, reduced_6c=None):
     """Phase 13, each part with its own readings and checks."""
     t0 = time.perf_counter()
     a = sharded_scan(dev, bindings_6b)
     b = sharded_grouped(dev)
-    c = sharded_scheduler(dev, digest_6c)
+    c = sharded_scheduler(dev, digest_6c, reduced_6c=reduced_6c)
     d = sharded_plans(dev)
     e = sharded_sim_and_resolution(dev)
     return {"scan_13a": a, "grouped_13b": b, "scheduler_13c": c, "plans_13d": d,
             "sim_13e": e, "phase_s": time.perf_counter() - t0}
+
+# -- phase 14: the threefry kernel ---------------------------------------------
+
+# integer operations of one Threefry-2x32-20 hash: 20 rounds of add, rotate
+# and xor, 6 key injections of two adds, the key schedule's two xors
+HASH_OPS = 20 * 3 + 6 * 2 + 2
+# H100 SXM: 64 INT32 lanes per SM (the Hopper white paper) x 132 SMs at the
+# 1.98 GHz boost clock that the table's 67 TFLOP/s float32 rate assumes
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+THREEFRY_WIDTHS = (5120, 10240)
+# tie counts the scan's draw sees at 13a's width: one node, a few, all
+SCAN_TIES = (0, 1, 7, 5120, 10240)
+
+
+def _bound(ops, nbytes):
+    o_ms = ops / INT32_OPS_PER_S * 1e3
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(o_ms, b_ms), "bound_by": "operations" if o_ms >= b_ms else "bytes",
+            "operations": ops, "bytes": nbytes}
+
+
+def _words_on(key, dev):
+    return tuple(torch.tensor(w, dtype=torch.int64, device=dev) for w in key)
+
+
+def _as_bits(t):
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+def threefry_checks(dev, seed=SEED):
+    """14a: both entry points against the plain versions, exactly: the
+    card's stream against the CPU's (Python-int keys) and against the
+    plain version run on the card's own tensors, over seeded keys, the
+    scan's tie counts and the grouped loop's widths; the Random123 known
+    answer and a 1,000-step scan chain. Then each entry point's per-call
+    and device times beside its plain version's, the ``torch.rand`` call
+    it replaces (a reference only: another stream) and its bound."""
+    rng = np.random.default_rng(seed)
+    checked = 0
+    for trial in range(4):
+        key = tuple(int(w) for w in rng.integers(0, 1 << 32, 2))
+        card, cpu = tf.Stream(key, dev), tf.Stream(key, "cpu")
+        for t in SCAN_TIES:
+            if trial % 2:
+                card.skip()
+                cpu.skip()
+            before = card.key_words()
+            got = card.rank(torch.tensor(t, dtype=torch.int64, device=dev))
+            plain, _ = prng.scan_draw(_words_on(before, dev),
+                                      torch.tensor(t, dtype=torch.int64, device=dev))
+            want = cpu.rank(torch.tensor(t, dtype=torch.int64))
+            if not (int(got) == int(plain) == int(want)) or card.key_words() != cpu.key_words():
+                raise AssertionError(f"14a threefry_scan_draw key {key} ties {t}: kernel "
+                                     f"{int(got)}, plain on the card {int(plain)}, CPU {int(want)}")
+            checked += 1
+        for n in THREEFRY_WIDTHS:
+            for what, split in (("uniform", True), ("node_keys", False), ("node_keys", True),
+                                ("uniform", False)):
+                draw = (lambda s, n=n, what=what, split=split:
+                        s.uniform(0, n, split=split) if what == "uniform"
+                        else s.node_keys(0, n, n, split=split))
+                got, want = draw(card), draw(cpu)
+                sub = cpu.sub
+                plain = (prng.uniform_f64(_words_on(sub, dev), 0, n, dev) if what == "uniform"
+                         else prng.node_keys(_words_on(sub, dev), 0, n, n, dev))
+                g, p_, w = _as_bits(got).cpu(), _as_bits(plain).cpu(), _as_bits(want)
+                if not (torch.equal(g, w) and torch.equal(p_, w)):
+                    bad = int((g != w).sum()) + int((p_ != w).sum())
+                    raise AssertionError(f"14a threefry_grouped_draw {what} split={split} N {n} "
+                                         f"key {key}: {bad} columns differ")
+                if card.key_words() != cpu.key_words():
+                    raise AssertionError(f"14a threefry_grouped_draw N {n}: keys differ")
+                checked += 1
+    # the Random123 known answer through the uniform entry point
+    ka = tf.Stream((0, 0), dev)
+    if dev.type == "cuda":
+        ka.state[4:6] = torch.tensor([0x13198A2E, 0x03707344], device=dev)
+    else:
+        ka.sub = (0x13198A2E, 0x03707344)
+    ka.has_sub = True
+    u = ka.uniform(0x243F6A8885A308D3, 1, split=False).item()
+    want_u = float(np.array([(0xC4923A9C483DF7A0 >> 12) | 0x3FF0000000000000],
+                            np.uint64).view(np.float64)[0]) - 1.0
+    if u != want_u:
+        raise AssertionError(f"14a threefry known answer: {u} != {want_u}")
+    # 1,000 scan draws, ranks kept on the card and read once
+    card, cpu = tf.Stream(prng.prng_key(seed + 99), dev), tf.Stream(prng.prng_key(seed + 99),
+                                                                    "cpu")
+    spans = rng.integers(0, 10_241, 1000)
+    got = torch.stack([card.rank(torch.tensor(int(t), dtype=torch.int64, device=dev))
+                       for t in spans]).cpu()
+    want = torch.stack([cpu.rank(torch.tensor(int(t), dtype=torch.int64)) for t in spans])
+    if not torch.equal(got, want) or card.key_words() != cpu.key_words():
+        raise AssertionError("14a threefry 1,000-step scan chain: kernel != plain")
+    checked += 1000
+
+    # times, the main path's shapes
+    n = THREEFRY_WIDTHS[0]
+    ties = torch.tensor(n, dtype=torch.int64, device=dev)
+    stream = tf.Stream(prng.prng_key(seed), dev)
+    key_dev = _words_on(prng.prng_key(seed), dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    scan = {
+        "name": "threefry_scan_draw", "shape": {"n_ties": n},
+        "ms": time_ms(lambda: stream.rank(ties)),
+        "plain_ms": time_ms(lambda: prng.scan_draw(key_dev, ties), runs=5, calls=3),
+        "device_ms": device_ms(lambda: stream.rank(ties)),
+        "plain_device_ms": device_ms(lambda: prng.scan_draw(key_dev, ties), calls=3),
+        "torch_rand_ms": time_ms(lambda: torch.rand((), generator=gen, dtype=torch.float64,
+                                                    device=dev)),
+        "torch_rand_device_ms": device_ms(lambda: torch.rand((), generator=gen,
+                                                             dtype=torch.float64, device=dev)),
+        # six hashes and the 64-bit remainders; the key, the tie count and the rank
+        **_bound(6 * HASH_OPS + 12, 16 + 8 + 16 + 8),
+    }
+    grouped = {
+        "name": "threefry_grouped_draw", "shape": {"N": n, "draws": ["uniform", "node_keys"]},
+        "ms": time_ms(lambda: stream.uniform(0, n)),
+        "node_keys_ms": time_ms(lambda: stream.node_keys(0, n, n)),
+        "plain_ms": time_ms(lambda: prng.uniform_f64(key_dev, 0, n, dev), runs=5, calls=3),
+        "plain_node_keys_ms": time_ms(lambda: prng.node_keys(key_dev, 0, n, n, dev),
+                                      runs=5, calls=3),
+        "device_ms": device_ms(lambda: stream.uniform(0, n)),
+        "node_keys_device_ms": device_ms(lambda: stream.node_keys(0, n, n)),
+        "plain_device_ms": device_ms(lambda: prng.uniform_f64(key_dev, 0, n, dev), calls=3),
+        "torch_rand_ms": time_ms(lambda: torch.rand(n, generator=gen, dtype=torch.float64,
+                                                    device=dev)),
+        "torch_randint_ms": time_ms(lambda: torch.randint(0, 1 << 20, (n,), generator=gen,
+                                                          dtype=torch.int64, device=dev)),
+        # the split's two hashes and one hash and the mantissa per column;
+        # the key and the subkey, and a float64 per column
+        **_bound((2 + n) * HASH_OPS + 3 * n, 48 + 8 * n),
+        "node_keys_bound_ms": _bound((4 + 2 * n) * HASH_OPS + 8 * n, 48 + 8 * n)["bound_ms"],
+    }
+    out = {"checked": checked, "max_abs_err": 0, "scan_draw": scan, "grouped_draw": grouped}
+    log("threefry 14a " + json.dumps(out))
+    return out
+
+
+def threefry_scan(dev, n_nodes=5120, n_pods=1024, cpu_pods=64):
+    """14b: the random-mode scan at 13a's shape (6b's mixed workload, one
+    batch, unsharded, balanced float64) on the card, its threefry launch
+    count set to 0 just before and read just after: one scan draw per
+    valid pod and no grouped draw; pods/s; torch launches per step in both
+    tie-break modes. Then card == the CPU port at 13a's width and
+    ``cpu_pods`` pods (the CPU's interpod aggregation at 5,120 nodes costs
+    seconds a step)."""
+    nodes = make_nodes(n_nodes)
+    pods = [make_pod(i) for i in range(n_pods)]
+    vocab = ResourceVocab.build(pods, nodes)
+    cfg = ExactSolverConfig(tie_break="random", balanced_fdtype="float64", seed=SEED)
+    inputs = tensorize(nodes, pods, {}, vocab)
+    tf_reset()
+    dc.LAUNCHES = 0
+    _sync(dev)
+    t = time.perf_counter()
+    a = ExactSolver(cfg).solve(*inputs, device=dev)
+    _sync(dev)
+    secs = time.perf_counter() - t
+    draws = tf_launches()
+    if dev.type == "cuda" and draws != {"scan_draw": n_pods, "grouped_draw": 0}:
+        raise AssertionError(f"14b: {draws} threefry launches for {n_pods} scan steps")
+    if (a < 0).any():
+        raise AssertionError("14b: a pod did not place")
+    small = [make_pod(i) for i in range(cpu_pods)]
+    v_small = ResourceVocab.build(small, nodes)
+    card = ExactSolver(cfg).solve(*tensorize(nodes, small, {}, v_small), device=dev)
+    cpu = ExactSolver(cfg).solve(*tensorize(nodes, small, {}, v_small), device="cpu")
+    if not np.array_equal(card, cpu):
+        bad = np.flatnonzero(card != cpu)
+        raise AssertionError(f"14b: card != CPU port at {bad.size} pods, first {bad[:4]}")
+    out = {"nodes": n_nodes, "pods": n_pods, "solve_s": secs, "pods_per_s": n_pods / secs,
+           "threefry_launches": draws, "domain_counts_launches": dc.LAUNCHES,
+           "card_equals_cpu_pods": cpu_pods,
+           "launches_per_step_random": launches_per_step(dev, tie="random")["per_step"]}
+    log("threefry 14b " + json.dumps(out))
+    return out
+
+
+def threefry_records(grouped, sched, p13, p14):
+    """The kernels line's records of the threefry kernel's two entry
+    points: 14a's checks and times, and the launches on the random-mode
+    paths, each count set to 0 just before its path and read just after.
+    Raises when an entry point was launched on no main path."""
+    draws_by_path = {
+        **{f"grouped {k}": r["threefry_launches"] for k, r in grouped.items()
+           if k.endswith("random")},
+        "scheduler 6a random": sched["6a"]["random"]["threefry_launches"],
+        "scheduler 6c": sched["6c"]["threefry_launches"],
+        "scheduler 6c reduced": sched["6c_reduced"]["threefry_launches"],
+        **{f"sharded 13b {kt} {lbl}": r["threefry_launches"]
+           for kt, runs in p13["grouped_13b"].items()
+           if kt.endswith("/random") and not kt.startswith("session")
+           for lbl, r in runs.items()},
+        "sharded 13c north star": p13["scheduler_13c"]["north_star"]["threefry_launches"],
+        "sharded 13c reduced": p13["scheduler_13c"]["reduced"]["threefry_launches"],
+        "random scan 14b": p14["scan_14b"]["threefry_launches"],
+    }
+    records = []
+    for entry, replaces in (("scan_draw", "kubernetes_tpu/solver/exact.py:352"),
+                            ("grouped_draw", "kubernetes_tpu/solver/exact.py:759")):
+        case = p14["checks_14a"][entry]
+        by_path = {k: v[entry] for k, v in draws_by_path.items() if v[entry]}
+        if not by_path:
+            raise AssertionError(f"threefry_{entry}: no main path launched it")
+        records.append({
+            "name": f"threefry_{entry}", "route": "cuda",
+            "source": "kubernetes_tpu_torch/csrc/threefry.cu", "replaces": replaces,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "exact": True, "max_abs_err": p14["checks_14a"]["max_abs_err"],
+            "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"], "library_ms": None,
+            "library": "none: torch.rand draws another stream (torch_rand_ms, a reference)",
+            **{k: v for k, v in case.items() if k not in (
+                "name", "ms", "plain_ms", "bound_ms", "bound_by")},
+        })
+    return records
+
 
 def main():
     if not torch.cuda.is_available():
@@ -4336,7 +4636,10 @@ def main():
     p10 = phase10(dev)
     p11 = phase11(dev)
     p12 = phase12(dev)
-    p13 = phase13(dev, bindings_6b, sched["6c"]["bindings_digest"])
+    p13 = phase13(dev, bindings_6b, sched["6c"]["bindings_digest"], sched["6c_reduced"])
+    t14 = time.perf_counter()
+    p14 = {"checks_14a": threefry_checks(dev), "scan_14b": threefry_scan(dev)}
+    p14["phase_s"] = time.perf_counter() - t14
     cases.append(sharded_kernel_case(dev, interpod))
     # the kernel at the evaluator's launches: exact, and timed as the others
     for i, (sets, d_pad, counts, gather) in enumerate(ext.pop("8b_launch_sets")):
@@ -4420,7 +4723,8 @@ def main():
         "cluster_sweep": sweep,
         "paths_and_cluster_sizes_run": sorted(ran),
     }
-    log(json.dumps({"kernels": [record]}))
+    records = [record] + threefry_records(grouped, sched, p13, p14)
+    log(json.dumps({"kernels": records}))
     log(json.dumps({
         "full_width": {k: full[k] for k in ("wall_s", "pods_per_s", "placed")},
         "grouped": {k: {f: r[f] for f in ("pods_per_s", "solve_pods_per_s", "placed",
@@ -4465,7 +4769,8 @@ def main():
     log(json.dumps({"phase10": p10, "card": smi}))
     log(json.dumps({"phase11": p11, "card": smi}))
     log(json.dumps({"phase12": p12, "card": smi}))
-    log(json.dumps({"phase13": p13, "script_s": time.perf_counter() - t_start, "card": smi}))
+    log(json.dumps({"phase13": p13, "card": smi}))
+    log(json.dumps({"phase14": p14, "script_s": time.perf_counter() - t_start, "card": smi}))
     log(smi)  # the card's name and power limit, on the line before the last
     print(json.dumps({
         "ok": True,

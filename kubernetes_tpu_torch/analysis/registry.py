@@ -61,6 +61,9 @@ DEVICE_ROOTS = frozenset(
         (f"{PACKAGE}/ops/domain_counts.py", "aggregate"),
         (f"{PACKAGE}/ops/domain_counts.py", "domain_counts"),
         (f"{PACKAGE}/ops/domain_counts.py", "Aggregation.__call__"),
+        # jax.random inside those programs: the threefry kernel's draws
+        (f"{PACKAGE}/ops/threefry.py", "Stream.rank"),
+        (f"{PACKAGE}/ops/threefry.py", "Stream._grouped"),
     }
 )
 

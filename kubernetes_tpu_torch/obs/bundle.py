@@ -38,10 +38,9 @@ Copied from ``kubernetes_tpu/obs/bundle.py``. The containers resolve to
 the port's classes, and ``replay_bundle`` re-runs the solve through the
 port's ``ExactSolver`` on ``device`` (None = the card). The format is the
 JAX package's, so a bundle either package captured loads in the other.
-With ``tie_break="first"`` a replay is bit-identical across the two
-packages; in random mode the JAX package draws from threefry and the port
-from a torch generator, so a bundle replays bit for bit within the
-package that captured it.
+A replay is bit-identical across the two packages in both tie-break
+modes: in random mode the port draws the JAX package's threefry stream
+(``ops/threefry.py``) from the captured seed and solve count.
 """
 
 from __future__ import annotations

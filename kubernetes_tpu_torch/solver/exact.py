@@ -39,16 +39,19 @@ fast chunks then run as one generator per shard in lockstep, and the
 result equals the unsharded one bit for bit.
 
 selectHost tie-break: "first" takes the lowest node index among the
-max-score ties and is bit-identical to the JAX package. "random" draws
-from a ``torch.Generator`` seeded with ``seed + solve count`` (a chained
-sub-batch folds its index into that seed); it cannot reproduce the JAX
-package's threefry stream, and is held to the oracle's tie set.
+max-score ties. "random" draws from the JAX package's own stream
+(``ops/threefry.py``): the threefry key ``PRNGKey(seed + solve count)``,
+``fold_in`` of the sub-batch index for a chained sub-batch, one split per
+scan row (invalid rows included) and one per grouped-loop iteration, in
+chunk order, drawn on the card by the threefry kernel. The draws are the
+JAX package's bit for bit, so random mode gives its assignments as first
+mode does (the paired tests hold both with ``balanced_fdtype="float64"``).
 
 ``capture_hook`` (set by the Scheduler's flight telemetry) receives each
-solve's resolved inputs before the generator's seed is derived from the
-solve count, as the JAX package's does, so a replay bundle re-runs the
-exact solve. The host-to-device and device-to-host bytes go to the
-registry's ``scheduler_tpu_{h2d,d2h}_bytes_total``.
+solve's resolved inputs before the key is derived from the solve count,
+as the JAX package's does, so a replay bundle re-runs the exact solve.
+The host-to-device and device-to-host bytes go to the registry's
+``scheduler_tpu_{h2d,d2h}_bytes_total``.
 """
 
 from __future__ import annotations
@@ -65,7 +68,9 @@ from .. import metrics
 from ..ops import interpod as ip
 from ..ops import noderesources as nr
 from ..ops import plugins as pl
+from ..ops import prng
 from ..ops import spread as sp
+from ..ops import threefry as tf
 from ..parallel import sharding as sh
 from ..tensorize.interpod import InterpodTensors, trivial_interpod_tensors
 from ..tensorize.plugins import (
@@ -304,7 +309,7 @@ def _mask_and_score(
     return torch.where(mask, score, -1)
 
 
-def _make_step(tables, *, tie_break: str, generator: torch.Generator | None, **pipe_kw):
+def _make_step(tables, *, tie_break: str, stream: tf.Stream | None, **pipe_kw):
     """The per-pod scan step of one shard: the full filter + score
     pipeline, the tie-break pick and the assume scatter. ``step(st,
     packed, x)`` is a generator of the shard protocol that updates the
@@ -315,12 +320,12 @@ def _make_step(tables, *, tie_break: str, generator: torch.Generator | None, **p
 
     Sharded, "first" takes each shard's maximum and first local index and
     picks the lowest global index among the shards that hold the global
-    maximum. "random" draws one uniform per step from the one generator on
-    the lead device, whatever the shard count, counts the ties per shard
-    and finds the pick's shard from the prefix of the shard totals: the
-    unsharded draw and pick, bit for bit. Only the owning shard's assume
-    adds anything (the others add zero at a clamped index, which keeps the
-    loop free of device reads)."""
+    maximum. "random" draws the pick's rank among the ties once per step
+    from the one stream on the lead device, whatever the shard count,
+    counts the ties per shard and finds the pick's shard from the prefix
+    of the shard totals: the unsharded draw and pick, bit for bit. Only
+    the owning shard's assume adds anything (the others add zero at a
+    clamped index, which keeps the loop free of device reads)."""
     use_nominated = pipe_kw.get("use_nominated", False)
     use_nominated_ports = pipe_kw.get("use_nominated_ports", False)
     lo = tables["lo"]
@@ -334,13 +339,8 @@ def _make_step(tables, *, tie_break: str, generator: torch.Generator | None, **p
             ties = (score == best) & (score >= 0)
             csum = torch.cumsum(ties.to(torch.int32), dim=0)
             before, total = yield sh.c_prefix, csum[-1]
-            m = torch.clamp(total, min=1).to(torch.int64)
-            u = yield sh.c_draw, (
-                lambda: torch.rand((), generator=generator, dtype=torch.float64,
-                                   device=generator.device),
-                None, None, score.device,
-            )
-            rank = torch.minimum(torch.floor(u * m).to(torch.int64), m - 1)
+            # randint(sub, (), 0, max(n_ties, 1)), the tie count read on the card
+            rank = yield sh.c_draw, (lambda: stream.rank(total), None, None, score.device)
             if sharded:
                 local = rank - before
                 own = (local >= 0) & (local < csum[-1])
@@ -388,12 +388,6 @@ def _make_step(tables, *, tie_break: str, generator: torch.Generator | None, **p
         return torch.where(found, pick, -1)
 
     return step
-
-
-def _fold_seed(seed: int, i: int) -> int:
-    """The seed of chained sub-batch ``i``: the solve's seed with the
-    index folded in (``jax.random.fold_in(key, i)`` in the JAX package)."""
-    return (seed * 0x9E3779B97F4A7C15 + i + 1) % (1 << 63)
 
 
 class _PodRows:
@@ -705,7 +699,7 @@ class ExactSolver:
                 config=_capture_config_fingerprint(cfg),
             )
         fdtype = torch.float64 if cfg.balanced_fdtype == "float64" else torch.float32
-        seed = cfg.seed + self._step_count
+        key = prng.prng_key(cfg.seed + self._step_count)
         self._step_count += 1
         if static is None:
             static = trivial_static_tensors(pods, nodes.padded, nodes.schedulable)
@@ -861,7 +855,7 @@ class ExactSolver:
                 # stream solves go through the chain dispatcher even unsplit:
                 # it is the one path that consumes and keeps the carry
                 handles = self._solve_chain(
-                    k_split, run, persist, bstate, pods, seed,
+                    k_split, run, persist, bstate, pods, key,
                     chain_start=self._session.stream_carry if chain_occupancy else None,
                     carry_out=stream_carry_out, chain_key=chain_key,
                 )
@@ -874,7 +868,7 @@ class ExactSolver:
             # persist's tensors: the carry cannot survive it
             self._session.drop_stream_carry()
         packed = run.packed(persist, shards.split(bstate))
-        run(packed, 0, pods.padded, seed)
+        run(packed, 0, pods.padded, key)
         if session:
             persist["pod_count"] = tuple(p[0] for p in packed["i32"])
             self._transferred("d2h", pods.padded * 8)
@@ -915,7 +909,7 @@ class ExactSolver:
             return k
         return 1
 
-    def _solve_chain(self, k_split: int, run, persist, bstate, pods: PodBatch, seed: int, *,
+    def _solve_chain(self, k_split: int, run, persist, bstate, pods: PodBatch, key, *,
                      chain_start: dict | None = None, carry_out: bool = False,
                      chain_key: tuple | None = None) -> list[DeferredAssignments]:
         """One tensorized batch as ``k_split`` sub-solves, each placed on
@@ -924,7 +918,8 @@ class ExactSolver:
         run. ``chain_start``: the previous batch's full carried state (the
         stream carry), which the first sub-solve starts from instead of the
         host's occupancy rows; ``carry_out`` keeps the final state as the
-        session's stream carry under ``chain_key``."""
+        session's stream carry under ``chain_key``. In random mode sub-batch
+        ``i`` draws from ``fold_in(key, i)``, as the JAX package's does."""
         sub = pods.padded // k_split
         handles: list[DeferredAssignments] = []
         if chain_start is not None:
@@ -939,7 +934,7 @@ class ExactSolver:
                 lo = i * sub
                 if lo >= pods.num_pods:
                     break
-                run(carry.state, lo, lo + sub, _fold_seed(seed, i))
+                run(carry.state, lo, lo + sub, prng.fold_in(key, i))
                 handles.append(DeferredAssignments(
                     run.assignments[lo : lo + sub], min(sub, pods.num_pods - lo), lo=lo
                 ))
@@ -999,15 +994,17 @@ class _Run:
         st.update(self.nom_state[s])
         return st
 
-    def __call__(self, packed, lo: int, hi: int, seed: int) -> None:
-        generator = None
+    def __call__(self, packed, lo: int, hi: int, key) -> None:
+        """``key``: the threefry key of this range's stream (random mode;
+        every scan row splits it, a row that places nothing too, and every
+        grouped-loop iteration)."""
+        stream = None
         if self.tie_break == TIE_RANDOM:
-            generator = torch.Generator(device=self.dev)
-            generator.manual_seed(seed)
+            stream = tf.Stream(key, self.dev)
         k = self.mesh.size
         sts = [self.state_views(packed, s) for s in range(k)]
         shard_packed = [{"i64": packed["i64"][s], "i32": packed["i32"][s]} for s in range(k)]
-        steps = [_make_step(self.tables[s], tie_break=self.tie_break, generator=generator,
+        steps = [_make_step(self.tables[s], tie_break=self.tie_break, stream=stream,
                             **self.kw) for s in range(k)]
         asg = self.assignments
         if self.kinds is None:
@@ -1016,10 +1013,12 @@ class _Run:
                     xr = self.xs.row(i)
                     asg[i] = sh.lockstep(
                         steps[s](sts[s], shard_packed[s], xr[s]) for s in range(k))[0]
+                elif stream is not None:
+                    stream.skip()
             return
         group, kw = self.group, self.kw
         fast_kw = dict(
-            group=group, tie_break=self.tie_break, generator=generator,
+            group=group, tie_break=self.tie_break, stream=stream,
             fit_scorer=_fit_scorer(kw["scoring_strategy"], kw["rtc_shape"]),
             fdtype=kw["fdtype"], w_fit=kw["w_fit"], w_balanced=kw["w_balanced"],
             w_taint=kw["w_taint"], w_nodeaff=kw["w_nodeaff"], w_image=kw["w_image"],
@@ -1036,6 +1035,8 @@ class _Run:
                         xr = self.xs.row(r)
                         asg[base + t] = sh.lockstep(
                             steps[s](sts[s], shard_packed[s], xr[s]) for s in range(k))[0]
+                    elif stream is not None:
+                        stream.skip()
                 continue
             # ktpu: ignore[TPU001]: vcnt is the host numpy count of valid pods per chunk; no card value is read
             vc = int(self.vcnt[c])

@@ -27,8 +27,13 @@ iteration reads the device, and the result equals the per-pod scan bit for
 bit. ``"random"`` places up to a chunk of distinct tie nodes per iteration
 until the chunk is placed or proven infeasible; the loop's exit test
 reads the count placed from the card, one device-to-host read per
-iteration. Its water-fill branch (spread mode) is a data-dependent
-choice in the JAX package (``lax.cond``); here both branches run and
+iteration. Each iteration splits the solve's threefry stream once and
+draws the JAX package's float64 ``uniform`` (plain mode, and again from
+the same subkey for the water-fill) or its int32 ``randint(0, 1 << 20)``
+node keys (quota modes) through the threefry kernel
+(``ops/threefry.py``), so the placements equal the JAX package's bit for
+bit. Its water-fill branch (spread mode) is a data-dependent choice in
+the JAX package (``lax.cond``); here both branches run and
 ``torch.where`` keeps one, so the iteration still reads the card once.
 
 Each iteration of a spread or anti chunk aggregates the per-node counts
@@ -315,14 +320,14 @@ def _global_order(group: int):
     def fn(keys):
         lead = keys[0].device
         full = keys[0] if len(keys) == 1 else torch.cat([k.to(lead) for k in keys])
-        order = torch.argsort(full)[:group]
+        order = torch.argsort(full, stable=True)[:group]
         return [order if k.device == lead else order.to(k.device) for k in keys]
 
     return fn
 
 
 def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
-               generator, fit_scorer, fdtype, w_fit: int, w_balanced: int,
+               stream, fit_scorer, fdtype, w_fit: int, w_balanced: int,
                w_taint: int, w_nodeaff: int, w_image: int, use_extra: bool):
     """Places ``vcnt`` identical pods (the chunk's representative rows:
     ``x`` on the device, ``h`` on the host) and returns (assignments
@@ -443,7 +448,6 @@ def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
     def draw(fn):
         return sh.c_draw, (fn, lo, n, dev)
 
-    gdev = generator.device
     iota_n = torch.arange(n, dtype=torch.int64, device=dev)
     iota_g = torch.arange(group, dtype=torch.int64, device=dev)
     ones_g = torch.ones(group, dtype=torch.int32, device=dev)
@@ -478,8 +482,8 @@ def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
         remaining = vcnt - placed
 
         if mode is None:
-            r = yield draw(lambda: torch.rand(n_all, generator=generator, dtype=torch.float64,
-                                              device=gdev))
+            # k, s1 = split(k); uniform(s1, (n_all,)) in float64
+            r = yield draw(lambda: stream.uniform(0, n_all))
             keyed = torch.where(tie, r, 2.0)
             _, pick = yield sh.c_first_min, (torch.min(keyed), torch.argmin(keyed), lo)
             order = yield sh.c_apply, (_global_order(group), torch.where(eligible, r, 2.0))
@@ -487,16 +491,15 @@ def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
         else:
             charged, dd = model.charged, model.dd
             ec = eligible & charged
-            # unique per-node random keys (one draw over the whole node axis)
-            rb = yield draw(lambda: torch.randint(
-                0, 1 << 20, (n_all,), generator=generator, dtype=torch.int64, device=gdev,
-            ) * n_all + torch.arange(n_all, dtype=torch.int64, device=gdev))
+            # unique per-node random keys (one draw over the whole node axis):
+            # k, s1 = split(k); randint(s1, (n_all,), 0, 1 << 20) * n_all + iota
+            rb = yield draw(lambda: stream.node_keys(0, n_all, n_all))
             accept, pos_iter = yield from _winner_accept(model, m, cap, extra_ok, quota_d,
                                                          f_now, best, eligible, ec, rb)
             if mode == "spread":
                 wf_acc, wf_pos, waterfill = yield from _waterfill_accept(
                     model, m, cap, extra_ok, dc_now, f_now, best, ec, remaining, n_all,
-                    draw, generator,
+                    draw, stream,
                 )
                 accept = torch.where(waterfill, wf_acc, accept)
                 pos_iter = torch.where(waterfill, wf_pos, pos_iter)
@@ -597,7 +600,7 @@ def _waterfill_ranking(group: int):
 
 
 def _waterfill_accept(model, m, cap, extra_ok, dc_now, f_now, best, ec, remaining,
-                      n_all, draw, generator):
+                      n_all, draw, stream):
     """The water-fill: when every present domain sits at one count and no
     skew-blocked node could out-score today's best, k full rounds place at
     once, interleaved round-robin across domains. Returns (accept, pos,
@@ -615,11 +618,10 @@ def _waterfill_accept(model, m, cap, extra_ok, dc_now, f_now, best, ec, remainin
     )
     waterfill = (mx_dc == mn_dc) & ~blocked_over & (kk >= 1)
 
-    # rank eligible nodes within their domain by a random key
-    gdev = generator.device
-    u = yield draw(lambda: torch.rand(n_all, generator=generator, dtype=torch.float32,
-                                      device=gdev))
-    keyf = torch.where(ec, dd.to(torch.float32) * 2.0 + u, float("inf"))
+    # rank eligible nodes within their domain by a random key: a float64
+    # uniform from the iteration's subkey, drawn again (no split)
+    u = yield draw(lambda: stream.uniform(0, n_all, split=False))
+    keyf = torch.where(ec, dd.to(torch.float64) * 2.0 + u, float("inf"))
     accept, rank_n = yield sh.c_apply, (_waterfill_ranking(group), (keyf, ec, dd, kk))
     pos = rank_n * model.d_present + model.d_rank[dd]
     return accept, pos, waterfill

@@ -11,6 +11,8 @@ import torch
 
 from kubernetes_tpu_torch.api.wrappers import MakeNode, MakePod
 from kubernetes_tpu_torch.ops import domain_counts as dc
+from kubernetes_tpu_torch.ops import prng
+from kubernetes_tpu_torch.ops import threefry as tf
 from kubernetes_tpu_torch.solver.exact import ExactSolver, ExactSolverConfig
 from kubernetes_tpu_torch.tensorize.interpod import build_interpod_tensors
 from kubernetes_tpu_torch.tensorize.plugins import build_port_tensors, build_static_tensors
@@ -297,12 +299,15 @@ def test_card_equals_cpu(cuda_device, fdtype):
 
 
 def test_random_tie_break_on_the_card(cuda_device):
-    """Random mode draws from a CUDA generator: the same seed repeats, and
+    """Random mode draws the threefry stream through the kernel, one scan
+    draw per valid pod: the card equals the CPU port bit for bit, and
     every pod is placed with the anti-affinity and port rules held."""
     nodes, pods = _cluster(64, 120)
     cfg = ExactSolverConfig(tie_break="random", seed=5)
+    before = tf.SCAN_LAUNCHES
     a = ExactSolver(cfg).solve(*_tensorize(nodes, pods), device=cuda_device)
-    b = ExactSolver(cfg).solve(*_tensorize(nodes, pods), device=cuda_device)
+    assert tf.SCAN_LAUNCHES - before == len(pods)
+    b = ExactSolver(cfg).solve(*_tensorize(nodes, pods), device="cpu")
     np.testing.assert_array_equal(a, b)
     assert (a >= 0).all()
     anti = a[2::4]
@@ -310,6 +315,118 @@ def test_random_tie_break_on_the_card(cuda_device):
     for port in range(8000, 8008):
         on = [a[i] for i in range(0, len(pods), 4) if 8000 + i % 8 == port]
         assert len(set(on)) == len(on)
+
+
+# -- the threefry kernel ------------------------------------------------------
+
+# JAX 0.9.0 (x64, partitionable threefry), PRNGKey(2026): the scan step's
+# chain (split, then randint(sub, (), 0, max(span, 1)) in int64) over
+# GOLDEN_SPANS, the key after it, then one grouped split's float64 uniform
+# and its randint(0, 1 << 20, int32) * 10240 + iota at GOLDEN_COLUMNS
+GOLDEN_SPANS = (1, 2, 3, 7, 100, 5120, 10240, 0, 9999, 64)
+GOLDEN_RANKS = (0, 0, 0, 0, 34, 3135, 8137, 0, 6960, 21)
+GOLDEN_KEY_AFTER = (277385298, 1201959585)
+GOLDEN_COLUMNS = (0, 1, 5119, 10239)
+GOLDEN_UNIFORM = (0.39642325656630373, 0.8948193735018288, 0.008306621072576181,
+                  0.9273055868316546)
+GOLDEN_NODE_KEYS = (5671362560, 626257921, 8299893759, 7370495999)
+GOLDEN_KEY_END = (2414729977, 3878860213)
+
+
+def _n_ties(v, dev):
+    return torch.tensor(int(v), dtype=torch.int64, device=dev)
+
+
+def test_threefry_known_answer_on_the_card(cuda_device):
+    """The Random123 known answer through the uniform entry point: the
+    subkey slot holds the key (0x13198a2e, 0x03707344) and the column is
+    the counter (0x243f6a88, 0x85a308d3), whose hash (0xc4923a9c,
+    0x483df7a0) becomes the float64 below."""
+    stream = tf.Stream((0, 0), cuda_device)
+    stream.state[4:6] = torch.tensor([0x13198A2E, 0x03707344], device=cuda_device)
+    stream.has_sub = True
+    got = stream.uniform(0x243F6A8885A308D3, 1, split=False)
+    assert got.item() == 0.767856276659806
+
+
+def test_threefry_golden_jax_draws_on_the_card(cuda_device):
+    stream = tf.Stream(prng.prng_key(2026), cuda_device)
+    ranks = torch.stack([stream.rank(_n_ties(s, cuda_device)) for s in GOLDEN_SPANS])
+    assert tuple(ranks.cpu().tolist()) == GOLDEN_RANKS
+    assert stream.key_words() == GOLDEN_KEY_AFTER
+    u = stream.uniform(0, 10240)
+    keys = stream.node_keys(0, 10240, 10240, split=False)
+    cols = list(GOLDEN_COLUMNS)
+    assert tuple(u[cols].cpu().tolist()) == GOLDEN_UNIFORM
+    assert tuple(keys[cols].cpu().tolist()) == GOLDEN_NODE_KEYS
+    assert stream.key_words() == GOLDEN_KEY_END
+
+
+@pytest.mark.parametrize("n", [5120, 10240])
+def test_threefry_kernel_equals_plain(cuda_device, n):
+    """Both entry points against the plain versions on seeded keys, at the
+    main path's widths: scan draws over tie counts up to n with skipped
+    rows between them, grouped splits with the uniform and the node keys,
+    redraws from the same subkey and draws of a column range; every
+    output and the key after each step equal, exactly."""
+    rng = np.random.default_rng(n)
+    for trial in range(4):
+        key = tuple(int(w) for w in rng.integers(0, 1 << 32, 2))
+        card, cpu = tf.Stream(key, cuda_device), tf.Stream(key, "cpu")
+        for step in range(24):
+            for _ in range(int(rng.integers(0, 3))):
+                card.skip()
+                cpu.skip()
+            what = step % 4
+            case = f"n {n}, trial {trial}, step {step}"
+            if what == 0:
+                t = int(rng.integers(0, n + 1))
+                assert_exact(card.rank(_n_ties(t, cuda_device)).cpu(),
+                             cpu.rank(_n_ties(t, "cpu")), case)
+            elif what == 1:
+                assert_exact(card.uniform(0, n).cpu().view(torch.int64),
+                             cpu.uniform(0, n).view(torch.int64), case)
+                assert_exact(card.node_keys(0, n, n, split=False).cpu(),
+                             cpu.node_keys(0, n, n, split=False), case)
+            elif what == 2:
+                assert_exact(card.node_keys(0, n, n).cpu(), cpu.node_keys(0, n, n), case)
+                assert_exact(card.uniform(0, n, split=False).cpu().view(torch.int64),
+                             cpu.uniform(0, n, split=False).view(torch.int64), case)
+            else:
+                lo = int(rng.integers(0, n))
+                assert_exact(card.node_keys(lo, n - lo, n).cpu(), cpu.node_keys(lo, n - lo, n),
+                             case)
+            assert card.key_words() == cpu.key_words(), case
+
+
+def test_threefry_scan_chain_stress(cuda_device):
+    """1,000 scan-step draws with skipped rows between them, the ranks kept
+    on the card and read once: the chain equals the plain chain."""
+    rng = np.random.default_rng(7)
+    spans = rng.integers(0, 10_241, 1000)
+    skips = rng.integers(0, 2, 1000)
+    card, cpu = tf.Stream(prng.prng_key(99), cuda_device), tf.Stream(prng.prng_key(99), "cpu")
+    before = tf.SCAN_LAUNCHES
+    got, want = [], []
+    for t, k in zip(spans, skips):
+        for _ in range(int(k)):
+            card.skip()
+            cpu.skip()
+        got.append(card.rank(_n_ties(t, cuda_device)))
+        want.append(cpu.rank(_n_ties(t, "cpu")))
+    assert tf.SCAN_LAUNCHES - before == 1000
+    assert_exact(torch.stack(got).cpu(), torch.stack(want), "scan chain stress")
+    assert card.key_words() == cpu.key_words()
+
+
+def test_threefry_wrapper_raises_instead_of_falling_back(cuda_device):
+    stream = tf.Stream(prng.prng_key(0), cuda_device)
+    with pytest.raises(ValueError, match="int64"):
+        stream.rank(torch.tensor(3, dtype=torch.int32, device=cuda_device))
+    with pytest.raises(ValueError, match="stream on"):
+        stream.rank(torch.tensor(3, dtype=torch.int64))
+    with pytest.raises(ValueError, match="subkey"):
+        stream.uniform(0, 8, split=False)
 
 
 # -- the grouped path, nominated pods and the session on the card ---------------
@@ -350,12 +467,15 @@ def test_grouped_first_equals_scan_on_the_card(cuda_device, kind, want):
 @pytest.mark.parametrize("kind", ["plain", "spread", "anti"])
 def test_grouped_random_on_the_card(cuda_device, kind):
     """Random mode places every pod with the workload's invariants held,
-    and one seed repeats on the card."""
+    one grouped draw launch per loop iteration or more, and the card
+    equals the CPU port bit for bit."""
     nodes, _ = _cluster(300, 0)
     pods = _kind_pods(kind, 256)
     cfg = ExactSolverConfig(tie_break="random", seed=3)
+    before = tf.GROUPED_LAUNCHES
     a = ExactSolver(cfg).solve(*_tensorize(nodes, pods), device=cuda_device)
-    b = ExactSolver(cfg).solve(*_tensorize(nodes, pods), device=cuda_device)
+    assert tf.GROUPED_LAUNCHES > before
+    b = ExactSolver(cfg).solve(*_tensorize(nodes, pods), device="cpu")
     np.testing.assert_array_equal(a, b)
     assert (a >= 0).all()
     if kind == "spread":
@@ -1168,6 +1288,8 @@ import numpy as np
 import torch
 from kubernetes_tpu_torch import build
 from kubernetes_tpu_torch.ops import domain_counts as dc
+from kubernetes_tpu_torch.ops import prng
+from kubernetes_tpu_torch.ops import threefry as tf
 
 builds = []
 build.BUILD_LISTENERS.append(lambda name, s: builds.append(name))

@@ -7,9 +7,14 @@ scan bit for bit: assignments, written-back node state and the
 executable-dispatch counts (chunk kinds, compact batches). The fixtures are
 those of tests/test_grouped_scan.py (uniform runs, one-off pods, hostPort
 cap, saturation tail, compact wire) and tests/test_grouped_quota.py
-(spread and anti chunks). Random mode cannot reproduce jax.random, so its
-picks are held to the NumPy oracle's tie set and the workloads' skew and
-exclusivity invariants, over a handful of seeds."""
+(spread and anti chunks). Random mode draws the JAX package's threefry
+stream, so over a handful of seeds its picks equal the JAX package's grouped
+solve bit for bit (plain, spread with the water-fill, anti, and batches
+that mix the slow kind with the fast ones), and are held to the NumPy
+oracle's tie set and the workloads' skew and exclusivity invariants too."""
+
+import dataclasses
+
 
 import numpy as np
 import pytest
@@ -57,9 +62,9 @@ def _config(group, tie="first", seed=0, compact=True):
                      balanced_fdtype="float64")
 
 
-def ref_solve(nodes, pods, group, families=False, compact=True):
+def ref_solve(nodes, pods, group, families=False, compact=True, tie="first", seed=0):
     inputs = ref_inputs(nodes, pods, group=group, families=families)
-    solver = RefSolver(_config(group, compact=compact))
+    solver = RefSolver(_config(group, tie, seed, compact))
     got = solver.solve(*inputs)
     return got, {k: getattr(inputs[0], k) for k in STATE}, dict(solver.dispatch_counts)
 
@@ -83,6 +88,14 @@ def assert_same(port, ref, counts=True):
         np.testing.assert_array_equal(port[1][k], ref[1][k], err_msg=k)
     if counts:
         assert port[2] == ref[2]
+
+
+def random_solve(nodes, pods, group, families=False, seed=0, compact=True):
+    """The port's random-mode solve, equal to the JAX package's bit for
+    bit: assignments, written-back node state and dispatch counts."""
+    port = port_solve(nodes, pods, group, families, compact, tie="random", seed=seed)
+    assert_same(port, ref_solve(nodes, pods, group, families, compact, tie="random", seed=seed))
+    return port
 
 
 def check_first_mode(nodes, pods, group, families=False):
@@ -265,17 +278,18 @@ def test_compact_wire_falls_back_on_mixed_rows():
 @pytest.mark.parametrize("seed", [5, 6])
 def test_compact_wire_random_mode_same_draws(seed):
     """Random mode: the compact and the full upload run the same chunk
-    kinds and draw the same numbers, so they place identically."""
+    kinds and draw the same numbers, so they place identically, as the
+    JAX package's compact solve does."""
     rng = np.random.default_rng(17)
     nodes = scan.mk_nodes(10, rng)
     pods = scan.mk_replica_run("app", 30, 300, 256)  # a partial tail chunk
-    comp = port_solve(nodes, pods, 8, tie="random", seed=seed)
+    comp = random_solve(nodes, pods, 8, seed=seed)
     full = port_solve(nodes, pods, 8, tie="random", seed=seed, compact=False)
     np.testing.assert_array_equal(comp[0], full[0])
     assert comp[2]["compact_batches"] == 1
 
 
-# -- random mode: the oracle's tie set ------------------------------------------
+# -- random mode: the JAX package's draws, and the oracle's tie set ------------
 
 
 def _validate(nodes, pods, assignments, names):
@@ -291,17 +305,26 @@ def test_random_plain_chunks_in_tie_set(seed):
     nodes = scan.mk_nodes(20, rng, taint_every=4, label_every=3)
     pods = scan.mk_replica_run("a", 48, 250, 512) + scan.mk_replica_run(
         "b", 30, 500, 1024, tolerate=True)
-    got, _, counts = port_solve(nodes, pods, 8, tie="random", seed=seed)
+    got, _, counts = random_solve(nodes, pods, 8, seed=seed)
     assert counts.get("kind1", 0) > 0
     _validate(nodes, pods, got, [n.name for n in nodes])
 
 
 @pytest.mark.parametrize("seed", range(4))
-def test_random_spread_chunks_in_tie_set_and_balanced(seed):
+def test_random_spread_chunks_in_tie_set_and_balanced(seed, monkeypatch):
     nodes = quota.mk_nodes(24)
     pods = quota.mk_pods(48, "spread")
-    got, _, counts = port_solve(nodes, pods, quota.GROUP, families=True, tie="random",
-                                seed=seed)
+    waterfill = []
+    accept = gp._waterfill_accept
+
+    def recorded(*args):
+        out = yield from accept(*args)
+        waterfill.append(bool(out[2]))
+        return out
+
+    monkeypatch.setattr(gp, "_waterfill_accept", recorded)
+    got, _, counts = random_solve(nodes, pods, quota.GROUP, families=True, seed=seed)
+    assert any(waterfill), "the water-fill's draw was taken"
     assert counts["kind2"] == 3
     assert (got >= 0).all()
     _validate(nodes, pods, got, [n.name for n in nodes])
@@ -313,8 +336,7 @@ def test_random_spread_chunks_in_tie_set_and_balanced(seed):
 def test_random_anti_chunks_in_tie_set_and_exclusive(seed):
     nodes = quota.mk_nodes(32)
     pods = quota.mk_pods(24, "anti")
-    got, _, counts = port_solve(nodes, pods, quota.GROUP, families=True, tie="random",
-                                seed=seed)
+    got, _, counts = random_solve(nodes, pods, quota.GROUP, families=True, seed=seed)
     assert counts["kind3"] == 1
     assert (got >= 0).all() and len(set(got.tolist())) == 24
     _validate(nodes, pods, got, [n.name for n in nodes])
@@ -326,7 +348,7 @@ def test_random_quota_chunks_at_larger_scale_and_overload():
     nodes = quota.mk_nodes(512)
     group = quota.GROUP
     pods = quota.mk_pods(4 * group, "spread") + quota.mk_pods(4 * group, "anti")
-    got = port_solve(nodes, pods, group, families=True, tie="random", seed=1)[0]
+    got = random_solve(nodes, pods, group, families=True, seed=1)[0]
     assert (got >= 0).all()
     oracle = FullOracle(make_oracle_nodes(nodes))
     names = [nodes[a].name for a in got]
@@ -338,6 +360,26 @@ def test_random_quota_chunks_at_larger_scale_and_overload():
     assert len(set(got[4 * group :].tolist())) == 4 * group
 
     small = quota.mk_nodes(8)
-    over = port_solve(small, quota.mk_pods(12, "anti"), group, families=True,
-                      tie="random")[0]
+    over = random_solve(small, quota.mk_pods(12, "anti"), group, families=True)[0]
     assert (over >= 0).sum() == 8 and len(set(over[over >= 0].tolist())) == 8
+
+
+def test_random_mixed_kinds_equal_the_jax_package():
+    """One batch whose chunks mix the slow kind (one-off pods: the per-pod
+    scan's one split per row, the padding rows of the last chunk included)
+    with the spread, anti and plain kinds (one split per loop iteration):
+    the key chain runs through the chunks in order, as the JAX package's
+    chunk_step threads it, and the placements equal its own bit for bit."""
+    g = quota.GROUP
+
+    def oneoff(n):
+        return [MakePod().name(f"odd-{i}").req({"cpu": f"{300 + 100 * (i % 2)}m",
+                                                "memory": "1Gi"}).obj() for i in range(n)]
+
+    pods = (quota.mk_pods(2 * g, "spread") + oneoff(g) + quota.mk_pods(g, "anti")
+            + quota.mk_pods(g, "plain") + oneoff(3))
+    pods = [dataclasses.replace(p, name=f"q-{i:03}") for i, p in enumerate(pods)]
+    got, _, counts = random_solve(quota.mk_nodes(48), pods, g, families=True, seed=2,
+                                  compact=False)
+    assert all(counts[f"kind{k}"] >= 1 for k in range(4)), counts
+    assert (got[: 2 * g] >= 0).all()

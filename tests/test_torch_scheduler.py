@@ -7,8 +7,10 @@ Each scenario is built once with the JAX package's ``MakeNode`` /
 ``mesh_devices=1``; its results are device-count invariant), and must give
 the same batch results in order, the same bindings, nominations and
 ``scheduler_schedule_attempts_total`` deltas (``_torch_sched_pair.Pair``).
-Random mode, the production default, is held by invariants and by the
-oracle's tie set: it cannot reproduce the JAX package's threefry stream.
+Random mode, the production default, draws the JAX package's threefry
+stream: with the default config the port binds every pod where the JAX
+package's does, and its picks are held by invariants and by the oracle's
+tie set too.
 """
 
 import json
@@ -250,7 +252,8 @@ def test_mixed_multi_batch_with_heal():
     assert pair.cluster.get_pod("default", "nominee").node_name == "node-0003"
 
 
-# -- the production default config: invariants and the oracle's tie set ----
+# -- the production default config: the JAX package's bindings, invariants
+# -- and the oracle's tie set -----------------------------------------------
 
 
 def _check_invariants(cluster):
@@ -290,15 +293,19 @@ def test_default_random_config_invariants_and_tie_set(seed):
     for i in range(120):
         cs.create_pod(_mixed_pod(i) if i % 3 else
                       MakePod().name(f"m{i:03}").req({"cpu": "250m", "memory": "512Mi"}).obj())
-    port_cs = convert.cluster_state(cs)
+    # the production defaults, with the seed of the random tie-break drawn;
+    # the JAX package's Scheduler on the same cluster binds alike
+    pair = Pair(cs, solver=dict(seed=seed), batch_size=64)
+    cfg = pair.port.config
+    assert cfg.solver.tie_break == "random" and cfg.solver.group_size == 64
+    assert cfg.solver == ExactSolverConfig(seed=seed)
+    port_cs = pair.cluster
     nodes = port_cs.list_nodes()
     pods = {p.key: p for p in port_cs.list_pods()}
-    # the production defaults, with the seed of the random tie-break drawn
-    cfg = SchedulerConfig(batch_size=64, solver=ExactSolverConfig(seed=seed))
-    assert cfg.solver.tie_break == "random" and cfg.solver.group_size == 64
-    sched = Scheduler(port_cs, cfg, clock=FakeClock(), device="cpu")
+    _, results = pair.run("settled")
+    pair.assert_equal()
     order = []
-    for r in sched.run_until_settled():
+    for r in results:
         order += r.scheduled
     # every feasible pod bound: hostPort pods beyond one per node cannot be
     lb = [p for p in pods.values() if p.labels.get("app") == "lb"]

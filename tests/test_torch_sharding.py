@@ -109,9 +109,9 @@ def shape_inputs(kind, n_nodes=256, n_pods=48):
                       [_shape_pod(ref_wrappers, i, kind) for i in range(n_pods)])
 
 
-def ref_solve(inputs, mesh=None, **cfg):
+def ref_solve(inputs, mesh=None, tie="first", **cfg):
     inputs = copy.deepcopy(inputs)
-    solver = RefSolver(RefConfig(tie_break="first", balanced_fdtype="float64", **cfg))
+    solver = RefSolver(RefConfig(tie_break=tie, balanced_fdtype="float64", seed=5, **cfg))
     got = np.asarray(solver.solve(*inputs, mesh=mesh))
     return got, {k: np.asarray(getattr(inputs[0], k)) for k in STATE}
 
@@ -228,17 +228,23 @@ def test_exact_scan_sharded_equals_unsharded(k, scan_reference, monkeypatch):
 
 
 @pytest.mark.parametrize("k", [2, 3, 8])
-def test_random_mode_sharded_equals_unsharded(k):
-    """tie_break="random": one uniform per step from the lead's one
-    generator, whatever the shard count, so k shards == unsharded bit for
-    bit, the scan (mixed) and the grouped kinds alike."""
+def test_random_mode_sharded_equals_unsharded(k, jmesh):
+    """tie_break="random": one draw per step or loop iteration from the
+    lead's one threefry stream, whatever the shard count, so k shards ==
+    unsharded bit for bit, the scan (mixed) and the grouped kinds alike;
+    at k = 2 the scan and the spread kind (the water-fill's second draw)
+    equal the JAX package's 8-way mesh (its draws, bit for bit)."""
     scan = mixed_inputs(48)
-    same(port_solve(scan, k, tie="random", group_size=1),
-         port_solve(scan, None, tie="random", group_size=1))
+    got = port_solve(scan, k, tie="random", group_size=1)
+    same(got, port_solve(scan, None, tie="random", group_size=1))
+    if k == 2:
+        same(got, ref_solve(scan, jmesh, tie="random", group_size=1))
     for kind in ("plain", "spread", "anti"):
         inputs = shape_inputs(kind, n_pods=64)
-        same(port_solve(inputs, k, tie="random", group_size=16),
-             port_solve(inputs, None, tie="random", group_size=16))
+        got = port_solve(inputs, k, tie="random", group_size=16)
+        same(got, port_solve(inputs, None, tie="random", group_size=16))
+        if k == 2 and kind == "spread":
+            same(got, ref_solve(inputs, jmesh, tie="random", group_size=16))
 
 
 # -- 2. the grouped kinds and the hard shapes ------------------------------
@@ -277,6 +283,8 @@ def test_argmax_tie_across_the_shard_boundary(jmesh):
         same(port_solve(inputs, k, group_size=1), want)
         got = port_solve(inputs, k, tie="random", group_size=1)
         assert sorted(got[0][:2]) == [w - 1, w] and got[0][2] == -1
+        if k == 2:
+            same(got, ref_solve(inputs, jmesh, tie="random", group_size=1))
 
 
 def test_nominated_override_on_another_shard():

@@ -1,8 +1,9 @@
 """The slice end to end: the port's ExactSolver.solve on the CPU against the
 JAX package's (tie_break="first", balanced_fdtype="float64", the Pallas
 switch off and on). The assignments and the node state written back into
-the NodeBatch must be bit-identical. Random mode is held to the NumPy
-oracle's tie set."""
+the NodeBatch must be bit-identical. Random mode draws the JAX package's
+threefry stream: its assignments equal the JAX package's bit for bit, and
+are held to the NumPy oracle's tie set too."""
 
 import numpy as np
 import pytest
@@ -116,10 +117,28 @@ def test_scoring_strategies_end_to_end(strategy, weights):
 
 
 def test_random_tie_break_lands_in_oracle_tie_set():
+    """The per-pod scan in random mode (the default float32 balanced
+    scores) equals the JAX package's solve bit for bit, and every pick
+    lies in the oracle's tie set."""
+    _check_random_scan("float32")
+
+
+def test_random_tie_break_equals_the_jax_package_in_float64():
+    """The same with the Go oracle's float64 balanced scores."""
+    _check_random_scan("float64")
+
+
+def _check_random_scan(fdtype):
     nodes, pods, _ = mixed_cluster(ref_wrappers, 48, 120, seed=5)
+    ref_cfg = RefConfig(tie_break="random", seed=3, balanced_fdtype=fdtype)
+    want = RefSolver(ref_cfg).solve(*tensorize("kubernetes_tpu", nodes, pods, {}))
     inputs = convert.solve_inputs(*tensorize("kubernetes_tpu", nodes, pods, {}))
-    cfg = convert.solver_config(RefConfig(tie_break="random", seed=3))
-    assignments = ExactSolver(cfg).solve(*inputs, device="cpu")
+    assignments = ExactSolver(convert.solver_config(ref_cfg)).solve(*inputs, device="cpu")
+    np.testing.assert_array_equal(assignments, want)
+    assert (assignments != ExactSolver(convert.solver_config(
+        RefConfig(tie_break="first", seed=3, balanced_fdtype=fdtype))).solve(
+            *convert.solve_inputs(*tensorize("kubernetes_tpu", nodes, pods, {})),
+            device="cpu")).any(), "the draws decide some picks"
     names = [inputs[0].names[a] if a >= 0 else None for a in assignments]
     oracle = FullOracle(make_oracle_nodes(nodes))
     errors = oracle.validate_assignments(pods, list(assignments), names=names)

@@ -367,15 +367,12 @@ def test_completion_thread_exits_when_scheduler_collected():
 
 @pytest.mark.parametrize("loop", ["pipelined", "streaming"])
 def test_default_random_config_invariants_and_tie_set(loop):
-    """The production default config ("random", group 64) cannot match the
-    JAX package's threefry stream: through each loop every feasible pod
-    binds, the invariants hold, and every pick replays into the oracle's
-    tie set in bind order."""
-    from kubernetes_tpu_torch import convert
+    """The production default config ("random", group 64): through each
+    loop the port binds every pod where the JAX package's does (its
+    threefry stream, bit for bit), every feasible pod binds, the
+    invariants hold, and every pick replays into the oracle's tie set in
+    bind order."""
     from kubernetes_tpu_torch.ops.oracle.profile import FullOracle, make_oracle_nodes
-    from kubernetes_tpu_torch.scheduler import Scheduler, SchedulerConfig
-    from kubernetes_tpu_torch.solver.exact import ExactSolverConfig
-    from kubernetes_tpu_torch.utils.clock import FakeClock
     from test_torch_scheduler import _check_invariants, _mixed_pod
     from test_torch_scheduler import mk_cluster as zoned_cluster
 
@@ -383,12 +380,12 @@ def test_default_random_config_invariants_and_tie_set(loop):
     for i in range(120):
         cs.create_pod(_mixed_pod(i) if i % 3 else
                       MakePod().name(f"m{i:03}").req({"cpu": "250m", "memory": "512Mi"}).obj())
-    port_cs = convert.cluster_state(cs)
+    pair = Pair(cs, solver=dict(seed=3), batch_size=32)
+    port_cs = pair.cluster
     nodes = port_cs.list_nodes()
     pods = {p.key: p for p in port_cs.list_pods()}
-    sched = Scheduler(port_cs, SchedulerConfig(batch_size=32, solver=ExactSolverConfig(seed=3)),
-                      clock=FakeClock(), device="cpu")
-    results = sched.run_pipelined() if loop == "pipelined" else sched.run_streaming()
+    _, results = pair.run(loop)
+    pair.assert_equal()
     order = [x for r in results for x in r.scheduled]
     lb = [p for p in pods.values() if p.labels.get("app") == "lb"]
     assert len(order) == len(pods) - max(len(lb) - len(nodes), 0)
@@ -397,3 +394,65 @@ def test_default_random_config_invariants_and_tie_set(loop):
         [pods[k] for k, _ in order], [0] * len(order), names=[n for _, n in order]
     )
     assert not errors, "\n".join(errors[:5])
+
+
+# -- random mode: the JAX package's threefry stream, bit for bit ---------------
+
+
+def _random_solvers(group, seed):
+    from kubernetes_tpu.solver.exact import ExactSolver as RefSolver
+    from kubernetes_tpu.solver.exact import ExactSolverConfig as RefConfig
+    from kubernetes_tpu_torch import convert
+    from kubernetes_tpu_torch.solver.exact import ExactSolver
+
+    cfg = RefConfig(tie_break="random", seed=seed, balanced_fdtype="float64", group_size=group)
+    return ExactSolver(convert.solver_config(cfg)), RefSolver(cfg)
+
+
+def test_random_mode_session_heal_split_and_stream_carry_equal_the_jax_package():
+    """tie_break="random" through one grouped solver of each package:
+    session solves with a heal after an external binding, a batch as two
+    chained sub-batches (each its own ``fold_in`` stream), and a batch that keeps
+    the stream carry and the next one that starts from it. Every batch
+    equals the JAX package's bit for bit, dispatch counts included, and
+    the draws matter: "first" mode places the first batch elsewhere."""
+    from kubernetes_tpu_torch import convert
+    from test_torch_session import Cluster, _gather, _pods, _stream_batch, standalone
+
+    cluster = Cluster()
+    group = 16
+    port, ref = _random_solvers(group, seed=5)
+
+    def session(pods, **kw):
+        got = port.solve(*convert.solve_inputs(*cluster.tensorize(pods)),
+                         col_versions=cluster.versions.copy(), device="cpu", **kw)
+        want = ref.solve(*cluster.tensorize(pods), col_versions=cluster.versions.copy(), **kw)
+        if kw.get("defer_read"):
+            got, want = _gather(got), _gather(want)
+        np.testing.assert_array_equal(got, want)
+        return got
+
+    pods = _pods(0, 64)
+    got = session(pods)
+    assert (got != standalone(cluster, pods, group)).any()
+    cluster.apply(pods, got)
+    cluster.external(4, "ext-0")  # dirties a column: the next solve heals it
+    pods = _pods(1, 64)
+    cluster.apply(pods, session(pods))
+    pods = _pods(2, 64)
+    cluster.apply(pods, session(pods, defer_read=True, split=2))
+    kinds = ("spread", "plain")
+    pods = _pods(3, 64, kinds)
+    got, r_got, _ = _stream_batch(cluster, port, ref, pods, stream_carry_out=True, split=2)
+    np.testing.assert_array_equal(got, r_got)
+    cluster.apply(pods, got)
+    port.note_stream_applied(cluster.versions.copy())
+    ref.note_stream_applied(cluster.versions.copy())
+    pods = _pods(4, 64, kinds)
+    got, r_got, _ = _stream_batch(cluster, port, ref, pods, chain_occupancy=True,
+                                  stream_carry_out=True, allow_heal=False)
+    np.testing.assert_array_equal(got, r_got)
+    assert dict(port.dispatch_counts) == dict(ref.dispatch_counts)
+    assert port.dispatch_counts["stream_chained"] == 1
+    assert port.dispatch_counts["chained_subbatches"] >= 4
+

@@ -4,7 +4,8 @@ rules, capturer lifecycle, ``build_telemetry`` gating, the top renderer),
 run on the port's copies of those modules; then a replay bundle captured
 by the port's Scheduler replays bit-identically through the JAX package's
 ``replay_bundle``, and one the JAX package captured replays through the
-port's, both in "first" mode; random mode replays within its own package.
+port's, in "first" mode and in random mode (the port draws the JAX
+package's threefry stream).
 """
 
 import dataclasses
@@ -431,6 +432,22 @@ def test_port_bundle_matches_the_reference_bundle(tmp_path):
     assert set(ref["config"]) - set(port["config"]) == {"pallas"}
     for key in ("containers", "step_count", "split", "carry_clean", "num_pods", "trigger"):
         assert port[key] == ref[key], key
+
+
+@pytest.mark.parametrize("captured_by,replayed_by", [("port", "jax"), ("jax", "port")])
+def test_random_mode_bundle_replays_across_packages(tmp_path, captured_by, replayed_by):
+    """A random-mode bundle captured at the second solve (its solve count
+    seeds the key) replays to the same assignments in both packages."""
+    k = _side(captured_by)
+    sched = _scheduler(k, _cluster(k), k.ObsConfig(bundle_dir=str(tmp_path)), tie="random",
+                       batch_size=16)
+    sched.schedule_batch()
+    sched.schedule_batch()
+    path = sched.telemetry.capture("manual")
+    for by in (captured_by, replayed_by):
+        rep = _replay(_side(by), path)
+        assert rep["replayable"] and rep["ok"], (by, rep)
+        assert rep["detail"] == "assignments bit-identical" and rep["pods"] == 8
 
 
 def test_random_mode_bundle_replays_within_the_port(tmp_path):
