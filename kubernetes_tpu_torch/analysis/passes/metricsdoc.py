@@ -18,7 +18,10 @@ without the suffix; the comparison normalizes exactly like the doc
 generator does.
 
 Copied from ``kubernetes_tpu/analysis/passes/metricsdoc.py``; the port
-reads the JAX package's ``docs/METRICS.md`` and never writes it.
+reads the JAX package's ``docs/METRICS.md`` and never writes it. The
+port's own series are documented beside its registry
+(``kubernetes_tpu_torch/metrics/METRICS.md``), which this pass reads as
+a second table when it reads the shipped files.
 """
 
 from __future__ import annotations
@@ -83,6 +86,7 @@ class MetricsDocPass(ProjectPass):
 
         doc_text = ctx.metrics_doc_text
         doc_label = "docs/METRICS.md"
+        docs: list[tuple[str, str]] = []
         if doc_text is None:
             doc_path = (
                 Path(m.path).resolve().parents[2] / "docs" / "METRICS.md"
@@ -102,12 +106,17 @@ class MetricsDocPass(ProjectPass):
                     )
                 ]
             doc_text = doc_path.read_text()
+            port_doc = Path(m.path).resolve().parent / "METRICS.md"
+            if port_doc.exists():
+                docs.append((str(port_doc), port_doc.read_text()))
+        docs.insert(0, (doc_label, doc_text))
 
-        documented: dict[str, int] = {}
-        for i, line in enumerate(doc_text.splitlines(), 1):
-            row = _ROW_RE.match(line.strip())
-            if row:
-                documented.setdefault(row.group(1), i)
+        documented: dict[str, tuple[str, int]] = {}
+        for label, text in docs:
+            for i, line in enumerate(text.splitlines(), 1):
+                row = _ROW_RE.match(line.strip())
+                if row:
+                    documented.setdefault(row.group(1), (label, i))
 
         findings: list[Finding] = []
         reg_names = {name for name, _ in registered}
@@ -131,11 +140,12 @@ class MetricsDocPass(ProjectPass):
                 )
         for name in sorted(documented):
             if name not in reg_names:
+                path, line = documented[name]
                 findings.append(
                     Finding(
                         rule=self.rule,
-                        path=doc_label,
-                        line=documented[name],
+                        path=path,
+                        line=line,
                         message=(
                             f"documented metric '{name}' is not "
                             "registered in kubernetes_tpu_torch/metrics"

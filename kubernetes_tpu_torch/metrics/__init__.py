@@ -873,6 +873,72 @@ extender_request_seconds = Histogram(
 )
 
 
+# -- the port's own series (no JAX counterpart; documented in
+# kubernetes_tpu_torch/metrics/METRICS.md, not docs/METRICS.md). The
+# StageProfiler advances each once per batch from the program's bare
+# hot-path cells, so they count while the profiler is on --
+
+kernel_launches_total = Counter(
+    "scheduler_kernel_launches_total",
+    "Hand-written kernel launches, by kernel (domain_counts|"
+    "threefry_scan|threefry_grouped), folded once per batch from the "
+    "launch sites' cells by the per-stage profiler.",
+    ["kernel"],
+    registry=REGISTRY,
+)
+solve_card_reads_total = Counter(
+    "scheduler_solve_card_reads_total",
+    "Blocking device-to-host reads inside the solvers, by site (grouped: "
+    "the random chunk loop's exit test|relax: the planner's convergence "
+    "test|auction: the auction's round test|evaluate: the webhook "
+    "evaluation's result|preemption: the dry-run's verdicts).",
+    ["site"],
+    registry=REGISTRY,
+)
+solve_card_read_seconds_total = Counter(
+    "scheduler_solve_card_read_seconds_total",
+    "Host seconds spent waiting in the solvers' blocking device-to-host "
+    "reads, by site (as scheduler_solve_card_reads_total).",
+    ["site"],
+    registry=REGISTRY,
+)
+solve_steps_total = Counter(
+    "scheduler_solve_steps_total",
+    "Steps the exact solver issued, by kind (scan_steps: one per pod "
+    "row the per-pod scan stepped over|grouped_iterations: one per "
+    "iteration of a grouped chunk's loop).",
+    ["kind"],
+    registry=REGISTRY,
+)
+mesh_combines_total = Counter(
+    "scheduler_mesh_combines_total",
+    "Cross-shard combines of the node-axis mesh's lockstep solves.",
+    registry=REGISTRY,
+)
+mesh_combine_seconds_total = Counter(
+    "scheduler_mesh_combine_seconds_total",
+    "Host seconds in the node-axis mesh's cross-shard combines.",
+    registry=REGISTRY,
+)
+gc_collections_total = Counter(
+    "scheduler_profile_gc_collections_total",
+    "The interpreter's garbage collections while the per-stage profiler "
+    "lives, by generation (0|1|2); their pauses are "
+    "scheduler_profile_stage_seconds_total{stage=\"gc\"}.",
+    ["generation"],
+    registry=REGISTRY,
+)
+PORT_SERIES = (
+    kernel_launches_total,
+    solve_card_reads_total,
+    solve_card_read_seconds_total,
+    solve_steps_total,
+    mesh_combines_total,
+    mesh_combine_seconds_total,
+    gc_collections_total,
+)
+
+
 def render() -> bytes:
     """Prometheus exposition text for the /metrics endpoint."""
     return generate_latest(REGISTRY)

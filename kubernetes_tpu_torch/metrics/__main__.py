@@ -10,10 +10,11 @@
 Copied from ``kubernetes_tpu/metrics/__main__.py``. The rows read the
 port's registry (``kubernetes_tpu_torch/metrics/__init__.py``, whose
 classes are ``metrics/prom.py``'s) instead of ``prometheus_client``. The
-port exports the same series as the JAX package, so ``--check`` holds it
+port exports the JAX package's series, so ``--check`` holds them
 against the JAX package's ``docs/METRICS.md``, header included, and
 never writes that file: the JAX package's ``--doc`` has no counterpart
-here.
+here. The port's own series (``metrics.PORT_SERIES``) are held against
+``kubernetes_tpu_torch/metrics/METRICS.md``.
 """
 
 from __future__ import annotations
@@ -36,11 +37,23 @@ regenerate after adding or changing a series;
 | name | type | labels | help |
 |---|---|---|---|
 """
+PORT_HEADER = """\
+# The port's own metrics
+
+Series of `kubernetes_tpu_torch/metrics/__init__.py` (`PORT_SERIES`)
+that the JAX package's `docs/METRICS.md` does not list. Rendered by
+`python -m kubernetes_tpu_torch.metrics --stdout`; `--check` holds this
+file to the registry.
+
+| name | type | labels | help |
+|---|---|---|---|
+"""
 
 
-def _rows() -> list[tuple[str, str, str, str]]:
+def _rows(port: bool = False) -> list[tuple[str, str, str, str]]:
     """(series name, type, labels, help) per registered metric, sorted
-    by series name. Reads the live module objects, not the AST, so the
+    by series name: the JAX package's series, or with ``port`` the
+    port's own. Reads the live module objects, not the AST, so the
     doc reflects exactly what ``metrics.render()`` exposes."""
     from .. import metrics as m
     from .prom import Counter, Gauge, Histogram
@@ -54,7 +67,7 @@ def _rows() -> list[tuple[str, str, str, str]]:
     for attr in dir(m):
         obj = getattr(m, attr)
         kind = kinds.get(type(obj))
-        if kind is None:
+        if kind is None or any(obj is p for p in m.PORT_SERIES) != port:
             continue
         name = obj._name
         if kind == "counter" and not name.endswith("_total"):
@@ -70,9 +83,9 @@ def _rows() -> list[tuple[str, str, str, str]]:
     return rows
 
 
-def render_doc() -> str:
-    lines = [HEADER.rstrip("\n")]
-    for name, kind, labels, help_text in _rows():
+def render_doc(port: bool = False) -> str:
+    lines = [(PORT_HEADER if port else HEADER).rstrip("\n")]
+    for name, kind, labels, help_text in _rows(port):
         help_md = help_text.replace("|", "\\|")
         lines.append(f"| `{name}` | {kind} | {labels} | {help_md} |")
     return "\n".join(lines) + "\n"
@@ -82,6 +95,10 @@ def doc_path() -> Path:
     return (
         Path(__file__).resolve().parents[2] / "docs" / "METRICS.md"
     )
+
+
+def port_doc_path() -> Path:
+    return Path(__file__).resolve().parent / "METRICS.md"
 
 
 def main(argv=None) -> int:
@@ -98,23 +115,25 @@ def main(argv=None) -> int:
         help="print the reference rendered from the registry",
     )
     args = parser.parse_args(argv)
-    doc = render_doc()
+    docs = ((doc_path(), render_doc()), (port_doc_path(), render_doc(port=True)))
     if args.stdout:
-        sys.stdout.write(doc)
+        sys.stdout.write("\n".join(doc for _, doc in docs))
         return 0
-    path = doc_path()
     if args.check:
-        committed = path.read_text() if path.exists() else ""
-        if committed != doc:
-            print(
-                f"{path}: differs from the port's registry — the port "
-                "lacks or changed a series (`python -m "
-                "kubernetes_tpu_torch.metrics --stdout` shows its rows)",
-                file=sys.stderr,
-            )
-            return 1
-        print(f"{path}: matches the registry")
-        return 0
+        rc = 0
+        for path, doc in docs:
+            committed = path.read_text() if path.exists() else ""
+            if committed != doc:
+                print(
+                    f"{path}: differs from the port's registry — the port "
+                    "lacks or changed a series (`python -m "
+                    "kubernetes_tpu_torch.metrics --stdout` shows its rows)",
+                    file=sys.stderr,
+                )
+                rc = 1
+            else:
+                print(f"{path}: matches the registry")
+        return rc
     parser.print_help()
     return 2
 

@@ -239,6 +239,11 @@ class Telemetry:
         if self.profiler is not None:
             self.profiler.add(stage, seconds)
 
+    def add_solve(self, times) -> None:
+        """One solve call's sub-stages and counts (solver/timing.py)."""
+        if self.profiler is not None:
+            self.profiler.add_solve(times)
+
     # -- the per-batch tick (commit seam, next to the SLO engine) --
 
     def observe_batch(self, scheduler, *, step: int, pods: int) -> None:

@@ -145,7 +145,7 @@ _KNOWN_KEYS = frozenset(_REQUIRED_KEYS) | frozenset(_OPTIONAL_FIELDS)
 # the recover/bisect roots all stay inside this surface)
 _SPAN_REQUIRED = ("name", "span", "trace", "start", "end", "dur")
 _SPAN_KNOWN = frozenset(_SPAN_REQUIRED) | {
-    "k", "v", "parent", "status", "attrs",
+    "k", "v", "parent", "status", "attrs", "t0_ns", "t1_ns",
 }
 
 

@@ -24,15 +24,40 @@ Stage taxonomy (one batch's life):
     apply         host: assume/reserve under the lock
     bind          host: commit to the state service (api round-trip)
 
-Copied from ``kubernetes_tpu/obs/profile.py``.
+Six more stages overlap those seven, so the stage mix
+(``stage_fraction``) leaves them out:
+
+    upload        dispatch's uploads: the session's sync and heals, the
+                  class tables, the batch and pod rows
+    prepare       dispatch's host work before the run
+    issue         dispatch's run: the scan's steps, the grouped chunks
+    card_read     blocking card reads inside issue (lever 7)
+    enqueue       the watch handler, every event (overlaps bind, whose
+                  confirmations it handles)
+    gc            the interpreter's collector pauses (overlap anything)
+
+The first four are the solver's own account of each call
+(``solver/timing.py``); dispatch less their sum is dispatch's self time.
+``enqueue`` and ``gc`` are process-wide cells the profiler folds by
+delta at each batch. The ledger also carries the per-batch deltas of the
+program's bare counters (kernel launches, the mesh's combines, the card
+reads by site) and of the scan steps and grouped iterations the Scheduler
+hands over, and advances their registry counters once per batch.
+
+Copied from ``kubernetes_tpu/obs/profile.py``; the six overlapping
+stages and the program's counters are the port's.
 """
 
 from __future__ import annotations
 
+import gc
+import sys
 import threading
+import weakref
 from collections import deque
 
 from .. import metrics
+from ..solver import timing
 
 STAGES = (
     "tensorize",
@@ -43,6 +68,10 @@ STAGES = (
     "apply",
     "bind",
 )
+NESTED_STAGES = ("upload", "prepare", "issue", "card_read", "enqueue", "gc")
+ALL_STAGES = STAGES + NESTED_STAGES
+# counts the Scheduler hands over per solve call (solver/timing.py)
+SOLVE_COUNTS = ("scan_steps", "grouped_iterations")
 
 
 def _cell(counter) -> float:
@@ -60,8 +89,18 @@ def _labeled_total(counter) -> float:
     return float(sum(c._value.get() for c in children))
 
 
-# within-batch deltas folded into each ledger entry: transfer volume
-# and the chain/split/discard decisions the loops tick. All host-side
+def _global(module: str, name: str):
+    """Reader of one of the program's bare hot-path cells, a module
+    global its launch or combine sites bump. A module never imported has
+    counted nothing (and the ops modules import torch, which this one
+    does not)."""
+    key = f"{__package__.rsplit('.', 1)[0]}.{module}"
+    return lambda: getattr(sys.modules.get(key), name, 0)
+
+
+# within-batch deltas folded into each ledger entry: transfer volume,
+# the chain/split/discard decisions the loops tick, the kernel launches,
+# the mesh's combines and the solvers' card reads by site. All host-side
 # cells (the device never syncs to serve a read here).
 _DELTA_READERS = {
     "h2d_bytes": lambda: _cell(metrics.h2d_bytes_total),
@@ -70,7 +109,58 @@ _DELTA_READERS = {
     "solve_discards": lambda: _cell(metrics.solves_discarded_total),
     "slot_discards": lambda: _cell(metrics.stream_slot_discard_total),
     "unhidden_reads": lambda: _cell(metrics.stream_unhidden_reads_total),
+    "launches.domain_counts": _global("ops.domain_counts", "LAUNCHES"),
+    "launches.threefry_scan": _global("ops.threefry", "SCAN_LAUNCHES"),
+    "launches.threefry_grouped": _global("ops.threefry", "GROUPED_LAUNCHES"),
+    "combines": _global("parallel.sharding", "COMBINES"),
+    "combine_s": _global("parallel.sharding", "COMBINE_S"),
+    **{f"card_reads.{s}": (lambda s=s: timing.COUNTS[s]) for s in timing.SITES},
+    **{f"card_read_s.{s}": (lambda s=s: timing.SECONDS[s]) for s in timing.SITES},
 }
+
+
+def _exported() -> dict:
+    """Ledger key -> the registry counter child its per-batch delta
+    advances."""
+    out = {f"launches.{k}": metrics.kernel_launches_total.labels(k) for k in timing.KERNELS}
+    out["combines"] = metrics.mesh_combines_total
+    out["combine_s"] = metrics.mesh_combine_seconds_total
+    for s in timing.SITES:
+        out[f"card_reads.{s}"] = metrics.solve_card_reads_total.labels(s)
+        out[f"card_read_s.{s}"] = metrics.solve_card_read_seconds_total.labels(s)
+    for k in SOLVE_COUNTS:
+        out[k] = metrics.solve_steps_total.labels(k)
+    for g in range(3):
+        out[f"gc_runs.{g}"] = metrics.gc_collections_total.labels(str(g))
+    return out
+
+
+class _GcPauses:
+    """The collector's pauses, cumulative, as a ``gc.callbacks`` entry.
+    Written by the collector alone (one collection at a time, whichever
+    thread runs it) and read by delta, so it takes no lock: a lock here
+    could be held by the very thread a collection interrupts."""
+
+    __slots__ = ("perf", "seconds", "runs", "_t")
+
+    def __init__(self, perf) -> None:
+        self.perf = perf
+        self.seconds = 0.0
+        self.runs = [0, 0, 0]
+        self._t: float | None = None
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t = self.perf()
+        elif self._t is not None:
+            self.seconds += self.perf() - self._t
+            self.runs[info["generation"]] += 1
+            self._t = None
+
+
+def _uninstall(cb) -> None:
+    if cb in gc.callbacks:
+        gc.callbacks.remove(cb)
 
 
 class StageProfiler:
@@ -80,7 +170,9 @@ class StageProfiler:
     :meth:`observe_batch` once per applied batch (next to the SLO
     tick in ``_commit_all``); readers call :meth:`snapshot` from any
     thread. ``capacity`` bounds the ledger — a serving process retains
-    the recent history, never the run.
+    the recent history, never the run. The watch handler calls
+    :meth:`enqueue` per event, and the collector's pauses are timed
+    while the profiler lives.
     """
 
     def __init__(self, clock=None, capacity: int = 512) -> None:
@@ -92,14 +184,24 @@ class StageProfiler:
         # stages accumulated since the last observe_batch (the loops'
         # add() calls between two commits belong to the batch closing)
         self._pending: dict[str, float] = {}
-        self._totals = {s: 0.0 for s in STAGES}
+        self._pending_counts = dict.fromkeys(SOLVE_COUNTS, 0)
+        self._totals = {s: 0.0 for s in ALL_STAGES}
         self._counters = {k: r() for k, r in _DELTA_READERS.items()}
         self._last_t: float | None = None
         self.batches = 0
         self.pods = 0
         self._stage_cells = {
-            s: metrics.profile_stage_seconds.labels(s) for s in STAGES
+            s: metrics.profile_stage_seconds.labels(s) for s in ALL_STAGES
         }
+        self._export = _exported()
+        # the watch handler's seconds and events, cumulative (written
+        # under the cluster lock that delivers events)
+        self._enqueue_s = 0.0
+        self._events = 0
+        self._gc = _GcPauses(self._perf)
+        self._process_last = (0.0, 0, 0.0, [0, 0, 0])
+        gc.callbacks.append(self._gc)
+        weakref.finalize(self, _uninstall, self._gc)
 
     # -- driver-thread writes --
 
@@ -110,6 +212,19 @@ class StageProfiler:
             return
         self._pending[stage] = self._pending.get(stage, 0.0) + seconds
 
+    def add_solve(self, times) -> None:
+        """One solve call's account (``solver/timing.py`` SolveTimes):
+        its sub-stage seconds and its step and iteration counts."""
+        for stage, seconds in times.seconds.items():
+            self.add(stage, seconds)
+        self._pending_counts["scan_steps"] += times.scan_steps
+        self._pending_counts["grouped_iterations"] += times.grouped_iterations
+
+    def enqueue(self, seconds: float) -> None:
+        """One watch event's handling."""
+        self._enqueue_s += seconds
+        self._events += 1
+
     def observe_batch(self, *, step: int, pods: int) -> dict:
         """Close the in-flight batch's ledger entry: fold the pending
         stage seconds and the counter deltas since the previous batch,
@@ -117,19 +232,31 @@ class StageProfiler:
         now = self._perf()
         wall = 0.0 if self._last_t is None else max(now - self._last_t, 0.0)
         self._last_t = now
-        stages = {s: self._pending.get(s, 0.0) for s in STAGES}
+        # the process-wide cells, by delta since the previous batch
+        process = (self._enqueue_s, self._events, self._gc.seconds, list(self._gc.runs))
+        last, self._process_last = self._process_last, process
+        self._pending["enqueue"] = process[0] - last[0]
+        self._pending["gc"] = process[2] - last[2]
+        stages = {s: self._pending.get(s, 0.0) for s in ALL_STAGES}
         self._pending.clear()
-        deltas = {}
+        deltas = dict(self._pending_counts, events=process[1] - last[1])
+        for g in range(3):
+            deltas[f"gc_runs.{g}"] = process[3][g] - last[3][g]
+        self._pending_counts = dict.fromkeys(SOLVE_COUNTS, 0)
         for k, read in _DELTA_READERS.items():
             cur = read()
-            deltas[k] = cur - self._counters[k]
+            # a cell reset by hand (tests, chip_smoke) counts no negative work
+            deltas[k] = max(cur - self._counters[k], 0)
             self._counters[k] = cur
+        for k, child in self._export.items():
+            if deltas[k] > 0:
+                child.inc(deltas[k])
         entry = {
             "step": step,
             "pods": pods,
             "wall_s": round(wall, 6),
             "stages": {k: round(v, 6) for k, v in stages.items()},
-            **{k: round(v, 1) for k, v in deltas.items()},
+            **{k: round(v, 6) for k, v in deltas.items()},
         }
         with self._lock:
             self._ledger.append(entry)
@@ -150,12 +277,14 @@ class StageProfiler:
             totals = dict(self._totals)
             tail = list(self._ledger)[-recent:]
             batches, pods = self.batches, self.pods
-        accounted = sum(totals.values())
+        # the mix is over the seven disjoint stages; the nested ones
+        # overlap them
+        accounted = sum(totals[s] for s in STAGES)
         return {
             "batches": batches,
             "pods": pods,
             "stage_seconds": {
-                s: round(totals[s], 6) for s in STAGES
+                s: round(totals[s], 6) for s in ALL_STAGES
             },
             "stage_fraction": {
                 s: round(totals[s] / accounted, 4) if accounted else 0.0
@@ -190,6 +319,16 @@ def render_top(snapshot: dict) -> str:
                 f"  {s:<14} {tot:>10.4f} "
                 f"{float(fracs.get(s, 0.0)) * 100.0:>6.1f}% "
                 f"{per_batch_ms:>13.3f}"
+            )
+        nested = [s for s in NESTED_STAGES if s in totals]
+        if nested:
+            lines.append("  overlapping the above (dispatch's parts, the "
+                         "watch handler, the collector):")
+        for s in nested:
+            tot = float(totals[s])
+            per_batch_ms = (tot / batches * 1000.0) if batches else 0.0
+            lines.append(
+                f"    {s:<12} {tot:>10.4f} {'':>7} {per_batch_ms:>13.3f}"
             )
         recent = prof.get("recent") or []
         if recent:

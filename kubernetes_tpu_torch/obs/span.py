@@ -3,12 +3,14 @@ trace layer, SURVEY §6.1's *host-side* complement to ``utils/tracing``'s
 jax-profiler device traces).
 
 Spans are OTel-shaped — name, span/trace/parent ids, attributes, start
-and end timestamps — but carry **two** time bases from the injectable
+and end timestamps — but carry **three** time bases from the injectable
 ``Clock``: ``now()`` (the scheduling clock; ``FakeClock`` virtual time
-in the simulator, so recorded spans replay deterministically) and
-``perf()`` (the duration clock). No OpenTelemetry dependency, no
-network exporter: spans land in the in-memory flight recorder ring and,
-optionally, a JSONL file.
+in the simulator, so recorded spans replay deterministically),
+``perf()`` (the duration clock) and ``unix_ns()`` (integer Unix
+nanoseconds, ``t0_ns`` / ``t1_ns``: the clock torch.profiler stamps
+device events with, so a span can be set against a device trace). No
+OpenTelemetry dependency, no network exporter: spans land in the
+in-memory flight recorder ring and, optionally, a JSONL file.
 
 Hot-path contract (TPU001): a *disabled* tracer's ``span()`` returns a
 preallocated no-op context manager — one attribute check, no
@@ -44,7 +46,8 @@ class Span:
 
     __slots__ = (
         "name", "span_id", "trace_id", "parent_id", "start_wall",
-        "start_perf", "attrs", "end_wall", "end_perf", "status",
+        "start_perf", "start_ns", "attrs", "end_wall", "end_perf",
+        "end_ns", "status",
     )
 
     def __init__(
@@ -56,6 +59,7 @@ class Span:
         start_wall: float,  # Clock.now() — virtual in the simulator
         start_perf: float,  # Clock.perf() — duration base
         attrs: dict | None = None,
+        start_ns: int = 0,  # Clock.unix_ns() — the device trace's clock
     ) -> None:
         self.name = name
         self.span_id = span_id
@@ -63,9 +67,11 @@ class Span:
         self.parent_id = parent_id
         self.start_wall = start_wall
         self.start_perf = start_perf
+        self.start_ns = start_ns
         self.attrs = attrs if attrs is not None else {}
         self.end_wall = 0.0
         self.end_perf = 0.0
+        self.end_ns = 0
         self.status = "ok"  # ok | error
 
     @property
@@ -86,6 +92,8 @@ class Span:
             "start": self.start_wall,
             "end": self.end_wall,
             "dur": self.end_perf - self.start_perf,
+            "t0_ns": self.start_ns,
+            "t1_ns": self.end_ns,
             "status": self.status,
         }
         if self.attrs:
@@ -185,6 +193,7 @@ class Tracer:
     def _finish(self, span: Span) -> None:
         span.end_wall = self.clock.now()
         span.end_perf = self.clock.perf()
+        span.end_ns = self.clock.unix_ns()
         counter = self._span_counters.get(span.name)
         if counter is None:
             counter = self._span_counters[span.name] = (
@@ -219,6 +228,7 @@ class Tracer:
                 self.clock.now(),
                 self.clock.perf(),
                 attrs,  # the **kwargs dict is already fresh
+                self.clock.unix_ns(),
             ),
         )
 

@@ -559,6 +559,11 @@ class Scheduler:
             recorder=self.flight,
         )
         self._sentinel_degraded = False
+        # the enqueue stage: every watch event timed, unsampled, while
+        # the profiler is on (one attribute check per event when off)
+        self._event_profiler = (
+            self.telemetry.profiler if self.telemetry is not None else None
+        )
         # high-volume span-family sampling state (see _on_event and
         # _commit_all): deterministic counters, first occurrence
         # always sampled
@@ -823,6 +828,11 @@ class Scheduler:
             name: ExactSolver(cfg) for name, cfg in profile_cfgs.items()
         }
         self.solver = next(iter(self.solvers.values()))
+        for s in self.solvers.values():
+            # the solve's sub-stages on this scheduler's clock, and as
+            # child spans of its dispatch span when spans are on
+            s.times.perf = self.clock.perf
+            s.times.tracer = self.obs if self.obs.enabled else None
         if self.telemetry is not None and self.telemetry.bundles is not None:
             # telemetry input-snapshot hook: every profile solver hands
             # its resolved solve inputs to the bundle capturer (the
@@ -1163,6 +1173,15 @@ class Scheduler:
     def _on_event(self, ev: Event) -> None:
         if ev.kind == "Event":
             return  # the scheduler's own recorder output
+        prof = self._event_profiler
+        if prof is None:
+            self._handle_event(ev)
+            return
+        t0 = self.clock.perf()
+        self._handle_event(ev)
+        prof.enqueue(self.clock.perf() - t0)
+
+    def _handle_event(self, ev: Event) -> None:
         if self.obs.enabled:
             # deterministic 1-in-N sampling (ObsConfig.enqueue_span_
             # sample_n): the enqueue span is the one family whose
@@ -3090,6 +3109,9 @@ class Scheduler:
         dispatch_dt = self.clock.perf() - t1
         if self.telemetry is not None:
             self.telemetry.add_stage("dispatch", dispatch_dt)
+            # upload + prepare + issue nest inside dispatch; the rest
+            # of dispatch is its self time
+            self.telemetry.add_solve(solver.times)
         if not prep.timing_observed:
             prep.timing_observed = True
             prep.tensorize_seconds = max(t1 - prep.gs, 0.0)
@@ -4622,6 +4644,8 @@ class Scheduler:
         cycle — counted by scheduler_pipeline_fallback_total — so
         sustained capacity/mask event churn degrades to the synchronous
         path's throughput instead of zero forward progress."""
+        from .utils import tracing
+
         out: list[BatchResult] = []
         flights: list[_InFlightSolve] = []
 
@@ -4747,12 +4771,13 @@ class Scheduler:
                 # off removes a group; a leak otherwise)
                 owned: list[list[QueuedPodInfo]] = [g[1] for g in groups]
                 try:
-                    for profile, group_infos, offsets in groups:
-                        self._pipeline_group(
-                            profile, group_infos, offsets, base_cycle,
-                            t0, overlap_ok, flights, apply_one, drain,
-                            owned,
-                        )
+                    with tracing.step("run_pipelined", self._trace_step):
+                        for profile, group_infos, offsets in groups:
+                            self._pipeline_group(
+                                profile, group_infos, offsets, base_cycle,
+                                t0, overlap_ok, flights, apply_one, drain,
+                                owned,
+                            )
                 except Exception:
                     if owned:
                         with self.cluster.lock:
@@ -4996,6 +5021,8 @@ class Scheduler:
         through the synchronous resilient cycle (fallback ladder,
         bisection quarantine), exactly like run_pipelined; the
         fence-discard livelock backstop is unchanged."""
+        from .utils import tracing
+
         out: list[BatchResult] = []
         slots: list[_StreamSlot] = []
         depth = max(self.config.stream_depth, 1)
@@ -5121,11 +5148,12 @@ class Scheduler:
                 groups = self._group_by_profile(infos)
                 owned: list[list[QueuedPodInfo]] = [g[1] for g in groups]
                 try:
-                    for profile, group_infos, offsets in groups:
-                        self._stream_group(
-                            profile, group_infos, offsets, base_cycle,
-                            t0, slots, apply_slot, drain, owned, depth,
-                        )
+                    with tracing.step("run_streaming", self._trace_step):
+                        for profile, group_infos, offsets in groups:
+                            self._stream_group(
+                                profile, group_infos, offsets, base_cycle,
+                                t0, slots, apply_slot, drain, owned, depth,
+                            )
                 except Exception:
                     if owned:
                         with self.cluster.lock:

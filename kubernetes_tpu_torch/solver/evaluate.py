@@ -37,6 +37,8 @@ compile cache have no counterpart here.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -55,6 +57,7 @@ from ..tensorize.plugins import (
 from ..tensorize.schema import MEM_IDX, build_node_batch, build_pod_batch
 from ..tensorize.spread import build_spread_tensors, trivial_spread_tensors
 from .exact import ExactSolverConfig, _fit_scorer
+from . import timing
 from .session import _node_tables, _place_class_tables, to_dev
 
 MAX_NODE_SCORE = 100
@@ -264,8 +267,11 @@ class BatchEvaluator:
             )
         if use_interpod and cfg.interpod_weight and interpod.has_score:
             score = score + cfg.interpod_weight * ip.normalize(ipa_raw, mask)
+        out = torch.where(mask, score, -1)
+        t_read = time.perf_counter()
         # ktpu: ignore[TPU001]: the evaluation's one card read, its [P, N] result for the webhook's reply: one wait per evaluation, not per launch (ROADMAP speed levers)
-        out = torch.where(mask, score, -1).cpu().numpy()
+        out = out.cpu().numpy()
+        timing.note("evaluate", t_read)
         return np.where(pod_valid[:, None], out, np.int32(-1))
 
 

@@ -83,6 +83,7 @@ from ..tensorize.schema import MEM_IDX, NodeBatch, PodBatch
 from ..tensorize.spread import SpreadTensors, trivial_spread_tensors
 from . import grouped as gp
 from .budget import assert_index_headroom
+from .timing import KERNELS, SolveTimes, launch_counts
 from .session import (
     BatchCarriedUsage,
     DeferredAssignments,
@@ -528,6 +529,9 @@ class ExactSolver:
         # "compact_batches" compact-wire solves, "chained_subbatches" and
         # "stream_chained" the chained dispatches
         self.dispatch_counts: Counter = Counter()
+        # the last solve call's sub-stage seconds and counts (timing.py),
+        # which the Scheduler hands to its StageProfiler after each call
+        self.times = SolveTimes()
         # the kernel build directory is the solver's one durable warm
         # state: a restart loads the libraries instead of running nvcc
         from ..utils.compile_cache import enable_persistent_cache
@@ -671,204 +675,218 @@ class ExactSolver:
         the unsharded solve bit for bit. Without
         ``static``/``ports``/``spread``/``interpod`` tensors, trivial ones
         reproduce the resources-only pipeline."""
-        if mesh is None:
-            mesh = self.mesh
-        dev = mesh.lead if mesh is not None else device_mod.resolve(device)
-        shards = mesh if mesh is not None else sh.single(dev)
-        w = shards.width(nodes.padded)
-        cfg = self.config
-        if self.capture_hook is not None:
-            # step_count is exactly what a replay must restore, and None
-            # containers stay None (the replayed solve fills in the same
-            # trivial tensors); raw references, which the hook copies
-            self.capture_hook(
-                nodes=nodes,
-                pods=pods,
-                static=static,
-                ports=ports,
-                spread=spread,
-                interpod=interpod,
-                nominated=nominated,
-                nominated_slot=nominated_slot,
-                step_count=self._step_count,
-                split=split,
-                defer_read=defer_read,
-                session=col_versions is not None,
-                allow_heal=allow_heal,
-                chain_occupancy=chain_occupancy,
-                config=_capture_config_fingerprint(cfg),
-            )
-        fdtype = torch.float64 if cfg.balanced_fdtype == "float64" else torch.float32
-        key = prng.prng_key(cfg.seed + self._step_count)
-        self._step_count += 1
-        if static is None:
-            static = trivial_static_tensors(pods, nodes.padded, nodes.schedulable)
-        if ports is None:
-            ports = trivial_port_tensors(pods, nodes.padded)
-        if spread is None:
-            spread = trivial_spread_tensors(pods, nodes.padded, static.c_pad)
-        if interpod is None:
-            interpod = trivial_interpod_tensors(pods, nodes.padded, static.c_pad)
-        use_spread = not spread.empty
-        use_interpod = not interpod.empty
-        use_nominated = nominated is not None and not nominated.empty
-        use_nominated_ports = use_nominated and nominated.port_takes is not None
-        session = col_versions is not None
-
-        # the flattened-index products of this dispatch fit their dtypes
-        assert_index_headroom(
-            pods.padded,
-            nodes.padded,
-            d_pad=max(spread.d_pad, interpod.d_pad),
-            group=max(cfg.group_size, 1),
-        )
-
-        h2d = 0
-        if session:
-            h2d += self._session.sync(nodes, col_versions, dev, allow_heal=allow_heal,
-                                      mesh=mesh)
-            nt, persist = self._session.nt, self._session.persist
-            ct, ct_bytes = self._session.class_tables(
-                static, spread, interpod,
-                digest=chain_key[0] if chain_key is not None else None,
-            )
-            h2d += ct_bytes
-        else:
-            nt, persist = _shard_node_tables(nodes, shards)
-            ct = _shard_class_tables(static, spread, interpod, shards)
-            h2d += _node_bytes(nodes) + sum(
-                np.asarray(a).nbytes for a in _class_table_arrays(static, spread, interpod)
-            )
-
-        # per-batch node-state rows: ports, spread counts, interpod counts
-        bstate = np.concatenate(
-            [ports.used, spread.cnt0, interpod.in_cnt0, interpod.ex_cnt0], axis=0
-        ).astype(np.int32)
-        layout = (ports.used.shape[0], spread.cnt0.shape[0], interpod.in_cnt0.shape[0],
-                  interpod.ex_cnt0.shape[0])
-
-        placed = {
-            **nt,
-            **ct,
-            "fit_weights": shards.replicate(
-                np.array([cfg.cpu_weight, cfg.mem_weight], np.int64)),
-        }
-        if use_nominated:
-            placed["nom_used"] = shards.split(nominated.used, torch.int64)
-            placed["nom_cnt"] = shards.split(nominated.count, torch.int32)
-            h2d += nominated.used.nbytes + nominated.count.nbytes
-            if use_nominated_ports:
-                placed["nom_ports"] = shards.split(nominated.port_takes, torch.int32)
-                h2d += nominated.port_takes.nbytes
-        # one table view per shard; each solve keeps its own prepared
-        # kernel launches
-        tables, nom_state = [], []
-        for s_i in range(shards.size):
-            t = shard_view(placed, s_i)
-            t["spr"]["launch"] = {}
-            t["ipa"]["launch"] = {}
-            t.update(ipa_d_pad=interpod.d_pad, lo=s_i * w, shards=shards.size)
-            tables.append(t)
-            ns = {}
-            if use_nominated:
-                # the placed-nominated correction carry starts empty each batch
-                ns["nom_corr_used"] = torch.zeros_like(t["nom_used"])
-                ns["nom_corr_cnt"] = torch.zeros_like(t["nom_cnt"])
-                if use_nominated_ports:
-                    ns["nom_corr_ports"] = torch.zeros_like(t["nom_ports"])
-            nom_state.append(ns)
-
-        host = _pod_inputs(pods, static, ports, spread, interpod, nominated,
-                           nominated_slot, use_nominated)
-        valid = np.asarray(pods.valid & pods.feasible_static, bool)
-
-        kw = dict(
-            scoring_strategy=cfg.scoring_strategy,
-            rtc_shape=tuple(tuple(p) for p in cfg.rtc_shape),
-            disabled=tuple(sorted(cfg.disabled_filters)),
-            w_fit=cfg.fit_weight,
-            w_balanced=cfg.balanced_weight,
-            # an all-zero preference row normalizes to one value on every
-            # feasible node, and a constant cannot move the argmax or its
-            # tie set, so the plugin's weight is dropped (as the JAX
-            # package drops it at trace time)
-            w_taint=cfg.taint_weight if np.any(static.taint_cnt) else 0,
-            w_nodeaff=cfg.node_affinity_weight if np.any(static.nodeaff_pref) else 0,
-            w_image=cfg.image_weight if np.any(static.image_score) else 0,
-            w_spread=cfg.spread_weight,
-            w_interpod=cfg.interpod_weight,
-            use_spread=use_spread,
-            use_interpod=use_interpod,
-            d_pad=spread.d_pad,
-            ipa_d_pad=interpod.d_pad,
-            fdtype=fdtype,
-            spread_soft=spread.has_soft,
-            ipa_ident=interpod.ident,
-            ipa_score=interpod.has_score,
-            use_nominated=use_nominated,
-            use_nominated_ports=use_nominated_ports,
-            use_extra_score=static.extra_score is not None,
-        )
-        group = cfg.group_size
-        grouped = grouped_eligible(
-            cfg, pods.padded, nodes.padded, use_spread, use_interpod, use_nominated,
-            spread_groupable=not spread.has_soft,
-            interpod_groupable=interpod.anti_only,
-        )
-        kinds = vcnt = None
-        compact = False
-        if grouped:
-            kinds = self._chunk_kinds(pods, static, ports, spread, interpod, group,
-                                      use_spread, use_interpod)
-            for v, cnt in zip(*np.unique(kinds, return_counts=True)):
-                self.dispatch_counts[f"kind{int(v)}"] += int(cnt)
-            vcnt = valid.reshape(-1, group).sum(axis=1)
-            packed_rows = _compact_rows(host, valid, group) if cfg.compact_wire else None
-            if packed_rows is not None:
-                compact = True
-                host, vcnt = packed_rows
-                self.dispatch_counts["compact_batches"] += 1
-        else:
-            group = 1
-            self.dispatch_counts["scan"] += 1
-        xs = _PodRows(host, shards)
-
-        stream = (
-            session and defer_read and not use_nominated
-            and (chain_occupancy or stream_carry_out)
-        )
-        chain_occupancy = chain_occupancy and stream
-        if chain_occupancy and not self.can_chain(chain_key, col_versions):
-            raise ValueError(
-                "chain_occupancy requested but the session carry does not match "
-                "(stale key or dirty columns)"
-            )
-        h2d += (0 if chain_occupancy else bstate.nbytes) + xs.nbytes()
-        self._transferred("h2d", h2d)
-
-        run = _Run(tables, nom_state, xs, valid, layout, kinds, vcnt, group, compact,
-                   cfg.tie_break, kw, shards)
-        want_chain = split > 1 and session and defer_read
-        if (want_chain or stream) and not use_nominated:
-            k_split = self._feasible_split(max(split, 1), pods.padded, grouped, group)
-            if k_split > 1 or stream:
-                # stream solves go through the chain dispatcher even unsplit:
-                # it is the one path that consumes and keeps the carry
-                handles = self._solve_chain(
-                    k_split, run, persist, bstate, pods, key,
-                    chain_start=self._session.stream_carry if chain_occupancy else None,
-                    carry_out=stream_carry_out, chain_key=chain_key,
+        tm = self.times
+        tm.begin()
+        with tm.stage("prepare"):
+            if mesh is None:
+                mesh = self.mesh
+            dev = mesh.lead if mesh is not None else device_mod.resolve(device)
+            shards = mesh if mesh is not None else sh.single(dev)
+            w = shards.width(nodes.padded)
+            cfg = self.config
+            if self.capture_hook is not None:
+                # step_count is exactly what a replay must restore, and None
+                # containers stay None (the replayed solve fills in the same
+                # trivial tensors); raw references, which the hook copies
+                self.capture_hook(
+                    nodes=nodes,
+                    pods=pods,
+                    static=static,
+                    ports=ports,
+                    spread=spread,
+                    interpod=interpod,
+                    nominated=nominated,
+                    nominated_slot=nominated_slot,
+                    step_count=self._step_count,
+                    split=split,
+                    defer_read=defer_read,
+                    session=col_versions is not None,
+                    allow_heal=allow_heal,
+                    chain_occupancy=chain_occupancy,
+                    config=_capture_config_fingerprint(cfg),
                 )
-                if self._session.stream_carry is not None:
-                    self._session.stream_versions = col_versions[: self._session.padded].copy()
-                return handles
+            fdtype = torch.float64 if cfg.balanced_fdtype == "float64" else torch.float32
+            key = prng.prng_key(cfg.seed + self._step_count)
+            self._step_count += 1
+            if static is None:
+                static = trivial_static_tensors(pods, nodes.padded, nodes.schedulable)
+            if ports is None:
+                ports = trivial_port_tensors(pods, nodes.padded)
+            if spread is None:
+                spread = trivial_spread_tensors(pods, nodes.padded, static.c_pad)
+            if interpod is None:
+                interpod = trivial_interpod_tensors(pods, nodes.padded, static.c_pad)
+            use_spread = not spread.empty
+            use_interpod = not interpod.empty
+            use_nominated = nominated is not None and not nominated.empty
+            use_nominated_ports = use_nominated and nominated.port_takes is not None
+            session = col_versions is not None
 
-        if session:
-            # this solve writes persist in place, and the stream carry shares
-            # persist's tensors: the carry cannot survive it
-            self._session.drop_stream_carry()
-        packed = run.packed(persist, shards.split(bstate))
-        run(packed, 0, pods.padded, key)
+            # the flattened-index products of this dispatch fit their dtypes
+            assert_index_headroom(
+                pods.padded,
+                nodes.padded,
+                d_pad=max(spread.d_pad, interpod.d_pad),
+                group=max(cfg.group_size, 1),
+            )
+
+            # per-batch node-state rows: ports, spread counts, interpod counts
+            bstate = np.concatenate(
+                [ports.used, spread.cnt0, interpod.in_cnt0, interpod.ex_cnt0], axis=0
+            ).astype(np.int32)
+            layout = (ports.used.shape[0], spread.cnt0.shape[0], interpod.in_cnt0.shape[0],
+                      interpod.ex_cnt0.shape[0])
+
+            host = _pod_inputs(pods, static, ports, spread, interpod, nominated,
+                               nominated_slot, use_nominated)
+            valid = np.asarray(pods.valid & pods.feasible_static, bool)
+
+            kw = dict(
+                scoring_strategy=cfg.scoring_strategy,
+                rtc_shape=tuple(tuple(p) for p in cfg.rtc_shape),
+                disabled=tuple(sorted(cfg.disabled_filters)),
+                w_fit=cfg.fit_weight,
+                w_balanced=cfg.balanced_weight,
+                # an all-zero preference row normalizes to one value on every
+                # feasible node, and a constant cannot move the argmax or its
+                # tie set, so the plugin's weight is dropped (as the JAX
+                # package drops it at trace time)
+                w_taint=cfg.taint_weight if np.any(static.taint_cnt) else 0,
+                w_nodeaff=cfg.node_affinity_weight if np.any(static.nodeaff_pref) else 0,
+                w_image=cfg.image_weight if np.any(static.image_score) else 0,
+                w_spread=cfg.spread_weight,
+                w_interpod=cfg.interpod_weight,
+                use_spread=use_spread,
+                use_interpod=use_interpod,
+                d_pad=spread.d_pad,
+                ipa_d_pad=interpod.d_pad,
+                fdtype=fdtype,
+                spread_soft=spread.has_soft,
+                ipa_ident=interpod.ident,
+                ipa_score=interpod.has_score,
+                use_nominated=use_nominated,
+                use_nominated_ports=use_nominated_ports,
+                use_extra_score=static.extra_score is not None,
+            )
+            group = cfg.group_size
+            grouped = grouped_eligible(
+                cfg, pods.padded, nodes.padded, use_spread, use_interpod, use_nominated,
+                spread_groupable=not spread.has_soft,
+                interpod_groupable=interpod.anti_only,
+            )
+            kinds = vcnt = None
+            compact = False
+            if grouped:
+                kinds = self._chunk_kinds(pods, static, ports, spread, interpod, group,
+                                          use_spread, use_interpod)
+                for v, cnt in zip(*np.unique(kinds, return_counts=True)):
+                    self.dispatch_counts[f"kind{int(v)}"] += int(cnt)
+                vcnt = valid.reshape(-1, group).sum(axis=1)
+                packed_rows = _compact_rows(host, valid, group) if cfg.compact_wire else None
+                if packed_rows is not None:
+                    compact = True
+                    host, vcnt = packed_rows
+                    self.dispatch_counts["compact_batches"] += 1
+            else:
+                group = 1
+                self.dispatch_counts["scan"] += 1
+            stream = (
+                session and defer_read and not use_nominated
+                and (chain_occupancy or stream_carry_out)
+            )
+            chain_occupancy = chain_occupancy and stream
+
+        with tm.stage("upload"):
+            h2d = 0
+            if session:
+                h2d += self._session.sync(nodes, col_versions, dev, allow_heal=allow_heal,
+                                          mesh=mesh)
+                nt, persist = self._session.nt, self._session.persist
+                ct, ct_bytes = self._session.class_tables(
+                    static, spread, interpod,
+                    digest=chain_key[0] if chain_key is not None else None,
+                )
+                h2d += ct_bytes
+            else:
+                nt, persist = _shard_node_tables(nodes, shards)
+                ct = _shard_class_tables(static, spread, interpod, shards)
+                h2d += _node_bytes(nodes) + sum(
+                    np.asarray(a).nbytes for a in _class_table_arrays(static, spread, interpod)
+                )
+            placed = {
+                **nt,
+                **ct,
+                "fit_weights": shards.replicate(
+                    np.array([cfg.cpu_weight, cfg.mem_weight], np.int64)),
+            }
+            if use_nominated:
+                placed["nom_used"] = shards.split(nominated.used, torch.int64)
+                placed["nom_cnt"] = shards.split(nominated.count, torch.int32)
+                h2d += nominated.used.nbytes + nominated.count.nbytes
+                if use_nominated_ports:
+                    placed["nom_ports"] = shards.split(nominated.port_takes, torch.int32)
+                    h2d += nominated.port_takes.nbytes
+            # one table view per shard; each solve keeps its own prepared
+            # kernel launches
+            tables, nom_state = [], []
+            for s_i in range(shards.size):
+                t = shard_view(placed, s_i)
+                t["spr"]["launch"] = {}
+                t["ipa"]["launch"] = {}
+                t.update(ipa_d_pad=interpod.d_pad, lo=s_i * w, shards=shards.size)
+                tables.append(t)
+                ns = {}
+                if use_nominated:
+                    # the placed-nominated correction carry starts empty each batch
+                    ns["nom_corr_used"] = torch.zeros_like(t["nom_used"])
+                    ns["nom_corr_cnt"] = torch.zeros_like(t["nom_cnt"])
+                    if use_nominated_ports:
+                        ns["nom_corr_ports"] = torch.zeros_like(t["nom_ports"])
+                nom_state.append(ns)
+            xs = _PodRows(host, shards)
+            # a chained solve starts from the resident carry, not these rows
+            bstate_dev = None if chain_occupancy else shards.split(bstate)
+            h2d += (0 if chain_occupancy else bstate.nbytes) + xs.nbytes()
+            self._transferred("h2d", h2d)
+
+        handles = None
+        with tm.stage("issue") as st:
+            if chain_occupancy and not self.can_chain(chain_key, col_versions):
+                raise ValueError(
+                    "chain_occupancy requested but the session carry does not match "
+                    "(stale key or dirty columns)"
+                )
+            launches0 = launch_counts() if st.traced else None
+            run = _Run(tables, nom_state, xs, valid, layout, kinds, vcnt, group, compact,
+                       cfg.tie_break, kw, shards, tm)
+            want_chain = split > 1 and session and defer_read
+            if (want_chain or stream) and not use_nominated:
+                k_split = self._feasible_split(max(split, 1), pods.padded, grouped, group)
+                if k_split > 1 or stream:
+                    # stream solves go through the chain dispatcher even unsplit:
+                    # it is the one path that consumes and keeps the carry
+                    handles = self._solve_chain(
+                        k_split, run, persist, bstate_dev, pods, key,
+                        chain_start=self._session.stream_carry if chain_occupancy else None,
+                        carry_out=stream_carry_out, chain_key=chain_key,
+                    )
+            if handles is None:
+                if session:
+                    # this solve writes persist in place, and the stream carry
+                    # shares persist's tensors: the carry cannot survive it
+                    self._session.drop_stream_carry()
+                packed = run.packed(persist, bstate_dev)
+                run(packed, 0, pods.padded, key)
+            if launches0 is not None:
+                st.set(scan_steps=tm.scan_steps, grouped_iterations=tm.grouped_iterations,
+                       card_reads=tm.card_reads,
+                       launches=dict(zip(KERNELS, (b - a for a, b in zip(launches0,
+                                                                         launch_counts())))))
+        if handles is not None:
+            if self._session.stream_carry is not None:
+                self._session.stream_versions = col_versions[: self._session.padded].copy()
+            return handles
+
         if session:
             persist["pod_count"] = tuple(p[0] for p in packed["i32"])
             self._transferred("d2h", pods.padded * 8)
@@ -909,7 +927,7 @@ class ExactSolver:
             return k
         return 1
 
-    def _solve_chain(self, k_split: int, run, persist, bstate, pods: PodBatch, key, *,
+    def _solve_chain(self, k_split: int, run, persist, bstate_dev, pods: PodBatch, key, *,
                      chain_start: dict | None = None, carry_out: bool = False,
                      chain_key: tuple | None = None) -> list[DeferredAssignments]:
         """One tensorized batch as ``k_split`` sub-solves, each placed on
@@ -926,7 +944,7 @@ class ExactSolver:
             self.dispatch_counts["stream_chained"] += 1
             carry = BatchCarriedUsage(chain_start)
         else:
-            carry = BatchCarriedUsage(run.packed(persist, run.mesh.split(bstate)))
+            carry = BatchCarriedUsage(run.packed(persist, bstate_dev))
         # the carry is consumed here, or the chain writes the tensors it shares
         self._session.drop_stream_carry()
         try:
@@ -961,15 +979,21 @@ class _Run:
     ``tables`` and ``nom_state`` hold one view per shard of ``mesh``; the
     packed state is a dict of tuples of per-shard tensors, and each step
     or chunk runs one generator per shard in lockstep
-    (``parallel/sharding.py``). The assignments live on the lead device."""
+    (``parallel/sharding.py``). The assignments live on the lead device.
+    ``times`` (the solver's SolveTimes) counts the scan's steps, the
+    grouped loop's iterations and its timed card reads."""
 
     def __init__(self, tables, nom_state, xs, valid, layout, kinds, vcnt, group, compact,
-                 tie_break, kw, mesh):
+                 tie_break, kw, mesh, times):
         self.tables, self.nom_state, self.xs, self.valid = tables, nom_state, xs, valid
         self.layout, self.kinds, self.vcnt = layout, kinds, vcnt
         self.group, self.compact, self.tie_break, self.kw, self.mesh = (
             group, compact, tie_break, kw, mesh,
         )
+        self.times = times
+        # valid pods before each row, as Python ints: the scan's steps over
+        # [lo, hi) count without a numpy scalar reaching a span or a ledger
+        self.valid_before = np.concatenate([[0], np.cumsum(valid)]).tolist()
         self.dev = mesh.lead
         self.assignments = torch.full((valid.shape[0],), -1, dtype=torch.int64,
                                       device=self.dev)
@@ -994,6 +1018,11 @@ class _Run:
         st.update(self.nom_state[s])
         return st
 
+    def read_placed(self, parts):
+        """The grouped random loop's exit test, timed: one iteration."""
+        self.times.grouped_iterations += 1
+        return self.times.read("grouped", gp._read_placed, parts)
+
     def __call__(self, packed, lo: int, hi: int, key) -> None:
         """``key``: the threefry key of this range's stream (random mode;
         every scan row splits it, a row that places nothing too, and every
@@ -1007,7 +1036,9 @@ class _Run:
         steps = [_make_step(self.tables[s], tie_break=self.tie_break, stream=stream,
                             **self.kw) for s in range(k)]
         asg = self.assignments
+        tm = self.times
         if self.kinds is None:
+            tm.scan_steps += self.valid_before[hi] - self.valid_before[lo]
             for i in range(lo, hi):
                 if self.valid[i]:
                     xr = self.xs.row(i)
@@ -1022,13 +1053,14 @@ class _Run:
             fit_scorer=_fit_scorer(kw["scoring_strategy"], kw["rtc_shape"]),
             fdtype=kw["fdtype"], w_fit=kw["w_fit"], w_balanced=kw["w_balanced"],
             w_taint=kw["w_taint"], w_nodeaff=kw["w_nodeaff"], w_image=kw["w_image"],
-            use_extra=kw["use_extra_score"],
+            use_extra=kw["use_extra_score"], read_placed=self.read_placed,
         )
         for c in range(lo // group, hi // group):
             base = c * group
             # ktpu: ignore[TPU001]: kinds is the host numpy chunk-kind vector from chunk_kinds; no card value is read
             kind = int(self.kinds[c])
             if kind == gp.KIND_SLOW:
+                tm.scan_steps += self.valid_before[base + group] - self.valid_before[base]
                 for t in range(group):
                     if self.valid[base + t]:
                         r = c if self.compact else base + t
@@ -1042,6 +1074,8 @@ class _Run:
             vc = int(self.vcnt[c])
             if vc == 0:
                 continue  # an all-padding chunk places nothing
+            if self.tie_break != TIE_RANDOM:
+                tm.grouped_iterations += vc  # one pod an iteration, no read
             mode = {gp.KIND_PLAIN: None, gp.KIND_SPREAD: "spread", gp.KIND_ANTI: "anti"}[kind]
             r = c if self.compact else base
             xr = self.xs.row(r)

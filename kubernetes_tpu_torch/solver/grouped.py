@@ -328,14 +328,17 @@ def _global_order(group: int):
 
 def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
                stream, fit_scorer, fdtype, w_fit: int, w_balanced: int,
-               w_taint: int, w_nodeaff: int, w_image: int, use_extra: bool):
+               w_taint: int, w_nodeaff: int, w_image: int, use_extra: bool,
+               read_placed):
     """Places ``vcnt`` identical pods (the chunk's representative rows:
     ``x`` on the device, ``h`` on the host) and returns (assignments
     [group] int64, per-node placements ``m`` [N] int32). ``mode``: None
     (plain), "spread" or "anti". The caller adds ``m`` times the pod's
     rows into the carried state. A generator of the shard protocol over
     one shard's block (``tables["lo"]`` its first global column); the
-    lead shard's assignments are the chunk's."""
+    lead shard's assignments are the chunk's. ``read_placed``: the
+    random loop's exit-test combine, ``_read_placed`` timed by the
+    solver."""
     alloc = tables["alloc"]
     alloc2 = alloc[: MEM_IDX + 1]
     n = alloc.shape[1]
@@ -531,7 +534,7 @@ def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
             idx, hit = own(pick, single)
             m_ext.index_add_(0, idx.view(1), hit.to(torch.int32).view(1))
         placed = torch.where(feasible, placed + n_placed, vcnt)
-        placed_h = yield _read_placed, placed  # the loop's exit test: one read per iteration
+        placed_h = yield read_placed, placed  # the loop's exit test: one read per iteration
     return asg, m
 
 

@@ -32,6 +32,7 @@ lexicographic pick runs on the host, as there.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -46,6 +47,7 @@ from ..ops.oracle.preemption import (
     sort_more_important,
 )
 from ..tensorize.schema import NodeBatch, bucket_pow2
+from . import timing
 
 SLOT_PAD = 8
 NEG = -(1 << 30)
@@ -209,10 +211,12 @@ class PreemptionEvaluator:
             up(cand_prio, np.int32),
             up(cand_start, np.float32),
         )
+        t_read = time.perf_counter()
         fits_all, victims, n_victims, n_viol, max_prio, sum_prio, latest = (
             # ktpu: ignore[TPU004]: the dry-run's verdicts must reach the host to pick victims: one card read per dry-run, after the batch's solve (ROADMAP speed levers)
             x.cpu().numpy() for x in out
         )
+        timing.note("preemption", t_read)
         return (
             fits_all, victims, n_victims, n_viol, max_prio, sum_prio,
             latest, slot_candidates,

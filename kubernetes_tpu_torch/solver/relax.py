@@ -64,6 +64,7 @@ in class-major order: the quotas are gathered to the lead device for it
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -73,6 +74,7 @@ from .. import device as device_mod
 from ..parallel import sharding as sh
 from ..tensorize.plugins import StaticPluginTensors, trivial_static_tensors
 from ..tensorize.schema import NodeBatch, PodBatch
+from . import timing
 from .single_shot import (
     SingleShotConfig,
     _blocks,
@@ -233,8 +235,10 @@ def _relax(
         res = residual_of(primal(lam, mu))
         going = iters < max_iters
         if going:
+            t_read = time.perf_counter()
             # ktpu: ignore[TPU001]: the planner's convergence test, one card read per iteration, counted in reads; a card-side loop would remove it (ROADMAP speed levers)
             going = bool(res > tol)
+            timing.note("relax", t_read)
             if reads is not None:
                 reads.append(1)
     x = primal(lam, mu)

@@ -63,6 +63,7 @@ so the sharded auction equals the unsharded one bit for bit.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -71,6 +72,7 @@ import torch
 from .. import device as device_mod
 from ..tensorize.plugins import StaticPluginTensors, trivial_static_tensors
 from ..tensorize.schema import CPU_IDX, MEM_IDX, NodeBatch, PodBatch
+from . import timing
 
 NEG = -(1 << 30)
 
@@ -324,8 +326,11 @@ def _single_shot(
     def read(x):
         if reads is not None:
             reads.append(1)
+        t_read = time.perf_counter()
         # ktpu: ignore[TPU001]: the auction's per-round exit test and its final read, one card read per round, counted in last_reads (ROADMAP speed levers)
-        return x.tolist()
+        out = x.tolist()
+        timing.note("auction", t_read)
+        return out
 
     carry = (
         list(used0_b),

@@ -8,8 +8,11 @@ Two faces:
   deadlines, e2e latency bases). Monotonic wall time on the real clock.
 - ``perf()``  — the duration clock (metric observations, solve/host wall
   splits). ``time.perf_counter`` on the real clock.
+- ``unix_ns()`` — span stamps in integer Unix nanoseconds, the clock
+  ``torch.profiler`` puts device events on. ``time.time_ns`` on the real
+  clock.
 
-``FakeClock`` drives BOTH from one virtual timeline so the cluster
+``FakeClock`` drives all three from one virtual timeline so the cluster
 simulator (``kubernetes_tpu/sim``) runs fully virtual-time: no test ever
 sleeps, and a recorded trace replays bit-for-bit regardless of host
 speed.
@@ -29,6 +32,9 @@ class Clock:
     def perf(self) -> float:
         return time.perf_counter()
 
+    def unix_ns(self) -> int:
+        return time.time_ns()
+
     def sleep(self, seconds: float) -> None:
         """Blocking wait on the clock's timeline (BulkClient's retry
         backoff); the fake clock advances virtually instead, so
@@ -45,6 +51,9 @@ class FakeClock(Clock):
 
     def perf(self) -> float:
         return self._now
+
+    def unix_ns(self) -> int:
+        return round(self._now * 1e9)
 
     def advance(self, seconds: float) -> None:
         self._now += seconds

@@ -1,8 +1,10 @@
 """Profiling traces around the scheduling batches: a ``torch.profiler``
 session (CPU and, on the card, CUDA activity) with one
-``record_function`` range per ``schedule_batch``, plus the per-stage
-wall-time histograms the metrics module already exports under the
-reference's names.
+``record_function`` range per batch of every loop (``schedule_batch``,
+``run_pipelined``, ``run_streaming``) and one per solve sub-stage
+(``solver/timing.py``: prepare, upload, issue, card_read), plus the
+per-stage wall-time histograms the metrics module already exports under
+the reference's names.
 
 Enable programmatically with ``enable(dir)`` (the same switch as the JAX
 package's ``utils/tracing.py``): the first annotated batch starts the
@@ -31,14 +33,31 @@ def enabled() -> bool:
     return _trace_dir is not None
 
 
-@contextlib.contextmanager
+_OFF = contextlib.nullcontext()
+
+
 def step(name: str, step_num: int = 0):
     """Annotate one scheduling batch; starts the session lazily on first
-    use so importing this module never touches the profiler."""
-    global _profiler
+    use so importing this module never touches the profiler. With no
+    session, a shared no-op context."""
     if _trace_dir is None:
-        yield
-        return
+        return _OFF
+    return _step(name, step_num)
+
+
+def stage(name: str):
+    """A range around one sub-stage of a batch, inside its ``step``; with
+    no session, a shared no-op context."""
+    if _trace_dir is None:
+        return _OFF
+    import torch
+
+    return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def _step(name: str, step_num: int):
+    global _profiler
     import torch
 
     if _profiler is None:

@@ -371,7 +371,7 @@ def test_serve_debug_surfaces_end_to_end(tmp_path):
     """The debug surfaces over a real serve subprocess with the full
     telemetry stack on: status codes, schemas, one consistent read of
     /debug/profile under concurrent scheduling, a manual capture."""
-    from kubernetes_tpu_torch.obs.profile import STAGES
+    from kubernetes_tpu_torch.obs.profile import ALL_STAGES
 
     serve = _Serve(
         tmp_path, {"nodes": [n.to_dict() for n in _nodes(4, pods="40")]},
@@ -389,7 +389,7 @@ def test_serve_debug_surfaces_end_to_end(tmp_path):
         status, prof = _get_status(port, "/debug/profile")
         assert status == 200, prof
         assert prof["enabled"] is True
-        assert set(prof["profile"]["stage_seconds"]) == set(STAGES)
+        assert set(prof["profile"]["stage_seconds"]) == set(ALL_STAGES)
         assert "degraded" in prof["sentinel"]
         assert "captures" in prof["bundles"]
 
@@ -404,7 +404,7 @@ def test_serve_debug_surfaces_end_to_end(tmp_path):
             assert status == 200
             batches = prof["profile"]["batches"]
             assert batches >= last_batches
-            assert set(prof["profile"]["stage_seconds"]) == set(STAGES)
+            assert set(prof["profile"]["stage_seconds"]) == set(ALL_STAGES)
             last_batches = batches
             st = _req(port, "GET", "/api/state")
             if st["unscheduled"] == 0 and batches > 0:

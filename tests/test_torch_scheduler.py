@@ -588,9 +588,11 @@ def test_metrics_registry_names_and_labels_equal_reference():
     from kubernetes_tpu_torch import metrics
 
     def port_series():
+        # the port's own series (metrics.PORT_SERIES) have no counterpart
         return {
             m._name + ("_total" if m._type == "counter" else ""): tuple(m._labelnames)
             for m in metrics.REGISTRY.collect()
+            if not any(m is p for p in metrics.PORT_SERIES)
         }
 
     def ref_series():
@@ -604,6 +606,7 @@ def test_metrics_registry_names_and_labels_equal_reference():
 
     assert port_series() == ref_series()
     assert len(port_series()) == 103
+    assert len(metrics.REGISTRY.collect()) == 103 + len(metrics.PORT_SERIES)
 
 
 def test_metrics_render_exposition_format():

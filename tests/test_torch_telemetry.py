@@ -16,7 +16,7 @@ import pytest
 
 from kubernetes_tpu_torch.obs import ObsConfig, build_telemetry
 from kubernetes_tpu_torch.obs.bundle import BundleCapturer, replay_bundle
-from kubernetes_tpu_torch.obs.profile import STAGES, StageProfiler, render_top
+from kubernetes_tpu_torch.obs.profile import ALL_STAGES, STAGES, StageProfiler, render_top
 from kubernetes_tpu_torch.obs.sentinel import AnomalySentinel, SentinelConfig
 from kubernetes_tpu_torch.obs.timeseries import TimeSeriesRing
 from kubernetes_tpu_torch.utils.clock import FakeClock
@@ -73,7 +73,7 @@ class TestStageProfiler:
         assert entry["stages"]["bind"] == 0.0
         snap = prof.snapshot()
         assert snap["batches"] == 1 and snap["pods"] == 8
-        assert set(snap["stage_seconds"]) == set(STAGES)
+        assert set(snap["stage_seconds"]) == set(ALL_STAGES)
         assert snap["stage_fraction"]["tensorize"] == pytest.approx(0.25)
         assert sum(snap["stage_fraction"].values()) == pytest.approx(1.0)
 
@@ -513,7 +513,7 @@ def test_debug_profile_capture_on_the_port(tmp_path):
             return plain, forced
 
     plain, forced = asyncio.run(drive())
-    assert set(plain["profile"]["stage_seconds"]) == set(STAGES)
+    assert set(plain["profile"]["stage_seconds"]) == set(ALL_STAGES)
     assert "sentinel" in plain and plain["bundles"]["captures"] == 0
     assert forced["captured"] is True
     assert forced["bundles"]["by_trigger"].get("manual") == 1

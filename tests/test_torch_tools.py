@@ -5,7 +5,8 @@ the structured logging setup ``serve`` uses.
 A journal either package wrote validates and explains with the same output
 through the other package's tool. ``metrics --check`` holds the port's
 registry against docs/METRICS.md and never writes that file (the port's
-copies of tests/test_metrics_doc.py use ``--check`` or ``--stdout``).
+copies of tests/test_metrics_doc.py use ``--check`` or ``--stdout``), and
+the port's own series against kubernetes_tpu_torch/metrics/METRICS.md.
 """
 
 from __future__ import annotations
@@ -323,7 +324,7 @@ class TestMetricsDoc:
         before = path.read_bytes()
         assert path.read_text() == render_doc()
         assert main(["--check"]) == 0
-        assert "matches the registry" in capsys.readouterr().out
+        assert capsys.readouterr().out.count("matches the registry") == 2
         assert path.read_bytes() == before
 
     def test_every_registered_series_is_documented(self):
@@ -331,7 +332,7 @@ class TestMetricsDoc:
         from kubernetes_tpu_torch.metrics.__main__ import render_doc
         from kubernetes_tpu_torch.metrics.prom import Counter, Gauge, Histogram
 
-        doc = render_doc()
+        doc = render_doc() + render_doc(port=True)
         n = 0
         for attr in dir(m):
             obj = getattr(m, attr)
@@ -341,7 +342,7 @@ class TestMetricsDoc:
                     name += "_total"
                 assert f"`{name}`" in doc, f"{name} missing from doc"
                 n += 1
-        assert n == 103
+        assert n == 103 + len(m.PORT_SERIES)
 
     def test_doc_rows_carry_labels(self):
         from kubernetes_tpu_torch.metrics.__main__ import render_doc
@@ -369,7 +370,7 @@ class TestMetricsDoc:
 
         before = mm.doc_path().read_bytes()
         assert mm.main(["--stdout"]) == 0
-        assert capsys.readouterr().out == mm.render_doc()
+        assert capsys.readouterr().out == mm.render_doc() + "\n" + mm.render_doc(port=True)
         assert mm.main([]) == 2
         with pytest.raises(SystemExit):
             mm.main(["--doc"])
