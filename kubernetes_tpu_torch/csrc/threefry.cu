@@ -20,7 +20,9 @@
 // the host: the scan step's tie count is read on the device too.
 //
 // threefry_scan_draw: one thread. Applies `skip` pending splits (scan rows
-// that drew nothing), splits the key, splits the subkey, hashes the two
+// that drew nothing), plus `*skip_at` more when `skip_at` is given (a step
+// replayed from a CUDA graph reads its row's pending splits from the device,
+// solver/graphs.py), splits the key, splits the subkey, hashes the two
 // 64-bit words and maps them onto [0, max(n_ties, 1)) with native unsigned
 // 64-bit arithmetic (the same wraps as JAX's uint64 ops), writes the rank
 // and the new key in place (slot `cur`). It replaces the one torch.rand
@@ -105,9 +107,10 @@ __device__ __forceinline__ void store_key(int64_t* w, Key k) {
 }
 
 __global__ void scan_draw_kernel(int64_t* state, int cur, const int64_t* n_ties,
-                                 int64_t* rank, long long skip) {
+                                 int64_t* rank, long long skip, const int64_t* skip_at) {
   Key k = load_key(state + cur);
-  for (long long s = 0; s < skip; ++s) k = next_key(k);
+  const long long pending = skip + (skip_at != nullptr ? *skip_at : 0);
+  for (long long s = 0; s < pending; ++s) k = next_key(k);
   const Key sub = sub_key(k);
   store_key(state + cur, next_key(k));
   // randint(sub, (), 0, max(n_ties, 1)) in int64
@@ -159,12 +162,13 @@ __global__ void grouped_draw_kernel(int64_t* state, int cur, void* out, long lon
 extern "C" {
 
 // The scan step's draw. state: int64[6] on the device; n_ties, rank: int64
-// scalars on the device. Returns a cudaError_t.
+// scalars on the device; skip_at: an int64 scalar on the device, or null.
+// Returns a cudaError_t.
 int threefry_scan_draw(void* state, int cur, const void* n_ties, void* rank, long long skip,
-                       void* stream) {
+                       const void* skip_at, void* stream) {
   scan_draw_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int64_t*>(state), cur, static_cast<const int64_t*>(n_ties),
-      static_cast<int64_t*>(rank), skip);
+      static_cast<int64_t*>(rank), skip, static_cast<const int64_t*>(skip_at));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -910,6 +910,18 @@ solve_steps_total = Counter(
     ["kind"],
     registry=REGISTRY,
 )
+solve_graph_replays_total = Counter(
+    "scheduler_solve_graph_replays_total",
+    "Scan steps the exact solver replayed from a CUDA graph of the step, "
+    "one graph launch each (of scheduler_solve_steps_total{kind=\"scan_steps\"}).",
+    registry=REGISTRY,
+)
+solve_graph_captures_total = Counter(
+    "scheduler_solve_graph_captures_total",
+    "CUDA graphs of the exact solver's scan step captured, one per step "
+    "signature per epoch of tables.",
+    registry=REGISTRY,
+)
 mesh_combines_total = Counter(
     "scheduler_mesh_combines_total",
     "Cross-shard combines of the node-axis mesh's lockstep solves.",
@@ -933,6 +945,8 @@ PORT_SERIES = (
     solve_card_reads_total,
     solve_card_read_seconds_total,
     solve_steps_total,
+    solve_graph_replays_total,
+    solve_graph_captures_total,
     mesh_combines_total,
     mesh_combine_seconds_total,
     gc_collections_total,

@@ -70,8 +70,10 @@ STAGES = (
 )
 NESTED_STAGES = ("upload", "prepare", "issue", "card_read", "enqueue", "gc")
 ALL_STAGES = STAGES + NESTED_STAGES
-# counts the Scheduler hands over per solve call (solver/timing.py)
+# counts the Scheduler hands over per solve call (solver/timing.py): the
+# steps by kind, then the scan steps' CUDA graphs (solver/graphs.py)
 SOLVE_COUNTS = ("scan_steps", "grouped_iterations")
+GRAPH_COUNTS = ("graph_replays", "graph_captures")
 
 
 def _cell(counter) -> float:
@@ -130,6 +132,8 @@ def _exported() -> dict:
         out[f"card_read_s.{s}"] = metrics.solve_card_read_seconds_total.labels(s)
     for k in SOLVE_COUNTS:
         out[k] = metrics.solve_steps_total.labels(k)
+    out["graph_replays"] = metrics.solve_graph_replays_total
+    out["graph_captures"] = metrics.solve_graph_captures_total
     for g in range(3):
         out[f"gc_runs.{g}"] = metrics.gc_collections_total.labels(str(g))
     return out
@@ -184,7 +188,7 @@ class StageProfiler:
         # stages accumulated since the last observe_batch (the loops'
         # add() calls between two commits belong to the batch closing)
         self._pending: dict[str, float] = {}
-        self._pending_counts = dict.fromkeys(SOLVE_COUNTS, 0)
+        self._pending_counts = dict.fromkeys(SOLVE_COUNTS + GRAPH_COUNTS, 0)
         self._totals = {s: 0.0 for s in ALL_STAGES}
         self._counters = {k: r() for k, r in _DELTA_READERS.items()}
         self._last_t: float | None = None
@@ -214,11 +218,14 @@ class StageProfiler:
 
     def add_solve(self, times) -> None:
         """One solve call's account (``solver/timing.py`` SolveTimes):
-        its sub-stage seconds and its step and iteration counts."""
+        its sub-stage seconds, its step and iteration counts and its step
+        graphs' replays and captures."""
         for stage, seconds in times.seconds.items():
             self.add(stage, seconds)
         self._pending_counts["scan_steps"] += times.scan_steps
         self._pending_counts["grouped_iterations"] += times.grouped_iterations
+        self._pending_counts["graph_replays"] += times.graph_replays
+        self._pending_counts["graph_captures"] += times.graph_captures
 
     def enqueue(self, seconds: float) -> None:
         """One watch event's handling."""
@@ -242,7 +249,7 @@ class StageProfiler:
         deltas = dict(self._pending_counts, events=process[1] - last[1])
         for g in range(3):
             deltas[f"gc_runs.{g}"] = process[3][g] - last[3][g]
-        self._pending_counts = dict.fromkeys(SOLVE_COUNTS, 0)
+        self._pending_counts = dict.fromkeys(SOLVE_COUNTS + GRAPH_COUNTS, 0)
         for k, read in _DELTA_READERS.items():
             cur = read()
             # a cell reset by hand (tests, chip_smoke) counts no negative work

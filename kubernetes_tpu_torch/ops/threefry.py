@@ -15,7 +15,9 @@ chain. Its draws:
   iota``, over columns [lo, lo + n); ``split=False`` draws again from the
   iteration's subkey (the water-fill's second draw);
 - ``skip()``: a scan row that draws nothing (an invalid pod) still owes
-  its split, which the next draw pays first.
+  its split, which the next draw pays first. A scan step replayed from a
+  CUDA graph (``solver/graphs.py``) reads its row's owed splits from the
+  device instead: ``skip_at``, set while the step is captured.
 
 Kernel: ``csrc/threefry.cu``, two entry points, one launch per draw. On the
 card the key lives in a device tensor that the kernels split in place, so
@@ -57,7 +59,7 @@ def _load():
 
         lib = build.load("threefry")
         p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.threefry_scan_draw.argtypes = [p, i, p, p, q, p]
+        lib.threefry_scan_draw.argtypes = [p, i, p, p, q, p, p]
         lib.threefry_scan_draw.restype = i
         lib.threefry_grouped_draw.argtypes = [p, i, p, q, q, q, i, i, q, p]
         lib.threefry_grouped_draw.restype = i
@@ -76,6 +78,10 @@ class Stream:
         self.device = torch.device(device)
         self.pending = 0  # splits owed by scan rows that drew nothing
         self.has_sub = False  # a grouped split has drawn a subkey
+        # an int64 scalar on the stream's device whose value each scan draw
+        # adds to the owed splits (a captured step's row, solver/graphs.py)
+        self.skip_at = None
+        self.cur = 0  # the live key slot of the card's state (the CPU has one key)
         if self.device.type == "cuda":
             _load()
             self.index = (self.device.index if self.device.index is not None
@@ -93,6 +99,19 @@ class Stream:
     def skip(self) -> None:
         self.pending += 1
 
+    def reset(self, key) -> None:
+        """Start the chain anew from ``key`` in the same state tensor, whose
+        address a captured scan step keeps. On the card the key goes up
+        from pinned memory without waiting for the card."""
+        self.pending = 0
+        self.has_sub = False
+        if self.device.type == "cpu":
+            self.key = (key[0], key[1])
+            return
+        words = torch.tensor([key[0], key[1], 0, 0, 0, 0], dtype=torch.int64)
+        self.state.copy_(words.pin_memory(), non_blocking=True)
+        self.cur = 0
+
     def rank(self, n_ties: torch.Tensor) -> torch.Tensor:
         """The scan step's pick rank in [0, max(n_ties, 1)): a 0-d int64
         tensor. ``n_ties``: the step's tie count, an int64 scalar on the
@@ -104,15 +123,19 @@ class Stream:
             raise ValueError(f"threefry: n_ties must be one int64, got {n_ties.dtype} "
                              f"{tuple(n_ties.shape)}")
         skip, self.pending = self.pending, 0
+        at = self.skip_at
         if self.device.type == "cpu":
+            # ktpu: ignore[TPU001]: the CPU branch: n_ties and skip_at lie on the host (checked above); no card value is read
+            n, skip = int(n_ties), skip + (0 if at is None else int(at))
             # the plain version in Python ints: twenty tensor ops a step
             # would cost more than the step's six hashes
-            # ktpu: ignore[TPU001]: the CPU branch: n_ties lies on the host (checked above); no card value is read
-            r, self.key = prng.scan_draw(self.key, int(n_ties), skip)
+            r, self.key = prng.scan_draw(self.key, n, skip)
             return torch.tensor(r, dtype=torch.int64)
         out = torch.empty((), dtype=torch.int64, device=self.device)
         rc = _lib.threefry_scan_draw(self.state.data_ptr(), self.cur, n_ties.data_ptr(),
-                                     out.data_ptr(), skip, _raw_stream(self.index))
+                                     out.data_ptr(), skip,
+                                     None if at is None else at.data_ptr(),
+                                     _raw_stream(self.index))
         if rc != 0:
             raise KernelError(f"threefry_scan_draw launch failed: cudaError {rc}")
         SCAN_LAUNCHES += 1

@@ -47,6 +47,11 @@ chunk order, drawn on the card by the threefry kernel. The draws are the
 JAX package's bit for bit, so random mode gives its assignments as first
 mode does (the paired tests hold both with ``balanced_fdtype="float64"``).
 
+On the card, unsharded and with no nominated pods, the scan's steps replay
+CUDA graphs of the step, one graph launch a pod (``solver/graphs.py``);
+everywhere else, and for a step signature too rare in a call to repay a
+capture, the step runs eagerly as written here.
+
 ``capture_hook`` (set by the Scheduler's flight telemetry) receives each
 solve's resolved inputs before the key is derived from the solve count,
 as the JAX package's does, so a replay bundle re-runs the exact solve.
@@ -81,6 +86,7 @@ from ..tensorize.plugins import (
 )
 from ..tensorize.schema import MEM_IDX, NodeBatch, PodBatch
 from ..tensorize.spread import SpreadTensors, trivial_spread_tensors
+from . import graphs as sg
 from . import grouped as gp
 from .budget import assert_index_headroom
 from .timing import KERNELS, SolveTimes, launch_counts
@@ -532,6 +538,11 @@ class ExactSolver:
         # the last solve call's sub-stage seconds and counts (timing.py),
         # which the Scheduler hands to its StageProfiler after each call
         self.times = SolveTimes()
+        # the scan step's CUDA graphs (graphs.py), made at the first solve
+        # they engage in, and the scoring weights' device copies per mesh,
+        # which keep their address from solve to solve for those graphs
+        self.graphs: sg.StepGraphs | None = None
+        self._fit_weights: dict[tuple, tuple] = {}
         # the kernel build directory is the solver's one durable warm
         # state: a restart loads the libraries instead of running nvcc
         from ..utils.compile_cache import enable_persistent_cache
@@ -813,12 +824,11 @@ class ExactSolver:
                 h2d += _node_bytes(nodes) + sum(
                     np.asarray(a).nbytes for a in _class_table_arrays(static, spread, interpod)
                 )
-            placed = {
-                **nt,
-                **ct,
-                "fit_weights": shards.replicate(
-                    np.array([cfg.cpu_weight, cfg.mem_weight], np.int64)),
-            }
+            wkey = (sh.mesh_fingerprint(shards), cfg.cpu_weight, cfg.mem_weight)
+            if wkey not in self._fit_weights:
+                self._fit_weights[wkey] = shards.replicate(
+                    np.array([cfg.cpu_weight, cfg.mem_weight], np.int64))
+            placed = {**nt, **ct, "fit_weights": self._fit_weights[wkey]}
             if use_nominated:
                 placed["nom_used"] = shards.split(nominated.used, torch.int64)
                 placed["nom_cnt"] = shards.split(nominated.count, torch.int32)
@@ -857,8 +867,14 @@ class ExactSolver:
                     "(stale key or dirty columns)"
                 )
             launches0 = launch_counts() if st.traced else None
+            if sg.engages(dev, shards.size, use_nominated):
+                if self.graphs is None:
+                    self.graphs = sg.StepGraphs()
+                graphs = self.graphs
+            else:
+                graphs = None
             run = _Run(tables, nom_state, xs, valid, layout, kinds, vcnt, group, compact,
-                       cfg.tie_break, kw, shards, tm)
+                       cfg.tie_break, kw, shards, tm, graphs)
             want_chain = split > 1 and session and defer_read
             if (want_chain or stream) and not use_nominated:
                 k_split = self._feasible_split(max(split, 1), pods.padded, grouped, group)
@@ -879,6 +895,7 @@ class ExactSolver:
                 run(packed, 0, pods.padded, key)
             if launches0 is not None:
                 st.set(scan_steps=tm.scan_steps, grouped_iterations=tm.grouped_iterations,
+                       graph_replays=tm.graph_replays, graph_captures=tm.graph_captures,
                        card_reads=tm.card_reads,
                        launches=dict(zip(KERNELS, (b - a for a, b in zip(launches0,
                                                                          launch_counts())))))
@@ -981,16 +998,23 @@ class _Run:
     or chunk runs one generator per shard in lockstep
     (``parallel/sharding.py``). The assignments live on the lead device.
     ``times`` (the solver's SolveTimes) counts the scan's steps, the
-    grouped loop's iterations and its timed card reads."""
+    grouped loop's iterations and its timed card reads. ``graphs`` (the
+    solver's StepGraphs, or None): the scan's steps replay its CUDA graphs
+    where a call's signatures engage them (``graphs.py``)."""
 
     def __init__(self, tables, nom_state, xs, valid, layout, kinds, vcnt, group, compact,
-                 tie_break, kw, mesh, times):
+                 tie_break, kw, mesh, times, graphs=None):
         self.tables, self.nom_state, self.xs, self.valid = tables, nom_state, xs, valid
         self.layout, self.kinds, self.vcnt = layout, kinds, vcnt
         self.group, self.compact, self.tie_break, self.kw, self.mesh = (
             group, compact, tie_break, kw, mesh,
         )
         self.times = times
+        self.graphs = graphs
+        # the graphs' epoch key of these tables, and whether the pod rows
+        # are in the graphs' buffer (graphs.py), set at the first graph pass
+        self.graph_epoch = None
+        self.graph_rows = False
         # valid pods before each row, as Python ints: the scan's steps over
         # [lo, hi) count without a numpy scalar reaching a span or a ledger
         self.valid_before = np.concatenate([[0], np.cumsum(valid)]).tolist()
@@ -1018,6 +1042,10 @@ class _Run:
         st.update(self.nom_state[s])
         return st
 
+    def make_step(self, tables, stream):
+        """The scan step of one shard's ``tables`` drawing from ``stream``."""
+        return _make_step(tables, tie_break=self.tie_break, stream=stream, **self.kw)
+
     def read_placed(self, parts):
         """The grouped random loop's exit test, timed: one iteration."""
         self.times.grouped_iterations += 1
@@ -1026,21 +1054,32 @@ class _Run:
     def __call__(self, packed, lo: int, hi: int, key) -> None:
         """``key``: the threefry key of this range's stream (random mode;
         every scan row splits it, a row that places nothing too, and every
-        grouped-loop iteration)."""
-        stream = None
-        if self.tie_break == TIE_RANDOM:
-            stream = tf.Stream(key, self.dev)
+        grouped-loop iteration). With a graph pass the call runs on the
+        graphs' buffers, its stream and assignments included, and its
+        graph steps replay; the pass copies the state and the assignments
+        back at the end."""
+        gp_pass = None if self.graphs is None else self.graphs.start(self, packed, lo, hi, key)
+        if gp_pass is None:
+            stream = tf.Stream(key, self.dev) if self.tie_break == TIE_RANDOM else None
+            asg = self.assignments
+        else:
+            packed, stream, asg = gp_pass.packed, gp_pass.stream, gp_pass.asg
+        self._steps(packed, lo, hi, stream, asg, gp_pass)
+        if gp_pass is not None:
+            gp_pass.finish()
+
+    def _steps(self, packed, lo: int, hi: int, stream, asg, gp_pass) -> None:
         k = self.mesh.size
         sts = [self.state_views(packed, s) for s in range(k)]
         shard_packed = [{"i64": packed["i64"][s], "i32": packed["i32"][s]} for s in range(k)]
-        steps = [_make_step(self.tables[s], tie_break=self.tie_break, stream=stream,
-                            **self.kw) for s in range(k)]
-        asg = self.assignments
+        steps = [self.make_step(self.tables[s], stream) for s in range(k)]
         tm = self.times
         if self.kinds is None:
             tm.scan_steps += self.valid_before[hi] - self.valid_before[lo]
             for i in range(lo, hi):
                 if self.valid[i]:
+                    if gp_pass is not None and gp_pass.step(i):
+                        continue
                     xr = self.xs.row(i)
                     asg[i] = sh.lockstep(
                         steps[s](sts[s], shard_packed[s], xr[s]) for s in range(k))[0]
@@ -1063,6 +1102,8 @@ class _Run:
                 tm.scan_steps += self.valid_before[base + group] - self.valid_before[base]
                 for t in range(group):
                     if self.valid[base + t]:
+                        if gp_pass is not None and gp_pass.step(base + t):
+                            continue
                         r = c if self.compact else base + t
                         xr = self.xs.row(r)
                         asg[base + t] = sh.lockstep(

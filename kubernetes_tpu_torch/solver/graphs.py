@@ -1,0 +1,428 @@
+"""CUDA graphs of the exact solver's per-pod scan step.
+
+The scan step (``exact._make_step``: the filter and score pipeline, the
+tie-break pick and the assume scatter) issues about 110 small kernels a pod
+from Python, each of which runs for about a microsecond on the card, so the
+host's issue sets the scan's pace. ``StepGraphs`` captures the step into a
+CUDA graph once per *signature* and replays it with one graph launch a pod:
+the same kernels in the same order, so a replayed step gives what the eager
+step gives, bit for bit.
+
+Signature: what the step branches on in host code, the pod's ``class_of``
+and ``has_port_conflicts``, and in random mode the stream's live key slot
+(``tf.Stream.cur``, which a grouped split moves). The pipeline flags, the
+tie-break and the tables are fixed within an *epoch* of graphs (below).
+
+Per-pod inputs are device data. Each run uploads its pod rows, packed into
+one byte row a pod (``pack_rows``), and a step table: for each step a graph
+takes, its row, its pod and the splits it owes the random stream (invalid
+rows before it). A replay reads the table at a device cursor, gathers its
+row, writes its pick into the static assignments and advances the cursor.
+The carried state (``i64``, ``i32``) and the stream's key live in static
+buffers too: each call copies them in and, when it ends, back out, so the
+graphs live across solves and chained sub-batches.
+
+Epochs. A graph keeps the address of everything it reads. The buffers
+belong to ``StepGraphs``; the tables are the solve's, so an epoch is keyed
+by every table tensor's address, shape, strides and dtype, every host
+table's content, the packed state's layout and the pipeline flags, and a
+solve under another key drops every graph first: no stale graph runs. The
+session's resident node tables and its content-addressed class tables keep
+their addresses from batch to batch; a standalone solve uploads new ones
+and recaptures.
+
+Engagement: ``engages`` (the card, one shard, no nominated pods), then per
+call, per signature: a graph already captured in the epoch, or at least
+``MIN_STEPS`` of its steps in the call. Every other step is the eager step,
+unchanged. The first step of a signature in an epoch runs eagerly, so that
+every kernel the capture records has been loaded and launched once.
+
+Counters stay true: a capture launches nothing and counts nothing, and each
+replay adds the captured step's launches of the hand-written kernels to
+``dc.LAUNCHES`` and ``tf.SCAN_LAUNCHES``. ``SolveTimes.graph_replays`` and
+``graph_captures`` count the replays and captures of the last solve call.
+"""
+
+from __future__ import annotations
+
+import gc
+import hashlib
+
+import numpy as np
+import torch
+
+from ..ops import domain_counts as dc
+from ..ops import threefry as tf
+from ..parallel import sharding as sh
+from . import grouped as gp
+
+# The fewest steps of a signature in a call that repay its graph: a capture
+# and its instantiation cost the host 3.5-5.7 ms against 1,674-1,720 us of
+# issue for an eager step, 2.26-2.87 eager steps (interpod5k's shape, 5,120
+# nodes and 1,024 pods, on an H100 at 700 W: scripts/step_graph_costs.py,
+# PERF.md section 6), and the signature's first step runs eagerly: 3 + 1.
+MIN_STEPS = 4
+
+# the per-pod arrays a step reads on the device, in the packed row's order:
+# the int64 array first and each segment starting on 8 bytes, so that every
+# segment views as its own dtype
+ROW_NAMES = ("take64", "take32", "ipa_m_w", "req_mask", "pod_conflict", "ipa_m_anti",
+             "ipa_self_aff")
+_TORCH_DTYPES = {np.dtype(np.int64): torch.int64, np.dtype(np.int32): torch.int32,
+                 np.dtype(bool): torch.bool}
+
+
+def engages(device, shards: int, use_nominated: bool) -> bool:
+    """Whether a solve may replay step graphs at all: on a CUDA device,
+    unsharded, with no nominated pods (their correction rows and branches
+    stay eager)."""
+    return torch.device(device).type == "cuda" and shards == 1 and not use_nominated
+
+
+def row_layout(host: dict) -> tuple[tuple, int]:
+    """((name, numpy dtype, per-row shape, byte offset, bytes), ...) of the
+    packed pod row, and its width in bytes (a multiple of 8)."""
+    layout, off = [], 0
+    for name in ROW_NAMES:
+        a = host[name]
+        shape = tuple(a.shape[1:])
+        nb = a.dtype.itemsize * int(np.prod(shape, dtype=np.int64))
+        layout.append((name, a.dtype, shape, off, nb))
+        off += -(-nb // 8) * 8
+    return tuple(layout), off
+
+
+def pack_rows(host: dict, layout: tuple, width: int) -> np.ndarray:
+    """The pod rows of ``host`` as one [rows, width] uint8 array."""
+    n = host["take64"].shape[0]
+    out = np.zeros((n, width), np.uint8)
+    for name, dtype, _, off, nb in layout:
+        a = np.ascontiguousarray(host[name], dtype=dtype).reshape(n, -1)
+        out[:, off : off + nb] = a.view(np.uint8).reshape(n, nb)
+    return out
+
+
+def row_views(row: torch.Tensor, layout: tuple, k: int, b: int) -> dict:
+    """The step's pod inputs as views of one gathered packed row (the views
+    ``_PodRows`` gives of its per-array tensors): ``k`` resource columns,
+    ``b`` port slots."""
+    x = {}
+    for name, dtype, shape, off, nb in layout:
+        x[name] = row[off : off + nb].view(_TORCH_DTYPES[dtype]).reshape(shape)
+    x["req"] = x["take64"][:k]
+    x["nonzero_req"] = x["take64"][k:]
+    x["pod_takes"] = x["take32"][1 : 1 + b]
+    return x
+
+
+def _fingerprint(tree: dict) -> tuple:
+    """What a captured step keeps of a table tree: each tensor's address,
+    shape, strides, dtype and device, each host array's content, each
+    other value. The prepared kernel launches (``launch``) are the
+    solve's own and are left out."""
+    out = []
+    for name in sorted(tree):
+        v = tree[name]
+        if name == "launch":
+            continue
+        if isinstance(v, dict):
+            out.append((name, _fingerprint(v)))
+        elif isinstance(v, torch.Tensor):
+            out.append((name, v.data_ptr(), tuple(v.shape), v.stride(), v.dtype, str(v.device)))
+        elif isinstance(v, np.ndarray):
+            a = np.ascontiguousarray(v)
+            out.append((name, a.shape, a.dtype.str,
+                        hashlib.blake2b(a.tobytes(), digest_size=16).digest()))
+        else:
+            out.append((name, v))
+    return tuple(out)
+
+
+def _own_launches(tables: dict) -> dict:
+    """A shallow copy of one shard's tables whose spread and interpod
+    kernels are prepared afresh: a graph keeps the launches it captured
+    (and the outputs they write, in the graphs' memory pool)."""
+    t = dict(tables)
+    t["spr"] = dict(t["spr"], launch={})
+    t["ipa"] = dict(t["ipa"], launch={})
+    return t
+
+
+def _scan_rows(run, lo: int, hi: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The scan steps of pods [lo, hi) of ``run`` in order: their pods,
+    their rows and the splits each owes the random stream when it draws
+    (the invalid scan rows since the last draw; a grouped chunk's first
+    split pays what is owed)."""
+    valid = run.valid
+    if run.kinds is None:
+        pods = lo + np.flatnonzero(valid[lo:hi])
+        prev = np.concatenate([[lo - 1], pods[:-1]])
+        return pods, pods, pods - prev - 1
+    pods, rows, skips = [], [], []
+    pending = 0
+    group = run.group
+    for c in range(lo // group, hi // group):
+        base = c * group
+        if int(run.kinds[c]) != gp.KIND_SLOW:
+            if int(run.vcnt[c]) > 0:
+                pending = 0
+            continue
+        for t in range(group):
+            if valid[base + t]:
+                pods.append(base + t)
+                rows.append(c if run.compact else base + t)
+                skips.append(pending)
+                pending = 0
+            else:
+                pending += 1
+    return (np.asarray(pods, np.int64), np.asarray(rows, np.int64),
+            np.asarray(skips, np.int64))
+
+
+class _Graph:
+    """A captured step: the graph, the tables whose prepared launches it
+    captured (kept with it), and its launches of the hand-written kernels
+    (domain_counts, threefry_scan)."""
+
+    __slots__ = ("graph", "tables", "launches")
+
+    def __init__(self, graph, tables, launches):
+        self.graph, self.tables, self.launches = graph, tables, launches
+
+
+class _Buffers:
+    """The static buffers the graphs of one epoch read and write."""
+
+    def __init__(self, dev, i64_shape, i32_shape, n_pods: int, n_rows: int, width: int):
+        self.i64 = torch.zeros(i64_shape, dtype=torch.int64, device=dev)
+        self.i32 = torch.zeros(i32_shape, dtype=torch.int32, device=dev)
+        self.rows = torch.zeros((n_rows, width), dtype=torch.uint8, device=dev)
+        # the step table: row, pod and owed splits of each graph step
+        self.steps = torch.zeros((3, n_pods), dtype=torch.int64, device=dev)
+        self.cursor = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.asg = torch.full((n_pods,), -1, dtype=torch.int64, device=dev)
+
+
+def _upload(dst: torch.Tensor, a: np.ndarray) -> None:
+    """A host array into ``dst`` on the launching stream; on the card from
+    pinned memory, without waiting for the card."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dst.is_cuda:
+        dst.copy_(t.pin_memory(), non_blocking=True)
+    else:
+        dst.copy_(t)
+
+
+class StepGraphs:
+    """One solver's step graphs, their epoch and the buffers they bind."""
+
+    def __init__(self):
+        self.graphs: dict[tuple, _Graph] = {}
+        self.warm: set[tuple] = set()  # signatures stepped eagerly in this epoch
+        self.epoch = None
+        self.buf: _Buffers | None = None
+        self.buf_key = None
+        self.layout: tuple = ()  # the packed pod row's (row_layout)
+        self.stream: tf.Stream | None = None
+        self._pool = None
+        self._side = None
+
+    def drop(self) -> None:
+        """Forget every graph. Their memory pool dies with the last of them,
+        so the next capture starts a new one."""
+        self.graphs.clear()
+        self.warm.clear()
+        self.epoch = None
+        self._pool = None
+
+    def capture(self, fn):
+        """A CUDA graph of what ``fn`` launches; its ``replay()`` runs it.
+        The collector is off meanwhile: a collection inside a capture could
+        destroy another graph, or free a tensor, in the middle of it."""
+        dev = self.buf.i64.device
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        if self._side is None:
+            self._side = torch.cuda.Stream(dev)
+        graph = torch.cuda.CUDAGraph()
+        main = torch.cuda.current_stream(dev)
+        self._side.wait_stream(main)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            self._record(graph, fn)
+        finally:
+            if collecting:
+                gc.enable()
+        main.wait_stream(self._side)
+        return graph
+
+    def _record(self, graph, fn) -> None:
+        with torch.cuda.stream(self._side):
+            # thread_local: another thread may touch the card meanwhile
+            # (the streaming loop's completion waits)
+            graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+            try:
+                fn()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except Exception:  # noqa: BLE001 -- the step's own error is the one to raise
+                    pass
+                raise
+            graph.capture_end()
+
+    # -- one call of a run --
+
+    def start(self, run, packed, lo: int, hi: int, key):
+        """The graph pass of ``run``'s call over pods [lo, hi), or None
+        when no signature there engages (the call then steps eagerly, as
+        it would without graphs)."""
+        pods, rows, skips = _scan_rows(run, lo, hi)
+        if not len(pods):
+            return None
+        if run.graph_epoch is None:
+            run.graph_epoch = (
+                _fingerprint(run.tables[0]), run.tie_break,
+                tuple(sorted(run.kw.items())), run.layout,
+            )
+        epoch = run.graph_epoch
+        host = run.xs.host
+        sig = host["class_of"][rows] * 2 + host["has_port_conflicts"][rows]
+        kinds, counts = np.unique(sig, return_counts=True)
+        cached = {c * 2 + h for c, h, _ in self.graphs} if epoch == self.epoch else set()
+        take = {int(s) for s, n in zip(kinds, counts) if n >= MIN_STEPS or int(s) in cached}
+        if not take:
+            return None
+        keep = np.isin(sig, list(take))
+        return _Pass(self, run, packed, lo, hi, key, epoch,
+                     pods[keep], rows[keep], skips[keep])
+
+    def bind(self, run, packed, epoch) -> _Buffers:
+        """The buffers for ``run`` (new ones, and a new epoch, where the
+        shapes change), its epoch made current and its rows uploaded."""
+        i64, i32 = packed["i64"][0], packed["i32"][0]
+        host = run.xs.host
+        layout, width = row_layout(host)
+        n_pods, n_rows = run.valid.shape[0], host["take64"].shape[0]
+        bk = (i64.device, tuple(i64.shape), tuple(i32.shape), layout, width)
+        if (self.buf is None or self.buf_key != bk or self.buf.asg.shape[0] < n_pods
+                or self.buf.rows.shape[0] < n_rows):
+            self.drop()
+            self.buf = _Buffers(i64.device, i64.shape, i32.shape, n_pods, n_rows, width)
+            self.buf_key, self.layout = bk, layout
+            self.stream = tf.Stream((0, 0), i64.device)
+            self._side = None
+        if self.epoch != epoch:
+            self.drop()
+            self.epoch = epoch
+        if not run.graph_rows:
+            _upload(self.buf.rows[:n_rows], pack_rows(host, layout, width))
+            run.graph_rows = True
+        return self.buf
+
+
+class _Pass:
+    """One call's graph steps: the buffers bound and filled at the start,
+    ``step(i)`` for each valid scan pod in order, ``finish`` at the end."""
+
+    def __init__(self, graphs: StepGraphs, run, packed, lo, hi, key, epoch, pods, rows, skips):
+        self.graphs, self.run, self.orig, self.lo = graphs, run, packed, lo
+        buf = self.buf = graphs.bind(run, packed, epoch)
+        self.layout = graphs.layout
+        self.k = run.xs.host["req_mask"].shape[1]
+        self.b = run.xs.host["pod_takes"].shape[1]
+        # per pod of [lo, hi): its step's (owed splits, class, port flag), or None
+        self.slot: list = [None] * (hi - lo)
+        host = run.xs.host
+        cls = host["class_of"][rows].tolist()
+        hpc = host["has_port_conflicts"][rows].tolist()
+        for p, s, c, h in zip(pods.tolist(), skips.tolist(), cls, hpc):
+            self.slot[p - lo] = (s, c, h)
+        table = np.zeros(buf.steps.shape, np.int64)  # whole rows: one contiguous upload
+        table[:, : len(pods)] = (rows, pods, skips)
+        _upload(buf.steps, table)
+        buf.cursor.zero_()
+        buf.i64.copy_(packed["i64"][0])
+        buf.i32.copy_(packed["i32"][0])
+        buf.asg[lo:hi].fill_(-1)
+        self.packed = {"i64": (buf.i64,), "i32": (buf.i32,)}
+        self.asg = buf.asg
+        self.stream = None
+        if run.tie_break == "random":
+            self.stream = graphs.stream
+            self.stream.reset(key)
+
+    def step(self, i: int) -> bool:
+        """Pod ``i``'s step by a graph: True once replayed; False where the
+        caller steps it eagerly (a signature's warm-up, or no graph step)."""
+        s = self.slot[i - self.lo]
+        if s is None:
+            return False
+        skip, cls, hpc = s
+        stream, graphs, buf = self.stream, self.graphs, self.buf
+        if stream is not None and stream.pending != skip:
+            raise RuntimeError(f"step graphs: pod {i} owes {stream.pending} splits, "
+                               f"the step table says {skip}")
+        sig = (cls, hpc, stream.cur if stream is not None else 0)
+        g = graphs.graphs.get(sig)
+        if g is None:
+            if (cls, hpc) not in graphs.warm:
+                # the warm-up: this pod steps eagerly, its table row passed over
+                graphs.warm.add((cls, hpc))
+                buf.cursor.add_(1)
+                return False
+            if stream is not None:
+                stream.pending = 0  # the capture's draw owes only its row's splits
+            g = graphs.graphs[sig] = self._capture(sig)
+            self.run.times.graph_captures += 1
+        if stream is not None:
+            stream.pending = 0  # the replay pays them from the step table
+        g.graph.replay()
+        n_dc, n_scan = g.launches
+        if n_dc:
+            dc.LAUNCHES += n_dc
+        if n_scan:
+            tf.SCAN_LAUNCHES += n_scan
+        self.run.times.graph_replays += 1
+        return True
+
+    def _capture(self, sig) -> _Graph:
+        run, buf, stream = self.run, self.buf, self.stream
+        tables = _own_launches(run.tables[0])
+        step = run.make_step(tables, stream)
+        st = run.state_views(self.packed, 0)
+        spk = {"i64": buf.i64, "i32": buf.i32}
+        layout, k, b = self.layout, self.k, self.b
+        cls, hpc, _ = sig
+
+        def fn():
+            ent = buf.steps.index_select(1, buf.cursor)  # [3, 1]: row, pod, owed splits
+            x = row_views(buf.rows.index_select(0, ent[0])[0], layout, k, b)
+            x["class_of"], x["has_port_conflicts"] = cls, hpc
+            if stream is not None:
+                stream.skip_at = ent[2, 0]
+            try:
+                pick = sh.run_local(step(st, spk, x))
+            finally:
+                if stream is not None:
+                    stream.skip_at = None
+            buf.asg.index_copy_(0, ent[1], pick.view(1))
+            buf.cursor.add_(1)
+
+        d0, s0 = dc.LAUNCHES, tf.SCAN_LAUNCHES
+        graph = self.graphs.capture(fn)
+        # a capture launches nothing: its wrappers' counts belong to the replays
+        n_dc, n_scan = dc.LAUNCHES - d0, tf.SCAN_LAUNCHES - s0
+        dc.LAUNCHES -= n_dc
+        tf.SCAN_LAUNCHES -= n_scan
+        return _Graph(graph, tables, (n_dc, n_scan))
+
+    def finish(self) -> None:
+        """The carried state and the assignments back where the call's
+        caller reads them."""
+        buf, run = self.buf, self.run
+        self.orig["i64"][0].copy_(buf.i64)
+        self.orig["i32"][0].copy_(buf.i32)
+        run.assignments[self.lo : self.lo + len(self.slot)].copy_(
+            buf.asg[self.lo : self.lo + len(self.slot)])

@@ -16,7 +16,9 @@ in the order a solve runs them:
                in ``issue``)
 
 Beside them it counts the scan's steps, the grouped loop's iterations and
-the card reads. With a Tracer set (the Scheduler's, when its spans are on)
+the card reads, and of the scan's steps those replayed from a CUDA graph
+(``graph_replays``) and the graphs captured (``graph_captures``,
+``solver/graphs.py``). With a Tracer set (the Scheduler's, when its spans are on)
 each sub-stage is also a span of the same name, ``card_read`` carrying its
 site; with a ``utils/tracing`` session on, a ``record_function`` range of
 the same name, so the operator's Chrome trace shows them against the
@@ -129,6 +131,8 @@ class SolveTimes:
         self.seconds = dict.fromkeys(SOLVE_STAGES, 0.0)
         self.scan_steps = 0
         self.grouped_iterations = 0
+        self.graph_replays = 0
+        self.graph_captures = 0
         self.card_reads = 0
 
     def stage(self, name: str) -> _Stage:

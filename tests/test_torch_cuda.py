@@ -1449,3 +1449,147 @@ def test_sharded_scheduler_on_the_card(cuda_device):
     got, s = drive(4)
     assert got == want and s.resilience.ladder[0] == "mesh"
     assert set(s._tier_last.values()) == {"mesh"}
+
+
+# -- the scan step's CUDA graphs (solver/graphs.py) ----------------------------
+
+
+def _graph_pods(n, kinds=("ports", "spread", "anti", "pref"), prefix="s", bad_every=0):
+    """interpod5k's four kinds (hostPort, hard zone spread, required hostname
+    anti-affinity, preferred zone affinity) in turn; every ``bad_every``-th
+    pod requests a resource no node has, an invalid scan row."""
+    out = []
+    for i in range(n):
+        kind = kinds[i % len(kinds)]
+        req = {"cpu": "100m", "memory": "500Mi"}
+        if bad_every and i % bad_every == bad_every - 1:
+            req["example.com/missing"] = "1"
+        b = MakePod().name(f"{prefix}{i:04}").label("app", kind).req(req)
+        if kind == "ports":
+            b = b.host_port(8000 + i % 8)
+        elif kind == "spread":
+            b = b.spread_constraint(1, ZONE, "DoNotSchedule", {"app": "spread"})
+        elif kind == "anti":
+            b = b.pod_anti_affinity(HOST, {"app": "anti"})
+        elif kind == "pref":
+            b = b.preferred_pod_affinity(50, ZONE, {"app": "spread"})
+        out.append(b.obj())
+    return out
+
+
+def _graph_inputs(nodes, pods):
+    vocab = ResourceVocab.build([], nodes)  # a resource no node has stays unknown
+    nb = build_node_batch(nodes, vocab=vocab)
+    pb = build_pod_batch(pods, vocab)
+    slots = list(nodes) + [None] * (nb.padded - len(nodes))
+    st = build_static_tensors(pods, pb, slots, nb.padded)
+    return (nb, pb, st, build_port_tensors(pods, pb, slots, {}, nb.padded),
+            build_spread_tensors(pods, st.reps, pb, slots, {}, nb.padded, st.c_pad),
+            build_interpod_tensors(pods, st.reps, pb, slots, {}, nb.padded, st.c_pad))
+
+
+GRAPH_CASES = {
+    "standalone": dict(mode="standalone", pods=lambda: _graph_pods(512)),
+    "session": dict(mode="session", pods=lambda: _graph_pods(512)),
+    "chained": dict(mode="chained", pods=lambda: _graph_pods(512, bad_every=37)),
+    "invalid_rows": dict(mode="standalone", pods=lambda: _graph_pods(512, bad_every=7)),
+    # chunks of identical plain pods (kind 1) between mixed ones (KIND_SLOW)
+    "grouped_slow": dict(mode="standalone", group=64, pods=lambda: (
+        _graph_pods(128, kinds=("plain",)) + _graph_pods(192, kinds=("ports", "anti", "spread"),
+                                                         prefix="q", bad_every=5)
+        + _graph_pods(64, kinds=("plain",), prefix="r")
+        + _graph_pods(128, kinds=("anti", "ports"), prefix="t", bad_every=6))),
+}
+
+
+def _graph_solve(monkeypatch, dev, spec, tie, graphs: bool):
+    """One solve of ``spec`` with the step graphs on or off: assignments,
+    carried state, the stream's key words, launch deltas and the solver."""
+    from kubernetes_tpu_torch.solver import graphs as sg
+
+    made = []
+
+    class Recorded(tf.Stream):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(tf, "Stream", Recorded)
+        if not graphs:
+            mp.setattr(sg, "engages", lambda *a: False)
+        nodes, _ = _cluster(1024, 0)
+        inp = _graph_inputs(nodes, spec["pods"]())
+        solver = ExactSolver(ExactSolverConfig(tie_break=tie, seed=2026, balanced_fdtype="float64",
+                                               group_size=spec.get("group", 1)))
+        l0 = (dc.LAUNCHES, tf.SCAN_LAUNCHES, tf.GROUPED_LAUNCHES)
+        if spec["mode"] == "standalone":
+            got = solver.solve(*inp, device=dev)
+            state = [getattr(inp[0], k).copy() for k in ("used", "nonzero_used", "pod_count")]
+        else:
+            versions = np.zeros(inp[0].padded, np.int64)
+            out = solver.solve(*inp, col_versions=versions, defer_read=True,
+                               split=4 if spec["mode"] == "chained" else 1, device=dev)
+            handles = out if isinstance(out, list) else [out]
+            got = np.concatenate([h.get() for h in handles])
+            p = solver._session.persist
+            state = [p["i64"][0].cpu().numpy(), p["pod_count"][0].cpu().numpy()]
+        torch.cuda.synchronize()
+        launches = tuple(b - a for a, b in zip(l0, (dc.LAUNCHES, tf.SCAN_LAUNCHES,
+                                                     tf.GROUPED_LAUNCHES)))
+        stream = (solver.graphs.stream if graphs else made[-1]) if tie == "random" else None
+        key = stream.key_words() if stream is not None else None
+    return got, state, key, launches, solver
+
+
+@pytest.mark.parametrize("tie", ["first", "random"])
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_step_graphs_equal_the_eager_steps_on_the_card(cuda_device, monkeypatch, tie, case):
+    """An interpod5k-shaped batch solved with the step graphs equals the
+    eager solve bit for bit: assignments, carried state and the stream's
+    key; the launch counters advance by the same counts, so the
+    hand-written kernels are seen launching inside the graphs."""
+    spec = GRAPH_CASES[case]
+    want, want_state, want_key, want_l, _ = _graph_solve(monkeypatch, cuda_device, spec, tie, False)
+    got, state, key, launches, solver = _graph_solve(monkeypatch, cuda_device, spec, tie, True)
+    np.testing.assert_array_equal(got, want)
+    for a, b in zip(state, want_state):
+        np.testing.assert_array_equal(a, b)
+    assert key == want_key
+    assert launches == want_l and launches[0] > 0
+    if tie == "random":
+        assert launches[1] > 0
+    tm = solver.times
+    assert tm.graph_captures > 0 and tm.graph_replays > 0.9 * tm.scan_steps
+
+
+def test_step_graphs_recapture_when_the_class_tables_change_on_the_card(cuda_device, monkeypatch):
+    """Session solves on one solver: the same batch again replays the
+    graphs it has; a batch of other kinds brings other class tables, so
+    every graph is dropped and captured anew, and each solve equals the
+    eager solver's on the same sequence."""
+    from kubernetes_tpu_torch.solver import graphs as sg
+
+    nodes, _ = _cluster(1024, 0)
+    batches = [_graph_pods(256, prefix="a"), _graph_pods(256, prefix="a"),
+               _graph_pods(256, kinds=("ports", "anti"), prefix="b")]
+    cfg = ExactSolverConfig(tie_break="random", seed=7, balanced_fdtype="float64")
+    versions = np.zeros(_graph_inputs(nodes, batches[0])[0].padded, np.int64)
+    out = {}
+    for graphs in (True, False):
+        solver = ExactSolver(cfg)
+        with monkeypatch.context() as mp:
+            if not graphs:
+                mp.setattr(sg, "engages", lambda *a: False)
+            seen = []
+            for pods in batches:
+                a = solver.solve(*_graph_inputs(nodes, pods), col_versions=versions.copy(),
+                                 device=cuda_device)
+                seen.append((a, solver.times.graph_captures, solver.times.graph_replays,
+                             solver.graphs.epoch if graphs else None))
+        out[graphs] = seen
+    for (a, *_), (b, *_) in zip(out[True], out[False]):
+        np.testing.assert_array_equal(a, b)
+    (_, c0, _, e0), (_, c1, r1, e1), (_, c2, _, e2) = out[True]
+    assert c0 == 4 and c1 == 0 and r1 == 256 and e1 == e0
+    assert c2 == 2 and e2 != e0
