@@ -922,6 +922,35 @@ solve_graph_captures_total = Counter(
     "signature per epoch of tables.",
     registry=REGISTRY,
 )
+solve_chunks_total = Counter(
+    "scheduler_solve_chunks_total",
+    "Chunks of the exact solver's grouped path that held a valid pod, by "
+    "kind (slow: the per-pod scan|plain|spread: domain quotas|anti: one "
+    "pod per empty domain).",
+    ["kind"],
+    registry=REGISTRY,
+)
+solve_chunk_pods_total = Counter(
+    "scheduler_solve_chunk_pods_total",
+    "Valid pods in the grouped path's chunks, by chunk kind (as "
+    "scheduler_solve_chunks_total).",
+    ["kind"],
+    registry=REGISTRY,
+)
+solve_chunk_iterations_total = Counter(
+    "scheduler_solve_chunk_iterations_total",
+    "Iterations of the grouped loop, by chunk kind (plain|spread|anti); "
+    "they add up to scheduler_solve_steps_total{kind=\"grouped_iterations\"}.",
+    ["kind"],
+    registry=REGISTRY,
+)
+solve_waterfill_iterations_total = Counter(
+    "scheduler_solve_waterfill_iterations_total",
+    "Spread-chunk iterations of the grouped random loop that kept the "
+    "water-fill (k full rounds across the domains at once), read with the "
+    "loop's exit test.",
+    registry=REGISTRY,
+)
 mesh_combines_total = Counter(
     "scheduler_mesh_combines_total",
     "Cross-shard combines of the node-axis mesh's lockstep solves.",
@@ -947,6 +976,10 @@ PORT_SERIES = (
     solve_steps_total,
     solve_graph_replays_total,
     solve_graph_captures_total,
+    solve_chunks_total,
+    solve_chunk_pods_total,
+    solve_chunk_iterations_total,
+    solve_waterfill_iterations_total,
     mesh_combines_total,
     mesh_combine_seconds_total,
     gc_collections_total,

@@ -89,7 +89,7 @@ from ..tensorize.spread import SpreadTensors, trivial_spread_tensors
 from . import graphs as sg
 from . import grouped as gp
 from .budget import assert_index_headroom
-from .timing import KERNELS, SolveTimes, launch_counts
+from .timing import CHUNK_KINDS, KERNELS, SolveTimes, launch_counts
 from .session import (
     BatchCarriedUsage,
     DeferredAssignments,
@@ -896,7 +896,7 @@ class ExactSolver:
             if launches0 is not None:
                 st.set(scan_steps=tm.scan_steps, grouped_iterations=tm.grouped_iterations,
                        graph_replays=tm.graph_replays, graph_captures=tm.graph_captures,
-                       card_reads=tm.card_reads,
+                       card_reads=tm.card_reads, **tm.chunk_counts(),
                        launches=dict(zip(KERNELS, (b - a for a, b in zip(launches0,
                                                                          launch_counts())))))
         if handles is not None:
@@ -998,7 +998,8 @@ class _Run:
     or chunk runs one generator per shard in lockstep
     (``parallel/sharding.py``). The assignments live on the lead device.
     ``times`` (the solver's SolveTimes) counts the scan's steps, the
-    grouped loop's iterations and its timed card reads. ``graphs`` (the
+    grouped loop's iterations and its timed card reads, and the grouped
+    path's chunks, pods and iterations by chunk kind. ``graphs`` (the
     solver's StepGraphs, or None): the scan's steps replay its CUDA graphs
     where a call's signatures engage them (``graphs.py``)."""
 
@@ -1047,9 +1048,17 @@ class _Run:
         return _make_step(tables, tie_break=self.tie_break, stream=stream, **self.kw)
 
     def read_placed(self, parts):
-        """The grouped random loop's exit test, timed: one iteration."""
-        self.times.grouped_iterations += 1
-        return self.times.read("grouped", gp._read_placed, parts)
+        """The grouped random loop's exit test, timed: one iteration. A
+        spread chunk's read brings its water-fill flag too, counted here;
+        every shard gets the count placed."""
+        tm = self.times
+        tm.grouped_iterations += 1
+        got = tm.read("grouped", gp._read_placed, parts)
+        if isinstance(got[0], list):
+            placed, waterfill = got[0]
+            tm.waterfill_iterations += waterfill
+            return [placed] * len(got)
+        return got
 
     def __call__(self, packed, lo: int, hi: int, key) -> None:
         """``key``: the threefry key of this range's stream (random mode;
@@ -1098,8 +1107,13 @@ class _Run:
             base = c * group
             # ktpu: ignore[TPU001]: kinds is the host numpy chunk-kind vector from chunk_kinds; no card value is read
             kind = int(self.kinds[c])
+            name = CHUNK_KINDS[kind]
             if kind == gp.KIND_SLOW:
-                tm.scan_steps += self.valid_before[base + group] - self.valid_before[base]
+                n_valid = self.valid_before[base + group] - self.valid_before[base]
+                tm.scan_steps += n_valid
+                if n_valid:
+                    tm.chunks[name] += 1
+                    tm.chunk_pods[name] += n_valid
                 for t in range(group):
                     if self.valid[base + t]:
                         if gp_pass is not None and gp_pass.step(base + t):
@@ -1115,6 +1129,9 @@ class _Run:
             vc = int(self.vcnt[c])
             if vc == 0:
                 continue  # an all-padding chunk places nothing
+            tm.chunks[name] += 1
+            tm.chunk_pods[name] += vc
+            iterations0 = tm.grouped_iterations
             if self.tie_break != TIE_RANDOM:
                 tm.grouped_iterations += vc  # one pod an iteration, no read
             mode = {gp.KIND_PLAIN: None, gp.KIND_SPREAD: "spread", gp.KIND_ANTI: "anti"}[kind]
@@ -1125,6 +1142,7 @@ class _Run:
                 gp.fast_chunk(mode, self.tables[s], sts[s], xr[s], h, vc, **fast_kw)
                 for s in range(k))
             asg[base : base + group] = out[0][0]
+            tm.chunk_iterations[name] += tm.grouped_iterations - iterations0
             for s in range(k):
                 m = out[s][1]
                 shard_packed[s]["i64"] += xr[s]["take64"][:, None] * m.to(torch.int64)[None, :]

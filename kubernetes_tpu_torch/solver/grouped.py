@@ -304,10 +304,12 @@ class _DomainModel:
 
 
 def _read_placed(parts):
-    """The random loop's exit test: one read of the lead's count, whatever
-    the shard count."""
+    """The random loop's exit test: one read of the lead's exit row,
+    whatever the shard count. The row is the count placed, or in spread
+    mode ``[count placed, 1 if the iteration kept the water-fill]``;
+    every shard gets the value read (an int, or that list)."""
     global READS
-    v = int(parts[0])
+    v = parts[0].tolist()
     READS += 1
     return [v] * len(parts)
 
@@ -338,7 +340,8 @@ def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
     one shard's block (``tables["lo"]`` its first global column); the
     lead shard's assignments are the chunk's. ``read_placed``: the
     random loop's exit-test combine, ``_read_placed`` timed by the
-    solver."""
+    solver, which returns the count placed (and counts a spread
+    iteration's water-fill flag)."""
     alloc = tables["alloc"]
     alloc2 = alloc[: MEM_IDX + 1]
     n = alloc.shape[1]
@@ -534,7 +537,12 @@ def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
             idx, hit = own(pick, single)
             m_ext.index_add_(0, idx.view(1), hit.to(torch.int32).view(1))
         placed = torch.where(feasible, placed + n_placed, vcnt)
-        placed_h = yield read_placed, placed  # the loop's exit test: one read per iteration
+        # the loop's exit test: one read per iteration; in spread mode the
+        # same read brings back whether the water-fill was kept
+        exit_row = placed
+        if mode == "spread":
+            exit_row = torch.stack((placed, waterfill.to(torch.int64)))
+        placed_h = yield read_placed, exit_row
     return asg, m
 
 

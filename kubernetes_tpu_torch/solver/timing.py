@@ -18,7 +18,13 @@ in the order a solve runs them:
 Beside them it counts the scan's steps, the grouped loop's iterations and
 the card reads, and of the scan's steps those replayed from a CUDA graph
 (``graph_replays``) and the graphs captured (``graph_captures``,
-``solver/graphs.py``). With a Tracer set (the Scheduler's, when its spans are on)
+``solver/graphs.py``). Of the grouped path it counts, by chunk kind
+(``CHUNK_KINDS``), the chunks that held a valid pod (``chunks``), their
+valid pods (``chunk_pods``) and, for the fast kinds, the loop's iterations
+(``chunk_iterations``, which add up to ``grouped_iterations``), and the
+spread iterations that kept the water-fill (``waterfill_iterations``, a
+flag the random loop's exit-test read brings back with the count placed).
+With a Tracer set (the Scheduler's, when its spans are on)
 each sub-stage is also a span of the same name, ``card_read`` carrying its
 site; with a ``utils/tracing`` session on, a ``record_function`` range of
 the same name, so the operator's Chrome trace shows them against the
@@ -42,6 +48,10 @@ import time
 from ..utils import tracing
 
 SOLVE_STAGES = ("prepare", "upload", "issue", "card_read")
+# the grouped path's chunk kinds, indexed by solver/grouped.py's KIND_*
+# values; the fast kinds are the ones whose chunks run the grouped loop
+CHUNK_KINDS = ("slow", "plain", "spread", "anti")
+FAST_KINDS = CHUNK_KINDS[1:]
 SITES = ("grouped", "relax", "auction", "evaluate", "preemption")
 KERNELS = ("domain_counts", "threefry_scan", "threefry_grouped")
 
@@ -134,6 +144,20 @@ class SolveTimes:
         self.graph_replays = 0
         self.graph_captures = 0
         self.card_reads = 0
+        self.chunks = dict.fromkeys(CHUNK_KINDS, 0)
+        self.chunk_pods = dict.fromkeys(CHUNK_KINDS, 0)
+        self.chunk_iterations = dict.fromkeys(FAST_KINDS, 0)
+        self.waterfill_iterations = 0
+
+    def chunk_counts(self) -> dict:
+        """The grouped path's counts, flat: ``chunks.<kind>``,
+        ``chunk_pods.<kind>``, ``chunk_iterations.<kind>`` and
+        ``waterfill_iterations``, the keys of the StageProfiler's ledger."""
+        out = {f"chunks.{k}": v for k, v in self.chunks.items()}
+        out.update((f"chunk_pods.{k}", v) for k, v in self.chunk_pods.items())
+        out.update((f"chunk_iterations.{k}", v) for k, v in self.chunk_iterations.items())
+        out["waterfill_iterations"] = self.waterfill_iterations
+        return out
 
     def stage(self, name: str) -> _Stage:
         return _Stage(self, name, {})

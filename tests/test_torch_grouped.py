@@ -181,15 +181,19 @@ def test_quota_chunks_equal_reference_and_scan(kind, n_nodes, n_pods, want, grou
     assert counts.get(want, 0) > 0
 
 
-def test_spread_with_existing_pods_and_skew_two():
+@pytest.mark.parametrize("max_skew,tie", [(2, "first"), (5, "random")])
+def test_spread_with_existing_pods_and_skew_two(max_skew, tie):
     """Spread chunks starting from a cluster that already runs matching
-    pods (the counts' base rows), with maxSkew 2."""
+    pods (the counts' base rows), with maxSkew 2 in "first" mode (equal to
+    the scan too), and with the spread5k deployment's maxSkew 5 in
+    "random" mode, where the maxSkew > 1 re-entry gate and the water-fill
+    run: equal to the JAX package bit for bit."""
     nodes = quota.mk_nodes(18)
     placed = {nodes[i].name: [MakePod().name(f"old-{i}").label("app", "s2")
                               .node(nodes[i].name).req({"cpu": "250m"}).obj()]
               for i in (0, 3, 6, 1)}
     pods = [MakePod().name(f"p-{i:03}").label("app", "s2").req({"cpu": "250m"})
-            .spread_constraint(2, ZONE, "DoNotSchedule", {"app": "s2"}).obj()
+            .spread_constraint(max_skew, ZONE, "DoNotSchedule", {"app": "s2"}).obj()
             for i in range(24)]
 
     def inputs():
@@ -203,16 +207,18 @@ def test_spread_with_existing_pods_and_skew_two():
                 build_spread_tensors(pods, st.reps, pb, slots, by_slot, nb.padded, st.c_pad),
                 build_interpod_tensors(pods, st.reps, pb, slots, by_slot, nb.padded, st.c_pad))
 
-    ref = RefSolver(_config(8))
+    ref = RefSolver(_config(8, tie))
     want = ref.solve(*inputs())
-    port = ExactSolver(convert.solver_config(_config(8)))
+    port = ExactSolver(convert.solver_config(_config(8, tie)))
     got = port.solve(*convert.solve_inputs(*inputs()), device="cpu")
     np.testing.assert_array_equal(got, want)
     assert dict(port.dispatch_counts) == dict(ref.dispatch_counts)
     assert port.dispatch_counts["kind2"] == 3
-    scan_got = ExactSolver(convert.solver_config(_config(0))).solve(
-        *convert.solve_inputs(*inputs()), device="cpu")
-    np.testing.assert_array_equal(scan_got, want)
+    assert (got >= 0).all()
+    if tie == "first":
+        scan_got = ExactSolver(convert.solver_config(_config(0))).solve(
+            *convert.solve_inputs(*inputs()), device="cpu")
+        np.testing.assert_array_equal(scan_got, want)
 
 
 def test_chunk_kinds_equal_reference():

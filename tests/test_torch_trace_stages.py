@@ -195,6 +195,76 @@ def test_registry_counters_equal_the_globals_deltas():
     assert 'scheduler_profile_stage_seconds_total{stage="issue"}' in text
 
 
+def _kinds_batch(cs: ClusterState) -> None:
+    """18 nodes in 3 zones, then in queue order 32 self-selecting zone-spread
+    pods, 16 self-selecting hostname-anti pods, 16 plain pods and 8 plain
+    pods mixed with 8 one-off pods: in chunks of 16, two spread chunks,
+    one anti, one plain and one slow."""
+    for i in range(18):
+        cs.create_node(MakeNode().name(f"n{i}").capacity({"cpu": "8", "memory": "16Gi", "pods": "40"})
+                       .label("zone", f"z{i % 3}").label("host", f"n{i}").obj())
+    pods = [MakePod().name(f"s{i}").label("app", "s").req({"cpu": "100m"})
+            .spread_constraint(1, "zone", "DoNotSchedule", {"app": "s"}) for i in range(32)]
+    pods += [MakePod().name(f"a{i}").label("app", "a").req({"cpu": "100m"})
+             .pod_anti_affinity("host", {"app": "a"}) for i in range(16)]
+    pods += [MakePod().name(f"w{i}").label("app", "w").req({"cpu": "100m"}) for i in range(24)]
+    pods[-8:-8] = [MakePod().name(f"o{i}").req({"cpu": f"{200 + 50 * i}m"}) for i in range(8)]
+    for b in pods:
+        cs.create_pod(b.obj())
+
+
+def test_chunk_counters_by_kind(monkeypatch):
+    """The chunks, their valid pods and the grouped loop's iterations by
+    chunk kind, as the solver counts them and the profiler folds them:
+    the chunks equal the kinds the solver classified (chunks with a valid
+    pod), the fast kinds' iterations add up to the grouped iterations, and
+    the water-fill is kept in no more iterations than the spread chunks
+    ran."""
+    from kubernetes_tpu_torch.solver.exact import ExactSolver
+
+    classified = []
+    kinds_of = ExactSolver._chunk_kinds
+
+    def recording(pods, *args):
+        kinds = kinds_of(pods, *args)
+        valid = (pods.valid & pods.feasible_static).reshape(len(kinds), -1).sum(axis=1)
+        classified.append((kinds, valid))
+        return kinds
+
+    monkeypatch.setattr(ExactSolver, "_chunk_kinds", staticmethod(recording))
+    cs = ClusterState()
+    _kinds_batch(cs)
+    sched = _sched(cs, group=16, obs=ObsConfig(profile=True), batch=80)
+    before = {k: (metrics.solve_chunks_total.labels(k).value(),
+                  metrics.solve_chunk_pods_total.labels(k).value()) for k in timing.CHUNK_KINDS}
+    wf0 = metrics.solve_waterfill_iterations_total.value()
+    res = sched.run_pipelined()
+    assert sum(len(r.scheduled) for r in res) == 80
+    entries = sched.telemetry.profiler.snapshot()["recent"]
+    got = {k: sum(e[k] for e in entries) for k in entries[0] if k.startswith("chunk") or "iterations" in k}
+    assert all(type(e[k]) is int for e in entries for k in got)
+    want_chunks = dict.fromkeys(timing.CHUNK_KINDS, 0)
+    want_pods = dict.fromkeys(timing.CHUNK_KINDS, 0)
+    for kinds, valid in classified:
+        for k, v in zip(kinds.tolist(), valid.tolist()):
+            if v:
+                want_chunks[timing.CHUNK_KINDS[k]] += 1
+                want_pods[timing.CHUNK_KINDS[k]] += v
+    assert {k: got[f"chunks.{k}"] for k in timing.CHUNK_KINDS} == want_chunks
+    assert {k: got[f"chunk_pods.{k}"] for k in timing.CHUNK_KINDS} == want_pods
+    assert want_chunks == {"slow": 1, "plain": 1, "spread": 2, "anti": 1}
+    assert sum(want_pods.values()) == 80
+    assert (sum(got[f"chunk_iterations.{k}"] for k in timing.FAST_KINDS)
+            == got["grouped_iterations"] > 0)
+    assert all(got[f"chunk_iterations.{k}"] > 0 for k in timing.FAST_KINDS)
+    assert 0 < got["waterfill_iterations"] <= got["chunk_iterations.spread"]
+    # the registry advanced by the same deltas
+    for k in timing.CHUNK_KINDS:
+        assert metrics.solve_chunks_total.labels(k).value() - before[k][0] == want_chunks[k]
+        assert metrics.solve_chunk_pods_total.labels(k).value() - before[k][1] == want_pods[k]
+    assert metrics.solve_waterfill_iterations_total.value() - wf0 == got["waterfill_iterations"]
+
+
 def test_the_auction_times_and_counts_its_reads():
     import numpy as np
 
@@ -240,7 +310,9 @@ def test_span_stamps_nest_and_lie_within_the_call():
         if s["name"] == "card_read":
             assert by_id[s["parent"]]["name"] == "issue" and s["attrs"]["site"] == "grouped"
         if s["name"] == "issue":
-            assert {"scan_steps", "grouped_iterations", "card_reads", "launches"} <= set(s["attrs"])
+            assert {"scan_steps", "grouped_iterations", "card_reads", "launches", "chunks.spread",
+                    "chunk_pods.slow", "chunk_iterations.plain",
+                    "waterfill_iterations"} <= set(s["attrs"])
     # the stage seconds and the spans time the same intervals
     prof = sched.telemetry.profiler.snapshot()["stage_seconds"]
     issue = sum(s["dur"] for s in spans if s["name"] == "issue")
