@@ -49,9 +49,15 @@ DEVICE_ROOTS = frozenset(
         (f"{PACKAGE}/solver/exact.py", "_make_step"),
         (f"{PACKAGE}/solver/exact.py", "_mask_and_score"),
         (f"{PACKAGE}/solver/grouped.py", "fast_chunk"),
-        # the scan step's CUDA graphs: their capture and replay
+        (f"{PACKAGE}/solver/grouped.py", "_Loop.load"),
+        (f"{PACKAGE}/solver/grouped.py", "_Loop.first"),
+        (f"{PACKAGE}/solver/grouped.py", "_Loop.iteration"),
+        # the CUDA graphs of the scan step and of the quota iterations:
+        # their capture and replay
         (f"{PACKAGE}/solver/graphs.py", "_Pass.step"),
         (f"{PACKAGE}/solver/graphs.py", "_Pass._capture"),
+        (f"{PACKAGE}/solver/graphs.py", "_Pass.iteration"),
+        (f"{PACKAGE}/solver/graphs.py", "_Pass._capture_iteration"),
         # _heal: the session's dirty-column heal
         (f"{PACKAGE}/solver/session.py", "_heal"),
         # _preempt_scan, _relax, _single_shot: the other device programs

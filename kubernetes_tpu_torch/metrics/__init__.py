@@ -951,6 +951,21 @@ solve_waterfill_iterations_total = Counter(
     "loop's exit test.",
     registry=REGISTRY,
 )
+solve_grouped_graph_replays_total = Counter(
+    "scheduler_solve_grouped_graph_replays_total",
+    "Iterations of the grouped random loop that the exact solver replayed "
+    "from a CUDA graph of the iteration, one graph launch each, by chunk "
+    "kind (spread|anti; of scheduler_solve_chunk_iterations_total).",
+    ["kind"],
+    registry=REGISTRY,
+)
+solve_grouped_graph_captures_total = Counter(
+    "scheduler_solve_grouped_graph_captures_total",
+    "CUDA graphs of the grouped random loop's iteration captured, one per "
+    "iteration signature per epoch of tables, by chunk kind (spread|anti).",
+    ["kind"],
+    registry=REGISTRY,
+)
 mesh_combines_total = Counter(
     "scheduler_mesh_combines_total",
     "Cross-shard combines of the node-axis mesh's lockstep solves.",
@@ -980,6 +995,8 @@ PORT_SERIES = (
     solve_chunk_pods_total,
     solve_chunk_iterations_total,
     solve_waterfill_iterations_total,
+    solve_grouped_graph_replays_total,
+    solve_grouped_graph_captures_total,
     mesh_combines_total,
     mesh_combine_seconds_total,
     gc_collections_total,

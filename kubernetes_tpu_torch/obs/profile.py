@@ -74,7 +74,8 @@ ALL_STAGES = STAGES + NESTED_STAGES
 # counts the Scheduler hands over per solve call (solver/timing.py): the
 # steps by kind, then the scan steps' CUDA graphs (solver/graphs.py), then
 # the grouped path's chunks, their pods and their loop's iterations by
-# chunk kind and the spread iterations that kept the water-fill
+# chunk kind, the spread iterations that kept the water-fill, and the
+# quota iterations' graph replays and captures by chunk kind
 STEP_COUNTS = ("scan_steps", "grouped_iterations")
 GRAPH_COUNTS = ("graph_replays", "graph_captures")
 CHUNK_COUNTS = tuple(timing.SolveTimes().chunk_counts())
@@ -145,6 +146,9 @@ def _exported() -> dict:
     for k in timing.FAST_KINDS:
         out[f"chunk_iterations.{k}"] = metrics.solve_chunk_iterations_total.labels(k)
     out["waterfill_iterations"] = metrics.solve_waterfill_iterations_total
+    for k in timing.QUOTA_KINDS:
+        out[f"grouped_graph_replays.{k}"] = metrics.solve_grouped_graph_replays_total.labels(k)
+        out[f"grouped_graph_captures.{k}"] = metrics.solve_grouped_graph_captures_total.labels(k)
     for g in range(3):
         out[f"gc_runs.{g}"] = metrics.gc_collections_total.labels(str(g))
     return out

@@ -48,9 +48,10 @@ JAX package's bit for bit, so random mode gives its assignments as first
 mode does (the paired tests hold both with ``balanced_fdtype="float64"``).
 
 On the card, unsharded and with no nominated pods, the scan's steps replay
-CUDA graphs of the step, one graph launch a pod (``solver/graphs.py``);
-everywhere else, and for a step signature too rare in a call to repay a
-capture, the step runs eagerly as written here.
+CUDA graphs of the step, one graph launch a pod, and in random mode the
+iterations of a spread or anti chunk's loop replay graphs of the iteration
+(``solver/graphs.py``); everywhere else, and for a signature too rare to
+repay a capture, the step or iteration runs eagerly as written here.
 
 ``capture_hook`` (set by the Scheduler's flight telemetry) receives each
 solve's resolved inputs before the key is derived from the solve count,
@@ -1000,8 +1001,9 @@ class _Run:
     ``times`` (the solver's SolveTimes) counts the scan's steps, the
     grouped loop's iterations and its timed card reads, and the grouped
     path's chunks, pods and iterations by chunk kind. ``graphs`` (the
-    solver's StepGraphs, or None): the scan's steps replay its CUDA graphs
-    where a call's signatures engage them (``graphs.py``)."""
+    solver's StepGraphs, or None): the scan's steps and the quota chunks'
+    iterations replay its CUDA graphs where a call's signatures engage them
+    (``graphs.py``)."""
 
     def __init__(self, tables, nom_state, xs, valid, layout, kinds, vcnt, group, compact,
                  tie_break, kw, mesh, times, graphs=None):
@@ -1101,7 +1103,7 @@ class _Run:
             fit_scorer=_fit_scorer(kw["scoring_strategy"], kw["rtc_shape"]),
             fdtype=kw["fdtype"], w_fit=kw["w_fit"], w_balanced=kw["w_balanced"],
             w_taint=kw["w_taint"], w_nodeaff=kw["w_nodeaff"], w_image=kw["w_image"],
-            use_extra=kw["use_extra_score"], read_placed=self.read_placed,
+            use_extra=kw["use_extra_score"], read_placed=self.read_placed, graphs=gp_pass,
         )
         for c in range(lo // group, hi // group):
             base = c * group

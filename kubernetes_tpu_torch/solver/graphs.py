@@ -1,4 +1,5 @@
-"""CUDA graphs of the exact solver's per-pod scan step.
+"""CUDA graphs of the exact solver's per-pod scan step and of the grouped
+random loop's iterations.
 
 The scan step (``exact._make_step``: the filter and score pipeline, the
 tie-break pick and the assume scatter) issues about 110 small kernels a pod
@@ -22,25 +23,44 @@ The carried state (``i64``, ``i32``) and the stream's key live in static
 buffers too: each call copies them in and, when it ends, back out, so the
 graphs live across solves and chained sub-batches.
 
+Quota iterations. An iteration of a spread or anti chunk's random loop
+(``grouped._Loop.iteration``: the domain counts through the prepared
+``domain_counts`` launch, the frontier scores, the threefry node keys, the
+winners, the water-fill and its uniform draw, the scatters) issues about
+200 kernels and ends in one blocking read of its exit row. In random mode
+such a chunk runs on a loop kept for its ``grouped.iteration_key`` in the
+epoch, whose buffers each chunk's prologue rewrites, and an iteration
+replays a graph of itself per signature: the key, the chunk's valid count
+(the loop's arithmetic takes it as a constant) and the stream's live key
+slot (each iteration splits once, so a chunk alternates two graphs). The
+exit read stays eager, after the replay, on the graph's own exit row. An
+iteration that pays splits owed by scan rows that drew nothing runs
+eagerly (it is a chunk's first).
+
 Epochs. A graph keeps the address of everything it reads. The buffers
 belong to ``StepGraphs``; the tables are the solve's, so an epoch is keyed
 by every table tensor's address, shape, strides and dtype, every host
 table's content, the packed state's layout and the pipeline flags, and a
-solve under another key drops every graph first: no stale graph runs. The
-session's resident node tables and its content-addressed class tables keep
-their addresses from batch to batch; a standalone solve uploads new ones
-and recaptures.
+solve under another key drops every graph and kept loop first: no stale
+graph runs. The session's resident node tables and its content-addressed
+class tables keep their addresses from batch to batch; a standalone solve
+uploads new ones and recaptures.
 
-Engagement: ``engages`` (the card, one shard, no nominated pods), then per
-call, per signature: a graph already captured in the epoch, or at least
-``MIN_STEPS`` of its steps in the call. Every other step is the eager step,
-unchanged. The first step of a signature in an epoch runs eagerly, so that
-every kernel the capture records has been loaded and launched once.
+Engagement: ``engages`` (the card, one shard, no nominated pods), then for
+a scan step per call, per signature: a graph already captured in the
+epoch, or at least ``MIN_STEPS`` of its steps in the call; for a quota
+iteration, random mode and a graph already captured, or ``MIN_ITERATIONS``
+eager iterations of its signature seen in the epoch. Every other step or
+iteration is the eager one, unchanged. A signature's first step or
+iteration in an epoch runs eagerly, so that every kernel the capture
+records has been loaded and launched once.
 
 Counters stay true: a capture launches nothing and counts nothing, and each
-replay adds the captured step's launches of the hand-written kernels to
-``dc.LAUNCHES`` and ``tf.SCAN_LAUNCHES``. ``SolveTimes.graph_replays`` and
-``graph_captures`` count the replays and captures of the last solve call.
+replay adds the captured launches of the hand-written kernels to
+``dc.LAUNCHES``, ``tf.SCAN_LAUNCHES`` and ``tf.GROUPED_LAUNCHES``.
+``SolveTimes.graph_replays`` and ``graph_captures`` count the scan's
+replays and captures of the last solve call, ``grouped_graph_replays`` and
+``grouped_graph_captures`` the quota iterations', by chunk kind.
 """
 
 from __future__ import annotations
@@ -62,6 +82,15 @@ from . import grouped as gp
 # nodes and 1,024 pods, on an H100 at 700 W: scripts/step_graph_costs.py,
 # PERF.md section 6), and the signature's first step runs eagerly: 3 + 1.
 MIN_STEPS = 4
+
+# The eager iterations of a quota iteration's signature seen in an epoch
+# before its graph is captured: a capture and its instantiation cost the
+# host 4.2-4.7 ms against 3,016-3,708 us of issue for an eager iteration,
+# 1.1-1.5 eager iterations (a process's first capture 16-42 ms; spread5k's
+# shape, 5,000 nodes in 3 zones and 16 chunks of 64 pods, on an H100 at
+# 700 W: scripts/step_graph_costs.py --shape spread5k, PERF.md section 6),
+# and the first of them is the warm-up: 2.
+MIN_ITERATIONS = 2
 
 # the per-pod arrays a step reads on the device, in the packed row's order:
 # the int64 array first and each segment starting on 8 bytes, so that every
@@ -179,15 +208,28 @@ def _scan_rows(run, lo: int, hi: int) -> tuple[np.ndarray, np.ndarray, np.ndarra
             np.asarray(skips, np.int64))
 
 
+def _quota_chunks(run, lo: int, hi: int) -> bool:
+    """Whether pods [lo, hi) of ``run`` hold, in random mode, a spread or
+    anti chunk with a valid pod: a chunk whose loop may replay graphs."""
+    if run.kinds is None or run.tie_break != "random":
+        return False
+    c = slice(lo // run.group, hi // run.group)
+    quota = (run.kinds[c] == gp.KIND_SPREAD) | (run.kinds[c] == gp.KIND_ANTI)
+    return bool((quota & (run.vcnt[c] > 0)).any())
+
+
 class _Graph:
-    """A captured step: the graph, the tables whose prepared launches it
-    captured (kept with it), and its launches of the hand-written kernels
-    (domain_counts, threefry_scan)."""
+    """A captured step or quota iteration: the graph, what it reads that
+    must live as long as it does (the tables whose prepared launches it
+    captured, or the kept loop), its launches of the hand-written kernels
+    (domain_counts, threefry_scan or threefry_grouped), and an iteration's
+    exit row (``out[-1]``) and the stream's key slot after it."""
 
-    __slots__ = ("graph", "tables", "launches")
+    __slots__ = ("graph", "keep", "launches", "out", "cur")
 
-    def __init__(self, graph, tables, launches):
-        self.graph, self.tables, self.launches = graph, tables, launches
+    def __init__(self, graph, keep, launches, out=None, cur=0):
+        self.graph, self.keep, self.launches, self.out, self.cur = (
+            graph, keep, launches, out, cur)
 
 
 class _Buffers:
@@ -219,6 +261,11 @@ class StepGraphs:
     def __init__(self):
         self.graphs: dict[tuple, _Graph] = {}
         self.warm: set[tuple] = set()  # signatures stepped eagerly in this epoch
+        # the quota iterations': kept loops by iteration key, graphs and the
+        # eager iterations seen by signature
+        self.loops: dict[tuple, gp._Loop] = {}
+        self.iterations: dict[tuple, _Graph] = {}
+        self.seen: dict[tuple, int] = {}
         self.epoch = None
         self.buf: _Buffers | None = None
         self.buf_key = None
@@ -232,6 +279,9 @@ class StepGraphs:
         so the next capture starts a new one."""
         self.graphs.clear()
         self.warm.clear()
+        self.loops.clear()
+        self.iterations.clear()
+        self.seen.clear()
         self.epoch = None
         self._pool = None
 
@@ -276,10 +326,11 @@ class StepGraphs:
 
     def start(self, run, packed, lo: int, hi: int, key):
         """The graph pass of ``run``'s call over pods [lo, hi), or None
-        when no signature there engages (the call then steps eagerly, as
-        it would without graphs)."""
+        when no scan signature there engages and no quota chunk is there
+        (the call then runs eagerly, as it would without graphs)."""
         pods, rows, skips = _scan_rows(run, lo, hi)
-        if not len(pods):
+        quota = _quota_chunks(run, lo, hi)
+        if not len(pods) and not quota:
             return None
         if run.graph_epoch is None:
             run.graph_epoch = (
@@ -292,7 +343,7 @@ class StepGraphs:
         kinds, counts = np.unique(sig, return_counts=True)
         cached = {c * 2 + h for c, h, _ in self.graphs} if epoch == self.epoch else set()
         take = {int(s) for s, n in zip(kinds, counts) if n >= MIN_STEPS or int(s) in cached}
-        if not take:
+        if not take and not quota:
             return None
         keep = np.isin(sig, list(take))
         return _Pass(self, run, packed, lo, hi, key, epoch,
@@ -417,6 +468,57 @@ class _Pass:
         dc.LAUNCHES -= n_dc
         tf.SCAN_LAUNCHES -= n_scan
         return _Graph(graph, tables, (n_dc, n_scan))
+
+    # -- the quota chunks' iterations --
+
+    def loop(self, key, make) -> gp._Loop:
+        """The loop kept for quota chunks of ``key`` in the epoch
+        (``make()`` builds it at the key's first chunk)."""
+        loops = self.graphs.loops
+        lp = loops.get(key)
+        if lp is None:
+            lp = loops[key] = make()
+        return lp
+
+    def iteration(self, loop, key, vcnt: int):
+        """An iteration of ``loop`` (a quota chunk of ``vcnt`` valid pods)
+        by a graph: its exit row once replayed; None where the caller runs
+        it eagerly (splits owed, or too few of its signature's iterations
+        seen yet)."""
+        stream, graphs, tm = self.stream, self.graphs, self.run.times
+        if stream.pending:
+            return None  # a capture would bake the owed count in
+        sig = key + (vcnt, stream.cur)
+        g = graphs.iterations.get(sig)
+        if g is None:
+            seen = graphs.seen.get(sig, 0)
+            if seen < MIN_ITERATIONS:
+                graphs.seen[sig] = seen + 1
+                return None
+            g = graphs.iterations[sig] = self._capture_iteration(loop, vcnt)
+            tm.grouped_graph_captures[loop.mode] += 1
+        g.graph.replay()
+        # what the captured draws left on the host: the split's key slot
+        stream.cur, stream.has_sub = g.cur, True
+        n_dc, n_tf = g.launches
+        dc.LAUNCHES += n_dc
+        tf.GROUPED_LAUNCHES += n_tf
+        tm.grouped_graph_replays[loop.mode] += 1
+        return g.out[-1]
+
+    def _capture_iteration(self, loop, vcnt: int) -> _Graph:
+        stream, out = self.stream, []
+
+        def fn():
+            out[:] = [sh.run_local(loop.iteration(vcnt, stream))]
+
+        d0, g0 = dc.LAUNCHES, tf.GROUPED_LAUNCHES
+        graph = self.graphs.capture(fn)
+        # a capture launches nothing: its wrappers' counts belong to the replays
+        n_dc, n_tf = dc.LAUNCHES - d0, tf.GROUPED_LAUNCHES - g0
+        dc.LAUNCHES -= n_dc
+        tf.GROUPED_LAUNCHES -= n_tf
+        return _Graph(graph, loop, (n_dc, n_tf), out, stream.cur)
 
     def finish(self) -> None:
         """The carried state and the assignments back where the call's

@@ -222,14 +222,42 @@ def chunk_kinds(pods, static, ports, spread, interpod, group: int,
     return kinds
 
 
+def _ex_term(h) -> int:
+    """The anti pod's own symmetric ex term, from its host row (a host
+    precondition of the kind: exactly one, on the same topology and domain
+    row as its constraint)."""
+    # ktpu: ignore[TPU001]: ipa_ex_owned is the pod's host numpy row; no card value is read
+    return int(np.argmax(h["ipa_ex_owned"] > 0))
+
+
+def _anti_terms(tables, cls: int, h) -> tuple[int, int]:
+    """An anti chunk's constraint row ``j`` and the weight ``v`` of one
+    placed pod in the counts (its in and ex terms), from the chunk's class
+    and its pod's host rows."""
+    # ktpu: ignore[TPU001]: cls_req_anti is a host numpy class table; no card value is read
+    j = max(int(tables["ipa"]["cls_req_anti"][cls, 0]), 0)
+    # ktpu: ignore[TPU001]: the pod's host numpy rows; no card value is read
+    return j, int(h["ipa_in_match"][j] + h["ipa_ex_owned"][_ex_term(h)])
+
+
+def iteration_key(mode: str, tables, cls: int, h) -> tuple:
+    """What an iteration of a spread or anti chunk's random loop branches
+    on in host code, besides the chunk's valid count and the stream's key
+    slot: the mode, the class (its constraint row, ``maxSkew > 1``, the
+    present domains) and an anti pod's weight in the counts. Chunks of
+    one key share a kept loop (``solver/graphs.py``)."""
+    return mode, cls, (_anti_terms(tables, cls, h)[1] if mode == "anti" else 1)
+
+
 class _DomainModel:
     """The domain bookkeeping of one spread or anti chunk on one shard: the
     constraint's rows, resolved on the host from the chunk's class, and one
     prepared ``domain_counts`` launch over a scratch row that each
     iteration rewrites in place (counts-only on a mesh of more than one
-    shard, whose sums combine before the per-node gather)."""
+    shard, whose sums combine before the per-node gather). ``load`` points
+    it at a chunk's carried counts."""
 
-    def __init__(self, mode: str, tables, st, x, h, group: int):
+    def __init__(self, mode: str, tables, h, group: int):
         self.mode = mode
         self.sharded = tables["shards"] > 1
         cls = int(h["class_of"])
@@ -240,7 +268,7 @@ class _DomainModel:
             counted_dom = spr["counted_dom"][j : j + 1]
             self.hk = spr["hk"][j]
             self.charged = counted_dom[0] >= 0  # counted: elig & has_key
-            self.base = st["spr_cnt"][j]
+            self.base = None  # the carried counts' row, set by load
             self.v = 1
             self.skew_lim = int(spr["max_skew"][j])
             self.present = spr["present"][j]
@@ -249,18 +277,15 @@ class _DomainModel:
             agg_dom, gather_dom = counted_dom, dom
         else:
             ipa = tables["ipa"]
-            j = max(int(ipa["cls_req_anti"][cls, 0]), 0)
+            j, self.v = _anti_terms(tables, cls, h)
             dom = ipa["in_dom"][j : j + 1]
             self.hk = ipa["in_hk"][j]
             self.charged = self.hk
-            # the pod's own symmetric ex term (a host precondition of the
-            # kind: exactly one, on the same topology and domain row)
-            ex_owned = h["ipa_ex_owned"]
-            ee = int(np.argmax(ex_owned > 0))
-            self.v = int(h["ipa_in_match"][j]) + int(ex_owned[ee])
-            self.base = st["ipa_in"][j] + st["ipa_ex"][ee]
+            # the in and ex counts' sum, written by load
+            self.base = torch.empty(dom.shape[1], dtype=torch.int32, device=dom.device)
             d_pad = tables["ipa_d_pad"]
             agg_dom, gather_dom = dom, None
+        self.j = j
         self.dd = torch.clamp(dom[0], min=0).to(torch.int64)
         self.gather_dom = dom
         self.d_pad = d_pad
@@ -276,6 +301,14 @@ class _DomainModel:
             self.d_rank = torch.as_tensor(
                 np.cumsum(present_host.astype(np.int64)) - 1, device=dom.device
             )
+
+    def load(self, st, h) -> None:
+        """The chunk's carried counts: the spread row in place, or the anti
+        term's in and ex rows summed into ``base``."""
+        if self.mode == "spread":
+            self.base = st["spr_cnt"][self.j]
+        else:
+            torch.add(st["ipa_in"][self.j], st["ipa_ex"][_ex_term(h)], out=self.base)
 
     def eval(self, m, quota: bool = True):
         """(extra feasibility mask [N], quota per domain [d_pad], domain
@@ -328,10 +361,243 @@ def _global_order(group: int):
     return fn
 
 
+class _Loop:
+    """One fast chunk's loop on one shard: the buffers it reads and writes,
+    and its iterations. A chunk runs on a loop of its own, which takes the
+    chunk's inputs as they are; or, in a graph pass (``solver/graphs.py``),
+    on a loop *kept* for every spread or anti chunk of one
+    ``iteration_key`` in the epoch, whose ``load`` copies each chunk's
+    inputs into the same buffers and starts its counts anew, so that a
+    CUDA graph of an iteration reads and writes what the next chunk's
+    iterations do. ``iteration`` touches nothing else but the carried
+    state's rows and the stream.
+
+    ``m_ext`` / ``asg_ext``: one slot longer than their use, the slot that
+    the JAX package's mode="drop" scatters leave out (and that the shards
+    that do not own a pick add to). ``placed``: the count placed, advanced
+    in place."""
+
+    def __init__(self, mode, tables, h, group: int, tie_break: str, *, fit_scorer, fdtype,
+                 w_fit: int, w_balanced: int, w_taint: int, w_nodeaff: int, w_image: int,
+                 use_extra: bool, kept: bool = False):
+        alloc = tables["alloc"]
+        self.alloc2 = alloc[: MEM_IDX + 1]
+        n = self.n = alloc.shape[1]
+        self.lo = tables["lo"]
+        self.n_all = n * tables["shards"]
+        self.lead = self.lo == 0
+        dev = self.dev = alloc.device
+        self.mode, self.tables, self.group, self.kept = mode, tables, group, kept
+        self.fit_scorer, self.fdtype = fit_scorer, fdtype
+        self.w_fit, self.w_balanced, self.w_taint, self.w_nodeaff = (
+            w_fit, w_balanced, w_taint, w_nodeaff)
+        cls = int(h["class_of"])
+        static_row = None
+        if w_image:
+            static_row = w_image * tables["image_score"][cls]
+        if use_extra:
+            extra = tables["extra_score"][cls]
+            static_row = extra if static_row is None else static_row + extra
+        self.static_row = static_row
+        self.taint_row = tables["taint_cnt"][cls]
+        self.nodeaff_row = tables["nodeaff_pref"][cls]
+        self.model = _DomainModel(mode, tables, h, group) if mode is not None else None
+        self.m_ext = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+        self.m = self.m_ext[:n]
+        self.asg_ext = torch.full((group + 1,), -1, dtype=torch.int64, device=dev)
+        self.asg = self.asg_ext[:group]
+        self.alloc_g = {1: self.alloc2}
+        random = tie_break == "random"
+        # the random loop reads the next frontier row too, but in anti mode
+        self.rows = 1 if mode == "anti" or not random else 2
+        if random:
+            self.iota_n = torch.arange(n, dtype=torch.int64, device=dev)
+            self.iota_g = torch.arange(group, dtype=torch.int64, device=dev)
+            self.ones_g = torch.ones(group, dtype=torch.int32, device=dev)
+            self.placed = torch.zeros((), dtype=torch.int64, device=dev)
+        if kept:
+            self.cap = torch.empty(n, dtype=torch.int32, device=dev)
+            self.nz = torch.empty(2, dtype=torch.int64, device=dev)
+            if self.rows == 2:
+                self.alloc_g[2] = torch.empty((2, 2 * n), dtype=torch.int64, device=dev)
+
+    def load(self, st, x, h, cap) -> None:
+        """The chunk's inputs: its capacity per node ``cap``, its pod's
+        device row ``x`` and host row ``h``, and the carried state ``st``
+        (a kept loop's graphs read the state where the graph pass keeps
+        it)."""
+        self.nonzero_used = st["nonzero_used"]
+        if self.model is not None:
+            self.model.load(st, h)
+        # the scoring's allocatable, one copy per frontier row: a node
+        # table, which a session's heal rewrites in place
+        rows2 = self.alloc2[:, None, :].expand(2, 2, self.n)
+        if not self.kept:
+            self.cap, self.nz = cap, x["nonzero_req"]
+            if self.rows == 2:
+                self.alloc_g[2] = rows2.reshape(2, 2 * self.n)
+            return
+        self.cap.copy_(cap)
+        self.nz.copy_(x["nonzero_req"])
+        if self.rows == 2:
+            self.alloc_g[2].view(2, 2, self.n).copy_(rows2)
+        self.m_ext.zero_()
+        self.asg_ext.fill_(-1)
+        self.placed.zero_()
+
+    def frontier_rows(self, m, rows: int):
+        """fit + balanced (+ static rows) score of placing the (m+1)-th ..
+        (m+rows)-th identical pod on each node: [rows, N] int32."""
+        n = self.n
+        if rows == 1:
+            jj = (m + 1).to(torch.int64)[None]
+        else:
+            jj = torch.stack([m + 1 + i for i in range(rows)]).to(torch.int64)
+        req_g = (self.nonzero_used[:, None, :] + self.nz[:, None, None] * jj[None]
+                 ).reshape(2, rows * n)
+        alloc_g = self.alloc_g[rows]
+        s = self.w_fit * self.fit_scorer(req_g, alloc_g, self.tables["fit_weights"])
+        s = s + self.w_balanced * nr.balanced_allocation_score(req_g, alloc_g, fdtype=self.fdtype)
+        s = s.to(torch.int32).reshape(rows, n)
+        return s if self.static_row is None else s + self.static_row
+
+    def scores_at(self, m, extra_ok, f):
+        mask_t = m < self.cap
+        if extra_ok is not None:
+            mask_t = mask_t & extra_ok
+        total = f
+        # in the quota modes the preference rows are all zero (a host
+        # precondition of the kind): a constant cannot move the argmax
+        if self.mode is None:
+            if self.w_taint:
+                total = total + self.w_taint * (
+                    yield from pl.normalize_score_g(self.taint_row, mask_t, reverse=True))
+            if self.w_nodeaff:
+                total = total + self.w_nodeaff * (
+                    yield from pl.normalize_score_g(self.nodeaff_row, mask_t, reverse=False))
+        return torch.where(mask_t, total, -1), mask_t
+
+    def own(self, idx, ok):
+        """(local index, or the drop slot n, and whether this shard owns
+        the global index ``idx`` where ``ok``)."""
+        n = self.n
+        if self.tables["shards"] == 1:
+            return torch.where(ok, idx, n), ok
+        local = idx - self.lo
+        hit = ok & (local >= 0) & (local < n)
+        return torch.where(hit, local, n), hit
+
+    def draw(self, fn):
+        return sh.c_draw, (fn, self.lo, self.n, self.dev)
+
+    def scatter_takes(self, parts):
+        # every shard's taken nodes into the lead's assignments, in shard order
+        for idx, val in parts:
+            self.asg_ext.scatter_(0, idx.to(self.dev), val.to(self.dev))
+        return [None] * len(parts)
+
+    def first(self, vcnt: int):
+        """"first" mode: one pod an iteration at the lowest maximal index,
+        for the chunk's ``vcnt`` valid pods; no iteration reads the card."""
+        model, m, lo = self.model, self.m, self.lo
+        for t in range(vcnt):
+            extra_ok = (yield from model.eval(m, quota=False))[0] if model is not None else None
+            total, _ = yield from self.scores_at(m, extra_ok, self.frontier_rows(m, 1)[0])
+            best, pick = yield sh.c_first_max, (*torch.max(total, dim=0), lo)
+            feasible = best >= 0
+            idx, hit = self.own(pick, feasible)
+            self.m_ext.index_add_(0, idx.view(1), hit.to(torch.int32).view(1))
+            if self.lead:
+                self.asg[t] = torch.where(feasible, pick, -1)
+
+    def iteration(self, vcnt: int, stream):
+        """One iteration of the random loop for a chunk of ``vcnt`` valid
+        pods, up to its exit row, which the caller reads: the count placed,
+        or in spread mode ``[count placed, 1 if the water-fill was kept]``.
+        A generator of the shard protocol."""
+        mode, model, m, cap = self.mode, self.model, self.m, self.cap
+        lo, n, n_all, group = self.lo, self.n, self.n_all, self.group
+        placed = self.placed
+        if model is not None:
+            extra_ok, quota_d, dc_now = yield from model.eval(m)
+        else:
+            extra_ok = quota_d = dc_now = None
+        fr = self.frontier_rows(m, self.rows)
+        f_now, next_f = fr[0], fr[self.rows - 1]
+        total, mask_t = yield from self.scores_at(m, extra_ok, f_now)
+        best = yield sh.c_max, torch.max(total)
+        feasible = best >= 0
+        tie = (total == best) & mask_t
+        if mode is None:
+            eligible = tie & ((m + 1) < cap) & (next_f <= f_now)
+        elif mode == "spread":
+            eligible = tie & (next_f <= f_now)
+        else:
+            eligible = tie
+        remaining = vcnt - placed
+
+        if mode is None:
+            # k, s1 = split(k); uniform(s1, (n_all,)) in float64
+            r = yield self.draw(lambda: stream.uniform(0, n_all))
+            keyed = torch.where(tie, r, 2.0)
+            _, pick = yield sh.c_first_min, (torch.min(keyed), torch.argmin(keyed), lo)
+            order = yield sh.c_apply, (_global_order(group), torch.where(eligible, r, 2.0))
+            q = torch.minimum((yield sh.c_sum, torch.sum(eligible.to(torch.int64))), remaining)
+        else:
+            ec = eligible & model.charged
+            # unique per-node random keys (one draw over the whole node axis):
+            # k, s1 = split(k); randint(s1, (n_all,), 0, 1 << 20) * n_all + iota
+            rb = yield self.draw(lambda: stream.node_keys(0, n_all, n_all))
+            accept, pos_iter = yield from _winner_accept(model, m, cap, extra_ok, quota_d,
+                                                         f_now, best, eligible, ec, rb)
+            if mode == "spread":
+                wf_acc, wf_pos, waterfill = yield from _waterfill_accept(
+                    model, m, cap, extra_ok, dc_now, f_now, best, ec, remaining, n_all,
+                    self.draw, stream,
+                )
+                accept = torch.where(waterfill, wf_acc, accept)
+                pos_iter = torch.where(waterfill, wf_pos, pos_iter)
+            q = torch.minimum((yield sh.c_sum, torch.sum(accept.to(torch.int64))), remaining)
+            keyed = torch.where(tie, rb, -1)
+            _, pick = yield sh.c_first_max, (torch.max(keyed), torch.argmax(keyed), lo)
+
+        multi = q > 0
+        if mode is None:
+            chosen = torch.where(
+                multi,
+                torch.where(self.iota_g < q, order[:group], -1),
+                torch.where(self.iota_g < 1, pick, -1),
+            )
+            chosen = torch.where(feasible, chosen, -1)
+            if self.lead:
+                self.asg_ext.scatter_(0, torch.where(chosen >= 0, placed + self.iota_g, group),
+                                      chosen)
+            idx, _ = self.own(chosen, chosen >= 0)
+            self.m_ext.index_add_(0, idx, self.ones_g)
+        else:
+            take = accept & (pos_iter < q) & multi & feasible
+            yield sh.c_apply, (self.scatter_takes,
+                               (torch.where(take, placed + pos_iter, group), self.iota_n + lo))
+            single = ~multi & feasible
+            if self.lead:
+                self.asg_ext.scatter_(0, torch.where(single, placed, group).view(1),
+                                      pick.view(1))
+            self.m_ext[:n] += take.to(torch.int32)
+            idx, hit = self.own(pick, single)
+            self.m_ext.index_add_(0, idx.view(1), hit.to(torch.int32).view(1))
+        # q pods placed (one where no node takes several), or the chunk
+        # proven infeasible: placed + remaining, all of it
+        placed.add_(torch.where(feasible, torch.where(multi, q, 1), remaining))
+        if mode == "spread":
+            # the same read brings back whether the water-fill was kept
+            return torch.stack((placed, waterfill.to(torch.int64)))
+        return placed
+
+
 def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
                stream, fit_scorer, fdtype, w_fit: int, w_balanced: int,
                w_taint: int, w_nodeaff: int, w_image: int, use_extra: bool,
-               read_placed):
+               read_placed, graphs=None):
     """Places ``vcnt`` identical pods (the chunk's representative rows:
     ``x`` on the device, ``h`` on the host) and returns (assignments
     [group] int64, per-node placements ``m`` [N] int32). ``mode``: None
@@ -341,15 +607,12 @@ def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
     lead shard's assignments are the chunk's. ``read_placed``: the
     random loop's exit-test combine, ``_read_placed`` timed by the
     solver, which returns the count placed (and counts a spread
-    iteration's water-fill flag)."""
+    iteration's water-fill flag). ``graphs``: the call's graph pass on one
+    card (``solver/graphs.py``), or None; a spread or anti chunk's random
+    loop then runs on the pass's kept loop, and its iterations replay
+    CUDA graphs where they engage."""
     alloc = tables["alloc"]
-    alloc2 = alloc[: MEM_IDX + 1]
-    n = alloc.shape[1]
-    lo = tables["lo"]
-    n_all = n * tables["shards"]
-    lead = lo == 0
-    dev = alloc.device
-    req, nz = x["req"], x["nonzero_req"]
+    req = x["req"]
     # ktpu: ignore[TPU001]: h is the pod's host row (_PodRows.host_row); no card value is read
     cls = int(h["class_of"])
 
@@ -378,172 +641,27 @@ def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
     base_mask = tables["static_mask"][cls] & tables["node_valid"]
     cap = torch.clamp(torch.where(base_mask, cap, 0), 0, group).to(torch.int32)
 
-    static_row = None
-    if w_image:
-        static_row = w_image * tables["image_score"][cls]
-    if use_extra:
-        extra = tables["extra_score"][cls]
-        static_row = extra if static_row is None else static_row + extra
-    alloc_g = {1: alloc2}
-
-    def frontier_rows(m, rows: int):
-        """fit + balanced (+ static rows) score of placing the (m+1)-th ..
-        (m+rows)-th identical pod on each node: [rows, N] int32."""
-        if rows == 1:
-            jj = (m + 1).to(torch.int64)[None]
-        else:
-            jj = torch.stack([m + 1 + i for i in range(rows)]).to(torch.int64)
-        req_g = (st["nonzero_used"][:, None, :] + nz[:, None, None] * jj[None]
-                 ).reshape(2, rows * n)
-        if rows not in alloc_g:
-            alloc_g[rows] = alloc2[:, None, :].expand(2, rows, n).reshape(2, rows * n)
-        s = w_fit * fit_scorer(req_g, alloc_g[rows], tables["fit_weights"])
-        s = s + w_balanced * nr.balanced_allocation_score(req_g, alloc_g[rows], fdtype=fdtype)
-        s = s.to(torch.int32).reshape(rows, n)
-        return s if static_row is None else s + static_row
-
-    taint_row = tables["taint_cnt"][cls]
-    nodeaff_row = tables["nodeaff_pref"][cls]
-
-    def scores_at(m, extra_ok, f):
-        mask_t = m < cap
-        if extra_ok is not None:
-            mask_t = mask_t & extra_ok
-        total = f
-        # in the quota modes the preference rows are all zero (a host
-        # precondition of the kind): a constant cannot move the argmax
-        if mode is None:
-            if w_taint:
-                total = total + w_taint * (
-                    yield from pl.normalize_score_g(taint_row, mask_t, reverse=True))
-            if w_nodeaff:
-                total = total + w_nodeaff * (
-                    yield from pl.normalize_score_g(nodeaff_row, mask_t, reverse=False))
-        return torch.where(mask_t, total, -1), mask_t
-
-    model = _DomainModel(mode, tables, st, x, h, group) if mode is not None else None
-    # m_ext / asg_ext: one slot longer than their use, the slot that the
-    # JAX package's mode="drop" scatters leave out (and that the shards
-    # that do not own a pick add to)
-    m_ext = torch.zeros(n + 1, dtype=torch.int32, device=dev)
-    m = m_ext[:n]
-    asg_ext = torch.full((group + 1,), -1, dtype=torch.int64, device=dev)
-    asg = asg_ext[:group]
-
-    def own(idx, ok):
-        """(local index, or the drop slot n, and whether this shard owns
-        the global index ``idx`` where ``ok``)."""
-        if tables["shards"] == 1:
-            return torch.where(ok, idx, n), ok
-        local = idx - lo
-        hit = ok & (local >= 0) & (local < n)
-        return torch.where(hit, local, n), hit
-
+    score = dict(fit_scorer=fit_scorer, fdtype=fdtype, w_fit=w_fit, w_balanced=w_balanced,
+                 w_taint=w_taint, w_nodeaff=w_nodeaff, w_image=w_image, use_extra=use_extra)
+    kept = graphs is not None and tie_break == "random" and mode is not None
+    if kept:
+        key = iteration_key(mode, tables, cls, h)
+        loop = graphs.loop(key, lambda: _Loop(mode, tables, h, group, tie_break, kept=True,
+                                              **score))
+    else:
+        loop = _Loop(mode, tables, h, group, tie_break, **score)
+    loop.load(st, x, h, cap)
     if tie_break != "random":
-        for t in range(vcnt):
-            extra_ok = (yield from model.eval(m, quota=False))[0] if model is not None else None
-            total, _ = yield from scores_at(m, extra_ok, frontier_rows(m, 1)[0])
-            best, pick = yield sh.c_first_max, (*torch.max(total, dim=0), lo)
-            feasible = best >= 0
-            idx, hit = own(pick, feasible)
-            m_ext.index_add_(0, idx.view(1), hit.to(torch.int32).view(1))
-            if lead:
-                asg[t] = torch.where(feasible, pick, -1)
-        return asg, m
-
-    def draw(fn):
-        return sh.c_draw, (fn, lo, n, dev)
-
-    iota_n = torch.arange(n, dtype=torch.int64, device=dev)
-    iota_g = torch.arange(group, dtype=torch.int64, device=dev)
-    ones_g = torch.ones(group, dtype=torch.int32, device=dev)
-    placed = torch.zeros((), dtype=torch.int64, device=dev)
+        yield from loop.first(vcnt)
+        return loop.asg, loop.m
     placed_h = 0
-
-    def scatter_takes(parts):
-        # every shard's taken nodes into the lead's assignments, in shard order
-        for idx, val in parts:
-            asg_ext.scatter_(0, idx.to(dev), val.to(dev))
-        return [None] * len(parts)
-
     while placed_h < vcnt:
-        if model is not None:
-            extra_ok, quota_d, dc_now = yield from model.eval(m)
-        else:
-            extra_ok = quota_d = dc_now = None
-        # anti mode never reads the next frontier row
-        n_rows = 1 if mode == "anti" else 2
-        fr = frontier_rows(m, n_rows)
-        f_now, next_f = fr[0], fr[n_rows - 1]
-        total, mask_t = yield from scores_at(m, extra_ok, f_now)
-        best = yield sh.c_max, torch.max(total)
-        feasible = best >= 0
-        tie = (total == best) & mask_t
-        if mode is None:
-            eligible = tie & ((m + 1) < cap) & (next_f <= f_now)
-        elif mode == "spread":
-            eligible = tie & (next_f <= f_now)
-        else:
-            eligible = tie
-        remaining = vcnt - placed
-
-        if mode is None:
-            # k, s1 = split(k); uniform(s1, (n_all,)) in float64
-            r = yield draw(lambda: stream.uniform(0, n_all))
-            keyed = torch.where(tie, r, 2.0)
-            _, pick = yield sh.c_first_min, (torch.min(keyed), torch.argmin(keyed), lo)
-            order = yield sh.c_apply, (_global_order(group), torch.where(eligible, r, 2.0))
-            q = torch.minimum((yield sh.c_sum, torch.sum(eligible.to(torch.int64))), remaining)
-        else:
-            charged, dd = model.charged, model.dd
-            ec = eligible & charged
-            # unique per-node random keys (one draw over the whole node axis):
-            # k, s1 = split(k); randint(s1, (n_all,), 0, 1 << 20) * n_all + iota
-            rb = yield draw(lambda: stream.node_keys(0, n_all, n_all))
-            accept, pos_iter = yield from _winner_accept(model, m, cap, extra_ok, quota_d,
-                                                         f_now, best, eligible, ec, rb)
-            if mode == "spread":
-                wf_acc, wf_pos, waterfill = yield from _waterfill_accept(
-                    model, m, cap, extra_ok, dc_now, f_now, best, ec, remaining, n_all,
-                    draw, stream,
-                )
-                accept = torch.where(waterfill, wf_acc, accept)
-                pos_iter = torch.where(waterfill, wf_pos, pos_iter)
-            q = torch.minimum((yield sh.c_sum, torch.sum(accept.to(torch.int64))), remaining)
-            keyed = torch.where(tie, rb, -1)
-            _, pick = yield sh.c_first_max, (torch.max(keyed), torch.argmax(keyed), lo)
-
-        multi = q > 0
-        n_placed = torch.where(feasible, torch.where(multi, q, 1), 0)
-        if mode is None:
-            chosen = torch.where(
-                multi,
-                torch.where(iota_g < q, order[:group], -1),
-                torch.where(iota_g < 1, pick, -1),
-            )
-            chosen = torch.where(feasible, chosen, -1)
-            if lead:
-                asg_ext.scatter_(0, torch.where(chosen >= 0, placed + iota_g, group), chosen)
-            idx, _ = own(chosen, chosen >= 0)
-            m_ext.index_add_(0, idx, ones_g)
-        else:
-            take = accept & (pos_iter < q) & multi & feasible
-            yield sh.c_apply, (scatter_takes,
-                               (torch.where(take, placed + pos_iter, group), iota_n + lo))
-            single = ~multi & feasible
-            if lead:
-                asg_ext.scatter_(0, torch.where(single, placed, group).view(1), pick.view(1))
-            m_ext[:n] += take.to(torch.int32)
-            idx, hit = own(pick, single)
-            m_ext.index_add_(0, idx.view(1), hit.to(torch.int32).view(1))
-        placed = torch.where(feasible, placed + n_placed, vcnt)
-        # the loop's exit test: one read per iteration; in spread mode the
-        # same read brings back whether the water-fill was kept
-        exit_row = placed
-        if mode == "spread":
-            exit_row = torch.stack((placed, waterfill.to(torch.int64)))
+        exit_row = graphs.iteration(loop, key, vcnt) if kept else None
+        if exit_row is None:
+            exit_row = yield from loop.iteration(vcnt, stream)
+        # the loop's exit test: one read per iteration
         placed_h = yield read_placed, exit_row
-    return asg, m
+    return loop.asg, loop.m
 
 
 def _winner_accept(model, m, cap, extra_ok, quota_d, f_now, best, eligible, ec, rb):

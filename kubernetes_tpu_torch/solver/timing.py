@@ -21,9 +21,12 @@ the card reads, and of the scan's steps those replayed from a CUDA graph
 ``solver/graphs.py``). Of the grouped path it counts, by chunk kind
 (``CHUNK_KINDS``), the chunks that held a valid pod (``chunks``), their
 valid pods (``chunk_pods``) and, for the fast kinds, the loop's iterations
-(``chunk_iterations``, which add up to ``grouped_iterations``), and the
+(``chunk_iterations``, which add up to ``grouped_iterations``), the
 spread iterations that kept the water-fill (``waterfill_iterations``, a
-flag the random loop's exit-test read brings back with the count placed).
+flag the random loop's exit-test read brings back with the count placed),
+and, for the quota kinds (``QUOTA_KINDS``), the iterations replayed from a
+CUDA graph of the iteration (``grouped_graph_replays``) and the graphs
+captured (``grouped_graph_captures``).
 With a Tracer set (the Scheduler's, when its spans are on)
 each sub-stage is also a span of the same name, ``card_read`` carrying its
 site; with a ``utils/tracing`` session on, a ``record_function`` range of
@@ -52,6 +55,8 @@ SOLVE_STAGES = ("prepare", "upload", "issue", "card_read")
 # values; the fast kinds are the ones whose chunks run the grouped loop
 CHUNK_KINDS = ("slow", "plain", "spread", "anti")
 FAST_KINDS = CHUNK_KINDS[1:]
+# the fast kinds whose random loop replays graphs of its iterations
+QUOTA_KINDS = CHUNK_KINDS[2:]
 SITES = ("grouped", "relax", "auction", "evaluate", "preemption")
 KERNELS = ("domain_counts", "threefry_scan", "threefry_grouped")
 
@@ -148,15 +153,23 @@ class SolveTimes:
         self.chunk_pods = dict.fromkeys(CHUNK_KINDS, 0)
         self.chunk_iterations = dict.fromkeys(FAST_KINDS, 0)
         self.waterfill_iterations = 0
+        self.grouped_graph_replays = dict.fromkeys(QUOTA_KINDS, 0)
+        self.grouped_graph_captures = dict.fromkeys(QUOTA_KINDS, 0)
 
     def chunk_counts(self) -> dict:
         """The grouped path's counts, flat: ``chunks.<kind>``,
-        ``chunk_pods.<kind>``, ``chunk_iterations.<kind>`` and
-        ``waterfill_iterations``, the keys of the StageProfiler's ledger."""
+        ``chunk_pods.<kind>``, ``chunk_iterations.<kind>``,
+        ``waterfill_iterations``, ``grouped_graph_replays.<kind>`` and
+        ``grouped_graph_captures.<kind>``, the keys of the StageProfiler's
+        ledger."""
         out = {f"chunks.{k}": v for k, v in self.chunks.items()}
         out.update((f"chunk_pods.{k}", v) for k, v in self.chunk_pods.items())
         out.update((f"chunk_iterations.{k}", v) for k, v in self.chunk_iterations.items())
         out["waterfill_iterations"] = self.waterfill_iterations
+        out.update((f"grouped_graph_replays.{k}", v)
+                   for k, v in self.grouped_graph_replays.items())
+        out.update((f"grouped_graph_captures.{k}", v)
+                   for k, v in self.grouped_graph_captures.items())
         return out
 
     def stage(self, name: str) -> _Stage:

@@ -1593,3 +1593,156 @@ def test_step_graphs_recapture_when_the_class_tables_change_on_the_card(cuda_dev
     (_, c0, _, e0), (_, c1, r1, e1), (_, c2, _, e2) = out[True]
     assert c0 == 4 and c1 == 0 and r1 == 256 and e1 == e0
     assert c2 == 2 and e2 != e0
+
+
+# -- the quota iterations' CUDA graphs (solver/graphs.py) ----------------------
+
+
+def _quota_nodes(n, varied=False):
+    """``n`` nodes in 3 zones; ``varied``: CPU capacities at which a 2-CPU
+    pod's LeastAllocated score takes 50 values, one each 50th node, so
+    that ties are few and an anti chunk takes many iterations."""
+    return [MakeNode().name(f"n{i:04}").capacity(
+        {"cpu": f"{-(-200_000 // (50 - i % 50))}m" if varied else "16", "memory": "64Gi",
+         "pods": "110"})
+        .label(ZONE, f"z{i % 3}").label(HOST, f"n{i:04}").obj() for i in range(n)]
+
+
+def _quota_pods(n, kind, prefix, skew=1, bad_every=0, cpu="250m"):
+    """``n`` identical pods of ``kind`` ("spread": one hard zone spread at
+    maxSkew ``skew``; "anti": required self-selecting hostname
+    anti-affinity; "mixed": one-off requests, a chunk the scan steps over);
+    every ``bad_every``-th requests a resource no node has."""
+    out = []
+    for i in range(n):
+        req = {"cpu": f"{250 + 10 * i}m" if kind == "mixed" else cpu, "memory": "512Mi"}
+        if bad_every and i % bad_every == bad_every - 1:
+            req["example.com/missing"] = "1"
+        b = MakePod().name(f"{prefix}{i:04}").label("app", f"{prefix}-{kind}").req(req)
+        if kind == "spread":
+            b = b.spread_constraint(skew, ZONE, "DoNotSchedule", {"app": f"{prefix}-{kind}"})
+        elif kind == "anti":
+            b = b.pod_anti_affinity(HOST, {"app": f"{prefix}-{kind}"})
+        out.append(b.obj())
+    return out
+
+
+QUOTA_GRAPH_CASES = {
+    # maxSkew 1 from empty zones: the water-fill is kept, in replays too
+    "spread_skew1": dict(mode="standalone", batches=lambda: [_quota_pods(512, "spread", "a")]),
+    "spread_skew5": dict(mode="standalone",
+                         batches=lambda: [_quota_pods(512, "spread", "a", skew=5)]),
+    # nodes of differing sizes and pods of 2 CPUs: few ties, many iterations
+    "anti": dict(mode="standalone", varied=True,
+                 batches=lambda: [_quota_pods(256, "anti", "a", cpu="2")]),
+    # a scan chunk whose last rows are invalid owes the stream splits, which
+    # the next spread chunk's first iteration pays
+    "owed_splits": dict(mode="standalone", batches=lambda: [
+        _quota_pods(256, "spread", "a") + _quota_pods(64, "mixed", "m", bad_every=4)
+        + _quota_pods(256, "spread", "a")]),
+    # two session solves under one epoch, each with a new i32 state tensor
+    "two_solves": dict(mode="session", batches=lambda: [_quota_pods(256, "spread", "a"),
+                                                        _quota_pods(256, "spread", "a")]),
+}
+
+
+def _quota_graph_run(monkeypatch, dev, spec, graphs: bool):
+    """The case's solves on one solver with the graphs on or off: per solve
+    (assignments, carried state, the stream's key, the solver's counts,
+    the launch deltas); the stream's key after every fast chunk; and each
+    quota iteration's (replayed, exit row read)."""
+    from kubernetes_tpu_torch.solver import graphs as sg
+    from kubernetes_tpu_torch.solver import grouped as gp
+
+    made, keys, outcomes, reads = [], [], [], []
+
+    class Recorded(tf.Stream):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    real_chunk, real_iter, real_read = gp.fast_chunk, sg._Pass.iteration, gp._read_placed
+
+    def chunk(*a, **k):
+        out = yield from real_chunk(*a, **k)
+        keys.append(k["stream"].key_words())
+        return out
+
+    def iteration(self, *a):
+        out = real_iter(self, *a)
+        outcomes.append(out is not None)
+        return out
+
+    def read(parts):
+        got = real_read(parts)
+        reads.append(got[0])
+        return got
+
+    out = []
+    with monkeypatch.context() as mp:
+        mp.setattr(tf, "Stream", Recorded)
+        mp.setattr(gp, "fast_chunk", chunk)
+        mp.setattr(gp, "_read_placed", read)
+        mp.setattr(sg._Pass, "iteration", iteration)
+        if not graphs:
+            mp.setattr(sg, "engages", lambda *a: False)
+        nodes = _quota_nodes(600, spec.get("varied", False))
+        solver = ExactSolver(ExactSolverConfig(tie_break="random", seed=2026,
+                                               balanced_fdtype="float64"))
+        for pods in spec["batches"]():
+            inp = _graph_inputs(nodes, pods)
+            l0 = (dc.LAUNCHES, tf.SCAN_LAUNCHES, tf.GROUPED_LAUNCHES)
+            if spec["mode"] == "standalone":
+                got = solver.solve(*inp, device=dev)
+                state = [getattr(inp[0], k).copy() for k in ("used", "nonzero_used", "pod_count")]
+            else:
+                versions = np.zeros(inp[0].padded, np.int64)
+                got = solver.solve(*inp, col_versions=versions, device=dev)
+                p = solver._session.persist
+                state = [p["i64"][0].cpu().numpy(), p["pod_count"][0].cpu().numpy()]
+            torch.cuda.synchronize()
+            launches = tuple(b - a for a, b in zip(l0, (dc.LAUNCHES, tf.SCAN_LAUNCHES,
+                                                         tf.GROUPED_LAUNCHES)))
+            stream = solver.graphs.stream if graphs else made[-1]
+            tm = solver.times
+            out.append((got, state, stream.key_words(), dict(
+                tm.chunk_counts(), grouped_iterations=tm.grouped_iterations,
+                card_reads=tm.card_reads), launches))
+    return out, keys, outcomes, reads
+
+
+@pytest.mark.parametrize("case", sorted(QUOTA_GRAPH_CASES))
+def test_quota_graphs_equal_the_eager_loop_on_the_card(cuda_device, monkeypatch, case):
+    """Spread and anti chunks solved with the quota iterations' graphs equal
+    the eager loop bit for bit: assignments, carried state, the stream's
+    key after every chunk; the hand-written kernels' launch counts are the
+    eager run's; the replays and the eager iterations add up to the
+    iterations, which equal the grouped card reads."""
+    spec = QUOTA_GRAPH_CASES[case]
+    want, want_keys, none, want_reads = _quota_graph_run(monkeypatch, cuda_device, spec, False)
+    got, keys, outcomes, reads = _quota_graph_run(monkeypatch, cuda_device, spec, True)
+    assert none == [] and keys == want_keys and reads == want_reads
+    quota = ("spread", "anti")
+    for (a, sa, ka, ca, la), (b, sb, kb, cb, lb) in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+        for x, y in zip(sa, sb):
+            np.testing.assert_array_equal(x, y)
+        assert ka == kb
+        assert la == lb and la[0] > 0 and la[2] > 0
+        assert ca["grouped_iterations"] == ca["card_reads"] == cb["card_reads"]
+        for k in quota:
+            assert ca[f"chunk_iterations.{k}"] == cb[f"chunk_iterations.{k}"]
+            assert cb[f"grouped_graph_replays.{k}"] == cb[f"grouped_graph_captures.{k}"] == 0
+    counts = [c for _, _, _, c, _ in got]
+    replays = sum(c[f"grouped_graph_replays.{k}"] for c in counts for k in quota)
+    iterations = sum(c[f"chunk_iterations.{k}"] for c in counts for k in quota)
+    # every quota iteration went through the pass: replayed or eager
+    assert len(outcomes) == iterations and sum(outcomes) == replays > 0.5 * iterations
+    if case == "spread_skew1":
+        # a replayed iteration kept the water-fill (the flag of its exit row)
+        assert any(r and row[1] for r, row in zip(outcomes, reads))
+    if case == "anti":
+        assert counts[0]["grouped_graph_replays.anti"] > 0
+    if case == "two_solves":
+        assert counts[1]["grouped_graph_captures.spread"] == 0
+        assert counts[1]["grouped_graph_replays.spread"] == counts[1]["chunk_iterations.spread"]
