@@ -310,7 +310,7 @@ from kubernetes_tpu_torch.ops import threefry as tf  # noqa: E402
 from kubernetes_tpu_torch.parallel import sharding as sh  # noqa: E402
 from kubernetes_tpu_torch.scheduler import Scheduler, SchedulerConfig  # noqa: E402
 from kubernetes_tpu_torch.state.cluster import ClusterState  # noqa: E402
-from kubernetes_tpu_torch.solver import grouped as gp  # noqa: E402
+from kubernetes_tpu_torch.solver import timing as solve_timing  # noqa: E402
 from kubernetes_tpu_torch.solver.exact import (  # noqa: E402
     ExactSolver,
     ExactSolverConfig,
@@ -899,7 +899,7 @@ def grouped_run(dev, kind, n_nodes, n_pods, batch, tie):
     where: dict[int, int] = {}
     zones_after, per_batch, tens_s, solve_s, h2d = [], [], [], [], []
     dc.LAUNCHES = 0
-    gp.READS = 0
+    solve_timing.COUNTS["grouped"] = 0
     tf_reset()
     for lo in range(0, n_pods, batch):
         bp = pods[lo : lo + batch]
@@ -920,7 +920,7 @@ def grouped_run(dev, kind, n_nodes, n_pods, batch, tie):
         if kind == "spread":
             zones_after.append(np.bincount(np.fromiter(where.values(), np.int64) % 3,
                                            minlength=3))
-    launches, reads, draws = dc.LAUNCHES, gp.READS, tf_launches()
+    launches, reads, draws = dc.LAUNCHES, solve_timing.COUNTS["grouped"], tf_launches()
     if len(where) != n_pods:
         raise AssertionError(f"{kind} {tie}: only {len(where)}/{n_pods} pods placed")
     if dev.type == "cuda" and tie == "random" and draws["grouped_draw"] < reads:
@@ -1090,7 +1090,7 @@ def grouped_launches(dev, small=128, large=256):
                 pods = [make_kind_pod(kind, i) for i in range(n_pods)]
                 inputs = tensorize(nodes, pods, {}, ResourceVocab.build(pods, nodes))
                 solver = ExactSolver(ExactSolverConfig(tie_break=tie, seed=SEED))
-                gp.READS = 0
+                solve_timing.COUNTS["grouped"] = 0
                 torch.cuda.synchronize()
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     t0 = time.perf_counter()
@@ -1101,7 +1101,7 @@ def grouped_launches(dev, small=128, large=256):
                     raise AssertionError(f"{kind} {tie}: a pod of the launch count went unplaced")
                 kernels = device_kernels(prof)
                 out[n_pods] = (len(kernels), sum(e.device_time_total for e in kernels) / 1e6,
-                               wall, gp.READS)
+                               wall, solve_timing.COUNTS["grouped"])
             key = f"{kind}/{tie}"
             if not out[large][0]:
                 res[key] = {"per_placed_pod": "not measured"}

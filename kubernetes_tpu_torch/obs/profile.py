@@ -41,9 +41,9 @@ The first four are the solver's own account of each call
 ``enqueue`` and ``gc`` are process-wide cells the profiler folds by
 delta at each batch. The ledger also carries the per-batch deltas of the
 program's bare counters (kernel launches, the mesh's combines, the card
-reads by site) and of the scan steps, grouped iterations and chunk counts
-by kind the Scheduler hands over, and advances their registry counters
-once per batch.
+reads by site) and of the solve counts the Scheduler hands over
+(``timing.COUNT_SERIES``), and advances their registry counters once per
+batch.
 
 Copied from ``kubernetes_tpu/obs/profile.py``; the six overlapping
 stages and the program's counters are the port's.
@@ -71,15 +71,6 @@ STAGES = (
 )
 NESTED_STAGES = ("upload", "prepare", "issue", "card_read", "enqueue", "gc")
 ALL_STAGES = STAGES + NESTED_STAGES
-# counts the Scheduler hands over per solve call (solver/timing.py): the
-# steps by kind, then the scan steps' CUDA graphs (solver/graphs.py), then
-# the grouped path's chunks, their pods and their loop's iterations by
-# chunk kind, the spread iterations that kept the water-fill, and the
-# quota iterations' graph replays and captures by chunk kind
-STEP_COUNTS = ("scan_steps", "grouped_iterations")
-GRAPH_COUNTS = ("graph_replays", "graph_captures")
-CHUNK_COUNTS = tuple(timing.SolveTimes().chunk_counts())
-SOLVE_COUNTS = STEP_COUNTS + GRAPH_COUNTS + CHUNK_COUNTS
 
 
 def _cell(counter) -> float:
@@ -136,19 +127,9 @@ def _exported() -> dict:
     for s in timing.SITES:
         out[f"card_reads.{s}"] = metrics.solve_card_reads_total.labels(s)
         out[f"card_read_s.{s}"] = metrics.solve_card_read_seconds_total.labels(s)
-    for k in STEP_COUNTS:
-        out[k] = metrics.solve_steps_total.labels(k)
-    out["graph_replays"] = metrics.solve_graph_replays_total
-    out["graph_captures"] = metrics.solve_graph_captures_total
-    for k in timing.CHUNK_KINDS:
-        out[f"chunks.{k}"] = metrics.solve_chunks_total.labels(k)
-        out[f"chunk_pods.{k}"] = metrics.solve_chunk_pods_total.labels(k)
-    for k in timing.FAST_KINDS:
-        out[f"chunk_iterations.{k}"] = metrics.solve_chunk_iterations_total.labels(k)
-    out["waterfill_iterations"] = metrics.solve_waterfill_iterations_total
-    for k in timing.QUOTA_KINDS:
-        out[f"grouped_graph_replays.{k}"] = metrics.solve_grouped_graph_replays_total.labels(k)
-        out[f"grouped_graph_captures.{k}"] = metrics.solve_grouped_graph_captures_total.labels(k)
+    for k, (series, label) in timing.COUNT_SERIES.items():
+        c = getattr(metrics, series)
+        out[k] = c if label is None else c.labels(label)
     for g in range(3):
         out[f"gc_runs.{g}"] = metrics.gc_collections_total.labels(str(g))
     return out
@@ -203,7 +184,7 @@ class StageProfiler:
         # stages accumulated since the last observe_batch (the loops'
         # add() calls between two commits belong to the batch closing)
         self._pending: dict[str, float] = {}
-        self._pending_counts = dict.fromkeys(SOLVE_COUNTS, 0)
+        self._pending_counts = dict.fromkeys(timing.COUNT_SERIES, 0)
         self._totals = {s: 0.0 for s in ALL_STAGES}
         self._counters = {k: r() for k, r in _DELTA_READERS.items()}
         self._last_t: float | None = None
@@ -233,15 +214,11 @@ class StageProfiler:
 
     def add_solve(self, times) -> None:
         """One solve call's account (``solver/timing.py`` SolveTimes):
-        its sub-stage seconds, its step and iteration counts, its step
-        graphs' replays and captures, and the grouped path's counts by
-        chunk kind."""
+        its sub-stage seconds and its counts (``timing.COUNT_SERIES``)."""
         for stage, seconds in times.seconds.items():
             self.add(stage, seconds)
         pending = self._pending_counts
-        for k in STEP_COUNTS + GRAPH_COUNTS:
-            pending[k] += getattr(times, k)
-        for k, v in times.chunk_counts().items():
+        for k, v in times.counts.items():
             pending[k] += v
 
     def enqueue(self, seconds: float) -> None:
@@ -266,7 +243,7 @@ class StageProfiler:
         deltas = dict(self._pending_counts, events=process[1] - last[1])
         for g in range(3):
             deltas[f"gc_runs.{g}"] = process[3][g] - last[3][g]
-        self._pending_counts = dict.fromkeys(SOLVE_COUNTS, 0)
+        self._pending_counts = dict.fromkeys(timing.COUNT_SERIES, 0)
         for k, read in _DELTA_READERS.items():
             cur = read()
             # a cell reset by hand (tests, chip_smoke) counts no negative work

@@ -65,6 +65,7 @@ from __future__ import annotations
 import hashlib
 from collections import Counter
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -868,12 +869,9 @@ class ExactSolver:
                     "(stale key or dirty columns)"
                 )
             launches0 = launch_counts() if st.traced else None
+            graphs = None
             if sg.engages(dev, shards.size, use_nominated):
-                if self.graphs is None:
-                    self.graphs = sg.StepGraphs()
-                graphs = self.graphs
-            else:
-                graphs = None
+                graphs = self.graphs = self.graphs or sg.StepGraphs()
             run = _Run(tables, nom_state, xs, valid, layout, kinds, vcnt, group, compact,
                        cfg.tie_break, kw, shards, tm, graphs)
             want_chain = split > 1 and session and defer_read
@@ -893,11 +891,9 @@ class ExactSolver:
                     # shares persist's tensors: the carry cannot survive it
                     self._session.drop_stream_carry()
                 packed = run.packed(persist, bstate_dev)
-                run(packed, 0, pods.padded, key)
+                run(packed, run.plan(0, pods.padded), key)
             if launches0 is not None:
-                st.set(scan_steps=tm.scan_steps, grouped_iterations=tm.grouped_iterations,
-                       graph_replays=tm.graph_replays, graph_captures=tm.graph_captures,
-                       card_reads=tm.card_reads, **tm.chunk_counts(),
+                st.set(**tm.counts, card_reads=tm.card_reads,
                        launches=dict(zip(KERNELS, (b - a for a, b in zip(launches0,
                                                                          launch_counts())))))
         if handles is not None:
@@ -970,7 +966,7 @@ class ExactSolver:
                 lo = i * sub
                 if lo >= pods.num_pods:
                     break
-                run(carry.state, lo, lo + sub, prng.fold_in(key, i))
+                run(carry.state, run.plan(lo, lo + sub), prng.fold_in(key, i))
                 handles.append(DeferredAssignments(
                     run.assignments[lo : lo + sub], min(sub, pods.num_pods - lo), lo=lo
                 ))
@@ -990,20 +986,37 @@ class ExactSolver:
     _chunk_kinds = staticmethod(gp.chunk_kinds)
 
 
+class _Plan(NamedTuple):
+    """One call's walk over pods [lo, hi) (``_Run.plan``), which the eager
+    steps and both graph passes read. ``items`` in order: a scan step
+    ``(KIND_SLOW, pod, row, owed, n)``, ``n`` its column of ``steps`` (rows,
+    pods, owed), or a fast chunk with a valid pod ``(kind, first pod, row,
+    owed, valid count)``; ``owed`` the stream's splits its draw pays, ``tail``
+    those owed at the end. ``counts``: keyed as ``SolveTimes.counts``;
+    ``quota``: whether a spread or anti chunk holds a valid pod."""
+
+    lo: int
+    hi: int
+    items: list
+    steps: np.ndarray
+    tail: int
+    counts: dict
+    quota: bool
+
+
 class _Run:
     """One solve's executable over its prepared inputs: ``packed`` builds
-    the carried state, and a call runs the per-pod scan, or the grouped
-    path chunk by chunk, over the pods [lo, hi) into ``assignments``.
+    the carried state, ``plan`` the walk of a call over the pods [lo, hi),
+    and a call runs it, the per-pod scan or the grouped path chunk by
+    chunk, into ``assignments``.
     ``tables`` and ``nom_state`` hold one view per shard of ``mesh``; the
     packed state is a dict of tuples of per-shard tensors, and each step
     or chunk runs one generator per shard in lockstep
     (``parallel/sharding.py``). The assignments live on the lead device.
-    ``times`` (the solver's SolveTimes) counts the scan's steps, the
-    grouped loop's iterations and its timed card reads, and the grouped
-    path's chunks, pods and iterations by chunk kind. ``graphs`` (the
-    solver's StepGraphs, or None): the scan's steps and the quota chunks'
-    iterations replay its CUDA graphs where a call's signatures engage them
-    (``graphs.py``)."""
+    ``times``: the solver's SolveTimes, which counts the calls. ``graphs``
+    (the solver's StepGraphs, or None): the scan's steps and the quota
+    chunks' iterations replay its CUDA graphs where a call's signatures
+    engage them (``graphs.py``)."""
 
     def __init__(self, tables, nom_state, xs, valid, layout, kinds, vcnt, group, compact,
                  tie_break, kw, mesh, times, graphs=None):
@@ -1018,9 +1031,6 @@ class _Run:
         # are in the graphs' buffer (graphs.py), set at the first graph pass
         self.graph_epoch = None
         self.graph_rows = False
-        # valid pods before each row, as Python ints: the scan's steps over
-        # [lo, hi) count without a numpy scalar reaching a span or a ledger
-        self.valid_before = np.concatenate([[0], np.cumsum(valid)]).tolist()
         self.dev = mesh.lead
         self.assignments = torch.full((valid.shape[0],), -1, dtype=torch.int64,
                                       device=self.dev)
@@ -1054,49 +1064,75 @@ class _Run:
         spread chunk's read brings its water-fill flag too, counted here;
         every shard gets the count placed."""
         tm = self.times
-        tm.grouped_iterations += 1
+        tm.counts["grouped_iterations"] += 1
         got = tm.read("grouped", gp._read_placed, parts)
         if isinstance(got[0], list):
             placed, waterfill = got[0]
-            tm.waterfill_iterations += waterfill
+            tm.counts["waterfill_iterations"] += waterfill
             return [placed] * len(got)
         return got
 
-    def __call__(self, packed, lo: int, hi: int, key) -> None:
-        """``key``: the threefry key of this range's stream (random mode;
-        every scan row splits it, a row that places nothing too, and every
-        grouped-loop iteration). With a graph pass the call runs on the
-        graphs' buffers, its stream and assignments included, and its
-        graph steps replay; the pass copies the state and the assignments
-        back at the end."""
-        gp_pass = None if self.graphs is None else self.graphs.start(self, packed, lo, hi, key)
+    def plan(self, lo: int, hi: int) -> _Plan:
+        """The plan of a call over pods [lo, hi) (host work): every row a
+        scan row (``kinds`` None), or each row of a slow chunk a scan row and
+        each fast chunk one item. The owed splits' one rule: every scan row
+        splits the stream, an invalid one by owing its split to the next
+        draw; a fast chunk with a valid pod pays them with its first split;
+        an all-padding chunk splits nothing."""
+        valid, kinds, vcnt, group = self.valid, self.kinds, self.vcnt, self.group
+        chunk = np.arange(lo // group, hi // group)
+        if kinds is None:
+            kind, vc = np.zeros(len(chunk), np.int64), valid[lo:hi].astype(np.int64)
+        else:
+            kind, vc = kinds[chunk].astype(np.int64), vcnt[chunk].astype(np.int64)
+        # the events in order: every row of a slow chunk, one per fast chunk
+        per = np.where(kind == gp.KIND_SLOW, group, 1)
+        ev = np.repeat(np.arange(len(chunk)), per)
+        at = chunk[ev] * group + np.arange(len(ev)) - np.repeat(np.cumsum(per) - per, per)
+        scan = kind[ev] == gp.KIND_SLOW
+        owing = np.concatenate([[0], np.cumsum(scan & ~valid[at])])
+        d = np.flatnonzero(np.where(scan, valid[at], vc[ev] > 0))
+        owed = np.diff(owing[np.append(d, len(ev))], prepend=0)
+        step = scan[d]
+        rows = chunk[ev[d]] if self.compact else at[d]
+        n = np.where(step, np.cumsum(step) - 1, vc[ev[d]])
+        items = np.stack([kind[ev[d]], at[d], rows, owed[:-1], n], axis=1).tolist()
+        counts = {"scan_steps": int(step.sum())}
+        if kinds is not None:
+            held = np.bincount(kind[vc > 0], minlength=len(CHUNK_KINDS)).tolist()
+            pods = np.bincount(kind, vc, len(CHUNK_KINDS)).astype(np.int64).tolist()
+            for name, c, v in zip(CHUNK_KINDS, held, pods):
+                counts[f"chunks.{name}"], counts[f"chunk_pods.{name}"] = c, v
+        quota = counts.get("chunks.spread", 0) + counts.get("chunks.anti", 0) > 0
+        return _Plan(lo, hi, items, np.stack([rows, at[d], owed[:-1]])[:, step], int(owed[-1]),
+                     counts, quota)
+
+    def __call__(self, packed, plan: _Plan, key) -> None:
+        """Runs ``plan`` drawing from the threefry stream of ``key`` in
+        random mode, on the graph pass's buffers, its stream and assignments
+        included, where one engages; the pass copies the state and the
+        assignments back at the end."""
+        gp_pass = None if self.graphs is None else self.graphs.start(self, packed, plan, key)
         if gp_pass is None:
             stream = tf.Stream(key, self.dev) if self.tie_break == TIE_RANDOM else None
             asg = self.assignments
         else:
             packed, stream, asg = gp_pass.packed, gp_pass.stream, gp_pass.asg
-        self._steps(packed, lo, hi, stream, asg, gp_pass)
+        self._steps(packed, plan, stream, asg, gp_pass)
         if gp_pass is not None:
             gp_pass.finish()
 
-    def _steps(self, packed, lo: int, hi: int, stream, asg, gp_pass) -> None:
+    def _steps(self, packed, plan: _Plan, stream, asg, gp_pass) -> None:
+        """Walks ``plan``: a scan step replays its graph or steps eagerly, a
+        fast chunk runs its loop; the stream is owed each item's splits as
+        the walk comes to it."""
         k = self.mesh.size
         sts = [self.state_views(packed, s) for s in range(k)]
         shard_packed = [{"i64": packed["i64"][s], "i32": packed["i32"][s]} for s in range(k)]
         steps = [self.make_step(self.tables[s], stream) for s in range(k)]
-        tm = self.times
-        if self.kinds is None:
-            tm.scan_steps += self.valid_before[hi] - self.valid_before[lo]
-            for i in range(lo, hi):
-                if self.valid[i]:
-                    if gp_pass is not None and gp_pass.step(i):
-                        continue
-                    xr = self.xs.row(i)
-                    asg[i] = sh.lockstep(
-                        steps[s](sts[s], shard_packed[s], xr[s]) for s in range(k))[0]
-                elif stream is not None:
-                    stream.skip()
-            return
+        counts = self.times.counts
+        for name, v in plan.counts.items():
+            counts[name] += v
         group, kw = self.group, self.kw
         fast_kw = dict(
             group=group, tie_break=self.tie_break, stream=stream,
@@ -1105,47 +1141,31 @@ class _Run:
             w_taint=kw["w_taint"], w_nodeaff=kw["w_nodeaff"], w_image=kw["w_image"],
             use_extra=kw["use_extra_score"], read_placed=self.read_placed, graphs=gp_pass,
         )
-        for c in range(lo // group, hi // group):
-            base = c * group
-            # ktpu: ignore[TPU001]: kinds is the host numpy chunk-kind vector from chunk_kinds; no card value is read
-            kind = int(self.kinds[c])
-            name = CHUNK_KINDS[kind]
+        for kind, at, row, owed, n in plan.items:
+            if stream is not None:
+                stream.pending += owed
             if kind == gp.KIND_SLOW:
-                n_valid = self.valid_before[base + group] - self.valid_before[base]
-                tm.scan_steps += n_valid
-                if n_valid:
-                    tm.chunks[name] += 1
-                    tm.chunk_pods[name] += n_valid
-                for t in range(group):
-                    if self.valid[base + t]:
-                        if gp_pass is not None and gp_pass.step(base + t):
-                            continue
-                        r = c if self.compact else base + t
-                        xr = self.xs.row(r)
-                        asg[base + t] = sh.lockstep(
-                            steps[s](sts[s], shard_packed[s], xr[s]) for s in range(k))[0]
-                    elif stream is not None:
-                        stream.skip()
+                if gp_pass is not None and gp_pass.step(n):
+                    continue
+                xr = self.xs.row(row)
+                asg[at] = sh.lockstep(
+                    steps[s](sts[s], shard_packed[s], xr[s]) for s in range(k))[0]
                 continue
-            # ktpu: ignore[TPU001]: vcnt is the host numpy count of valid pods per chunk; no card value is read
-            vc = int(self.vcnt[c])
-            if vc == 0:
-                continue  # an all-padding chunk places nothing
-            tm.chunks[name] += 1
-            tm.chunk_pods[name] += vc
-            iterations0 = tm.grouped_iterations
+            iterations0 = counts["grouped_iterations"]
             if self.tie_break != TIE_RANDOM:
-                tm.grouped_iterations += vc  # one pod an iteration, no read
+                counts["grouped_iterations"] += n  # one pod an iteration, no read
             mode = {gp.KIND_PLAIN: None, gp.KIND_SPREAD: "spread", gp.KIND_ANTI: "anti"}[kind]
-            r = c if self.compact else base
-            xr = self.xs.row(r)
-            h = self.xs.host_row(r)
+            xr = self.xs.row(row)
+            h = self.xs.host_row(row)
             out = sh.lockstep(
-                gp.fast_chunk(mode, self.tables[s], sts[s], xr[s], h, vc, **fast_kw)
+                gp.fast_chunk(mode, self.tables[s], sts[s], xr[s], h, n, **fast_kw)
                 for s in range(k))
-            asg[base : base + group] = out[0][0]
-            tm.chunk_iterations[name] += tm.grouped_iterations - iterations0
+            asg[at : at + group] = out[0][0]
+            counts[f"chunk_iterations.{CHUNK_KINDS[kind]}"] += (
+                counts["grouped_iterations"] - iterations0)
             for s in range(k):
                 m = out[s][1]
                 shard_packed[s]["i64"] += xr[s]["take64"][:, None] * m.to(torch.int64)[None, :]
                 shard_packed[s]["i32"] += xr[s]["take32"][:, None] * m[None, :]
+        if stream is not None:
+            stream.pending += plan.tail

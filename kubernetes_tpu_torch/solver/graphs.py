@@ -16,8 +16,9 @@ tie-break and the tables are fixed within an *epoch* of graphs (below).
 
 Per-pod inputs are device data. Each run uploads its pod rows, packed into
 one byte row a pod (``pack_rows``), and a step table: for each step a graph
-takes, its row, its pod and the splits it owes the random stream (invalid
-rows before it). A replay reads the table at a device cursor, gathers its
+takes, its row, its pod and the splits it owes the random stream, all
+three read from the call's plan (``exact._Run.plan``), which the eager
+walk reads too. A replay reads the table at a device cursor, gathers its
 row, writes its pick into the static assignments and advances the cursor.
 The carried state (``i64``, ``i32``) and the stream's key live in static
 buffers too: each call copies them in and, when it ends, back out, so the
@@ -55,12 +56,10 @@ iteration is the eager one, unchanged. A signature's first step or
 iteration in an epoch runs eagerly, so that every kernel the capture
 records has been loaded and launched once.
 
-Counters stay true: a capture launches nothing and counts nothing, and each
-replay adds the captured launches of the hand-written kernels to
-``dc.LAUNCHES``, ``tf.SCAN_LAUNCHES`` and ``tf.GROUPED_LAUNCHES``.
-``SolveTimes.graph_replays`` and ``graph_captures`` count the scan's
-replays and captures of the last solve call, ``grouped_graph_replays`` and
-``grouped_graph_captures`` the quota iterations', by chunk kind.
+Counters stay true: a capture (``StepGraphs.record``) launches nothing and
+counts nothing, each replay adds its hand-written kernels' launches to
+their cells (``timing.launch_counts``), and ``SolveTimes.counts`` counts
+the replays and captures.
 """
 
 from __future__ import annotations
@@ -75,6 +74,7 @@ from ..ops import domain_counts as dc
 from ..ops import threefry as tf
 from ..parallel import sharding as sh
 from . import grouped as gp
+from .timing import launch_counts
 
 # The fewest steps of a signature in a call that repay its graph: a capture
 # and its instantiation cost the host 3.5-5.7 ms against 1,674-1,720 us of
@@ -177,47 +177,6 @@ def _own_launches(tables: dict) -> dict:
     return t
 
 
-def _scan_rows(run, lo: int, hi: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """The scan steps of pods [lo, hi) of ``run`` in order: their pods,
-    their rows and the splits each owes the random stream when it draws
-    (the invalid scan rows since the last draw; a grouped chunk's first
-    split pays what is owed)."""
-    valid = run.valid
-    if run.kinds is None:
-        pods = lo + np.flatnonzero(valid[lo:hi])
-        prev = np.concatenate([[lo - 1], pods[:-1]])
-        return pods, pods, pods - prev - 1
-    pods, rows, skips = [], [], []
-    pending = 0
-    group = run.group
-    for c in range(lo // group, hi // group):
-        base = c * group
-        if int(run.kinds[c]) != gp.KIND_SLOW:
-            if int(run.vcnt[c]) > 0:
-                pending = 0
-            continue
-        for t in range(group):
-            if valid[base + t]:
-                pods.append(base + t)
-                rows.append(c if run.compact else base + t)
-                skips.append(pending)
-                pending = 0
-            else:
-                pending += 1
-    return (np.asarray(pods, np.int64), np.asarray(rows, np.int64),
-            np.asarray(skips, np.int64))
-
-
-def _quota_chunks(run, lo: int, hi: int) -> bool:
-    """Whether pods [lo, hi) of ``run`` hold, in random mode, a spread or
-    anti chunk with a valid pod: a chunk whose loop may replay graphs."""
-    if run.kinds is None or run.tie_break != "random":
-        return False
-    c = slice(lo // run.group, hi // run.group)
-    quota = (run.kinds[c] == gp.KIND_SPREAD) | (run.kinds[c] == gp.KIND_ANTI)
-    return bool((quota & (run.vcnt[c] > 0)).any())
-
-
 class _Graph:
     """A captured step or quota iteration: the graph, what it reads that
     must live as long as it does (the tables whose prepared launches it
@@ -227,9 +186,18 @@ class _Graph:
 
     __slots__ = ("graph", "keep", "launches", "out", "cur")
 
-    def __init__(self, graph, keep, launches, out=None, cur=0):
+    def __init__(self, graph, keep, launches, out=None):
         self.graph, self.keep, self.launches, self.out, self.cur = (
-            graph, keep, launches, out, cur)
+            graph, keep, launches, out, 0)
+
+    def replay(self) -> None:
+        """One launch of the graph, its hand-written kernels' launches
+        counted."""
+        self.graph.replay()
+        n_dc, n_scan, n_grouped = self.launches
+        dc.LAUNCHES += n_dc
+        tf.SCAN_LAUNCHES += n_scan
+        tf.GROUPED_LAUNCHES += n_grouped
 
 
 class _Buffers:
@@ -307,6 +275,18 @@ class StepGraphs:
         main.wait_stream(self._side)
         return graph
 
+    def record(self, fn, keep, out=None) -> _Graph:
+        """``capture(fn)`` as a ``_Graph`` holding ``keep`` and ``out``, and
+        the hand-written kernels' launches it recorded, which belong to its
+        replays: a capture launches nothing."""
+        before = launch_counts()
+        graph = self.capture(fn)
+        n_dc, n_scan, n_grouped = (b - a for a, b in zip(before, launch_counts()))
+        dc.LAUNCHES -= n_dc
+        tf.SCAN_LAUNCHES -= n_scan
+        tf.GROUPED_LAUNCHES -= n_grouped
+        return _Graph(graph, keep, (n_dc, n_scan, n_grouped), out)
+
     def _record(self, graph, fn) -> None:
         with torch.cuda.stream(self._side):
             # thread_local: another thread may touch the card meanwhile
@@ -324,13 +304,13 @@ class StepGraphs:
 
     # -- one call of a run --
 
-    def start(self, run, packed, lo: int, hi: int, key):
-        """The graph pass of ``run``'s call over pods [lo, hi), or None
-        when no scan signature there engages and no quota chunk is there
-        (the call then runs eagerly, as it would without graphs)."""
-        pods, rows, skips = _scan_rows(run, lo, hi)
-        quota = _quota_chunks(run, lo, hi)
-        if not len(pods) and not quota:
+    def start(self, run, packed, plan, key):
+        """The graph pass of ``run``'s call that walks ``plan``
+        (``exact._Plan``), or None when no scan signature there engages
+        and no quota chunk is there (the call then runs eagerly, as it
+        would without graphs)."""
+        quota = plan.quota and run.tie_break == "random"
+        if not plan.steps.shape[1] and not quota:
             return None
         if run.graph_epoch is None:
             run.graph_epoch = (
@@ -339,15 +319,15 @@ class StepGraphs:
             )
         epoch = run.graph_epoch
         host = run.xs.host
+        rows = plan.steps[0]
         sig = host["class_of"][rows] * 2 + host["has_port_conflicts"][rows]
         kinds, counts = np.unique(sig, return_counts=True)
         cached = {c * 2 + h for c, h, _ in self.graphs} if epoch == self.epoch else set()
         take = {int(s) for s, n in zip(kinds, counts) if n >= MIN_STEPS or int(s) in cached}
         if not take and not quota:
             return None
-        keep = np.isin(sig, list(take))
-        return _Pass(self, run, packed, lo, hi, key, epoch,
-                     pods[keep], rows[keep], skips[keep])
+        sig = np.where(np.isin(sig, list(take)), sig, -1)
+        return _Pass(self, run, packed, plan, key, epoch, sig)
 
     def bind(self, run, packed, epoch) -> _Buffers:
         """The buffers for ``run`` (new ones, and a new epoch, where the
@@ -375,28 +355,24 @@ class StepGraphs:
 
 class _Pass:
     """One call's graph steps: the buffers bound and filled at the start,
-    ``step(i)`` for each valid scan pod in order, ``finish`` at the end."""
+    ``step(n)`` for each scan step of the plan in order, ``finish`` at the
+    end."""
 
-    def __init__(self, graphs: StepGraphs, run, packed, lo, hi, key, epoch, pods, rows, skips):
-        self.graphs, self.run, self.orig, self.lo = graphs, run, packed, lo
+    def __init__(self, graphs: StepGraphs, run, packed, plan, key, epoch, sig):
+        self.graphs, self.run, self.orig = graphs, run, packed
+        self.lo, self.hi = plan.lo, plan.hi
         buf = self.buf = graphs.bind(run, packed, epoch)
-        self.layout = graphs.layout
-        self.k = run.xs.host["req_mask"].shape[1]
-        self.b = run.xs.host["pod_takes"].shape[1]
-        # per pod of [lo, hi): its step's (owed splits, class, port flag), or None
-        self.slot: list = [None] * (hi - lo)
-        host = run.xs.host
-        cls = host["class_of"][rows].tolist()
-        hpc = host["has_port_conflicts"][rows].tolist()
-        for p, s, c, h in zip(pods.tolist(), skips.tolist(), cls, hpc):
-            self.slot[p - lo] = (s, c, h)
+        # per scan step of the plan: its signature (class * 2 + port flag)
+        # where a graph takes it, or -1
+        self.sig = sig.tolist()
+        keep = sig >= 0
         table = np.zeros(buf.steps.shape, np.int64)  # whole rows: one contiguous upload
-        table[:, : len(pods)] = (rows, pods, skips)
+        table[:, : int(keep.sum())] = plan.steps[:, keep]
         _upload(buf.steps, table)
         buf.cursor.zero_()
         buf.i64.copy_(packed["i64"][0])
         buf.i32.copy_(packed["i32"][0])
-        buf.asg[lo:hi].fill_(-1)
+        buf.asg[self.lo : self.hi].fill_(-1)
         self.packed = {"i64": (buf.i64,), "i32": (buf.i32,)}
         self.asg = buf.asg
         self.stream = None
@@ -404,17 +380,16 @@ class _Pass:
             self.stream = graphs.stream
             self.stream.reset(key)
 
-    def step(self, i: int) -> bool:
-        """Pod ``i``'s step by a graph: True once replayed; False where the
-        caller steps it eagerly (a signature's warm-up, or no graph step)."""
-        s = self.slot[i - self.lo]
-        if s is None:
+    def step(self, n: int) -> bool:
+        """The plan's scan step ``n`` by a graph: True once replayed; False
+        where the caller steps it eagerly (a signature's warm-up, or no
+        graph step). The stream owes the step's splits (``_Plan.owed``),
+        which the step table pays."""
+        s = self.sig[n]
+        if s < 0:
             return False
-        skip, cls, hpc = s
+        cls, hpc = divmod(s, 2)
         stream, graphs, buf = self.stream, self.graphs, self.buf
-        if stream is not None and stream.pending != skip:
-            raise RuntimeError(f"step graphs: pod {i} owes {stream.pending} splits, "
-                               f"the step table says {skip}")
         sig = (cls, hpc, stream.cur if stream is not None else 0)
         g = graphs.graphs.get(sig)
         if g is None:
@@ -426,16 +401,11 @@ class _Pass:
             if stream is not None:
                 stream.pending = 0  # the capture's draw owes only its row's splits
             g = graphs.graphs[sig] = self._capture(sig)
-            self.run.times.graph_captures += 1
+            self.run.times.counts["graph_captures"] += 1
         if stream is not None:
             stream.pending = 0  # the replay pays them from the step table
-        g.graph.replay()
-        n_dc, n_scan = g.launches
-        if n_dc:
-            dc.LAUNCHES += n_dc
-        if n_scan:
-            tf.SCAN_LAUNCHES += n_scan
-        self.run.times.graph_replays += 1
+        g.replay()
+        self.run.times.counts["graph_replays"] += 1
         return True
 
     def _capture(self, sig) -> _Graph:
@@ -444,7 +414,8 @@ class _Pass:
         step = run.make_step(tables, stream)
         st = run.state_views(self.packed, 0)
         spk = {"i64": buf.i64, "i32": buf.i32}
-        layout, k, b = self.layout, self.k, self.b
+        host = run.xs.host
+        layout, k, b = self.graphs.layout, host["req_mask"].shape[1], host["pod_takes"].shape[1]
         cls, hpc, _ = sig
 
         def fn():
@@ -461,13 +432,7 @@ class _Pass:
             buf.asg.index_copy_(0, ent[1], pick.view(1))
             buf.cursor.add_(1)
 
-        d0, s0 = dc.LAUNCHES, tf.SCAN_LAUNCHES
-        graph = self.graphs.capture(fn)
-        # a capture launches nothing: its wrappers' counts belong to the replays
-        n_dc, n_scan = dc.LAUNCHES - d0, tf.SCAN_LAUNCHES - s0
-        dc.LAUNCHES -= n_dc
-        tf.SCAN_LAUNCHES -= n_scan
-        return _Graph(graph, tables, (n_dc, n_scan))
+        return self.graphs.record(fn, tables)
 
     # -- the quota chunks' iterations --
 
@@ -485,7 +450,7 @@ class _Pass:
         by a graph: its exit row once replayed; None where the caller runs
         it eagerly (splits owed, or too few of its signature's iterations
         seen yet)."""
-        stream, graphs, tm = self.stream, self.graphs, self.run.times
+        stream, graphs, counts = self.stream, self.graphs, self.run.times.counts
         if stream.pending:
             return None  # a capture would bake the owed count in
         sig = key + (vcnt, stream.cur)
@@ -496,14 +461,11 @@ class _Pass:
                 graphs.seen[sig] = seen + 1
                 return None
             g = graphs.iterations[sig] = self._capture_iteration(loop, vcnt)
-            tm.grouped_graph_captures[loop.mode] += 1
-        g.graph.replay()
+            counts[f"grouped_graph_captures.{loop.mode}"] += 1
+        g.replay()
         # what the captured draws left on the host: the split's key slot
         stream.cur, stream.has_sub = g.cur, True
-        n_dc, n_tf = g.launches
-        dc.LAUNCHES += n_dc
-        tf.GROUPED_LAUNCHES += n_tf
-        tm.grouped_graph_replays[loop.mode] += 1
+        counts[f"grouped_graph_replays.{loop.mode}"] += 1
         return g.out[-1]
 
     def _capture_iteration(self, loop, vcnt: int) -> _Graph:
@@ -512,13 +474,9 @@ class _Pass:
         def fn():
             out[:] = [sh.run_local(loop.iteration(vcnt, stream))]
 
-        d0, g0 = dc.LAUNCHES, tf.GROUPED_LAUNCHES
-        graph = self.graphs.capture(fn)
-        # a capture launches nothing: its wrappers' counts belong to the replays
-        n_dc, n_tf = dc.LAUNCHES - d0, tf.GROUPED_LAUNCHES - g0
-        dc.LAUNCHES -= n_dc
-        tf.GROUPED_LAUNCHES -= n_tf
-        return _Graph(graph, loop, (n_dc, n_tf), out, stream.cur)
+        g = self.graphs.record(fn, loop, out)
+        g.cur = stream.cur  # the key slot the captured split leaves
+        return g
 
     def finish(self) -> None:
         """The carried state and the assignments back where the call's
@@ -526,5 +484,4 @@ class _Pass:
         buf, run = self.buf, self.run
         self.orig["i64"][0].copy_(buf.i64)
         self.orig["i32"][0].copy_(buf.i32)
-        run.assignments[self.lo : self.lo + len(self.slot)].copy_(
-            buf.asg[self.lo : self.lo + len(self.slot)])
+        run.assignments[self.lo : self.hi].copy_(buf.asg[self.lo : self.hi])

@@ -77,10 +77,6 @@ from ..tensorize.schema import MEM_IDX
 
 INF_COUNT = 2**30
 
-# device-to-host reads of the random mode's loop since the last reset (one
-# per iteration: the count placed, read for the exit test)
-READS = 0
-
 KIND_SLOW, KIND_PLAIN, KIND_SPREAD, KIND_ANTI = 0, 1, 2, 3
 
 
@@ -341,10 +337,7 @@ def _read_placed(parts):
     whatever the shard count. The row is the count placed, or in spread
     mode ``[count placed, 1 if the iteration kept the water-fill]``;
     every shard gets the value read (an int, or that list)."""
-    global READS
-    v = parts[0].tolist()
-    READS += 1
-    return [v] * len(parts)
+    return [parts[0].tolist()] * len(parts)
 
 
 def _global_order(group: int):

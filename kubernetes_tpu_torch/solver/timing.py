@@ -1,7 +1,7 @@
 """Where a solve's host time goes, and the solvers' blocking card reads.
 
 ``SolveTimes`` is one ExactSolver's account of its last ``solve()`` call,
-kept as plain attributes the way ``dispatch_counts`` is kept, so that the
+kept as plain data the way ``dispatch_counts`` is kept, so that the
 Scheduler hands it to the StageProfiler after each call. Its sub-stages,
 in the order a solve runs them:
 
@@ -15,20 +15,17 @@ in the order a solve runs them:
     card_read  the blocking device-to-host reads inside the run (nested
                in ``issue``)
 
-Beside them it counts the scan's steps, the grouped loop's iterations and
-the card reads, and of the scan's steps those replayed from a CUDA graph
-(``graph_replays``) and the graphs captured (``graph_captures``,
-``solver/graphs.py``). Of the grouped path it counts, by chunk kind
-(``CHUNK_KINDS``), the chunks that held a valid pod (``chunks``), their
-valid pods (``chunk_pods``) and, for the fast kinds, the loop's iterations
-(``chunk_iterations``, which add up to ``grouped_iterations``), the
-spread iterations that kept the water-fill (``waterfill_iterations``, a
-flag the random loop's exit-test read brings back with the count placed),
-and, for the quota kinds (``QUOTA_KINDS``), the iterations replayed from a
-CUDA graph of the iteration (``grouped_graph_replays``) and the graphs
-captured (``grouped_graph_captures``).
-With a Tracer set (the Scheduler's, when its spans are on)
-each sub-stage is also a span of the same name, ``card_read`` carrying its
+Beside them it counts the card reads, and in ``counts`` the call's solve
+counts by their ledger keys, one entry of ``COUNT_SERIES`` each: the scan's
+steps and the grouped loop's iterations, the scan steps' CUDA graph
+replays and captures (``solver/graphs.py``), the grouped path's chunks
+that held a valid pod, their pods and their loop's iterations by chunk
+kind (``CHUNK_KINDS``), the spread iterations that kept the water-fill,
+and the quota iterations' graph replays and captures (``QUOTA_KINDS``).
+A new count is its increment, its entry and, if it needs one, its series.
+
+With a Tracer set (the Scheduler's, when its spans are on) each
+sub-stage is also a span of the same name, ``card_read`` carrying its
 site; with a ``utils/tracing`` session on, a ``record_function`` range of
 the same name, so the operator's Chrome trace shows them against the
 kernels. Off, a sub-stage costs two clock reads.
@@ -59,6 +56,24 @@ FAST_KINDS = CHUNK_KINDS[1:]
 QUOTA_KINDS = CHUNK_KINDS[2:]
 SITES = ("grouped", "relax", "auction", "evaluate", "preemption")
 KERNELS = ("domain_counts", "threefry_scan", "threefry_grouped")
+
+# each solve count's ledger key -> the registry series (an attribute of
+# ``metrics``) and label (None: unlabelled) its per-batch delta advances;
+# SolveTimes.counts, the issue span and the StageProfiler read it
+COUNT_SERIES = {
+    "scan_steps": ("solve_steps_total", "scan_steps"),
+    "grouped_iterations": ("solve_steps_total", "grouped_iterations"),
+    "graph_replays": ("solve_graph_replays_total", None),
+    "graph_captures": ("solve_graph_captures_total", None),
+    **{f"chunks.{k}": ("solve_chunks_total", k) for k in CHUNK_KINDS},
+    **{f"chunk_pods.{k}": ("solve_chunk_pods_total", k) for k in CHUNK_KINDS},
+    **{f"chunk_iterations.{k}": ("solve_chunk_iterations_total", k) for k in FAST_KINDS},
+    "waterfill_iterations": ("solve_waterfill_iterations_total", None),
+    **{f"grouped_graph_replays.{k}": ("solve_grouped_graph_replays_total", k)
+       for k in QUOTA_KINDS},
+    **{f"grouped_graph_captures.{k}": ("solve_grouped_graph_captures_total", k)
+       for k in QUOTA_KINDS},
+}
 
 COUNTS = dict.fromkeys(SITES, 0)
 SECONDS = dict.fromkeys(SITES, 0.0)
@@ -144,33 +159,8 @@ class SolveTimes:
     def begin(self) -> None:
         """Zero the account for a new solve call."""
         self.seconds = dict.fromkeys(SOLVE_STAGES, 0.0)
-        self.scan_steps = 0
-        self.grouped_iterations = 0
-        self.graph_replays = 0
-        self.graph_captures = 0
+        self.counts = dict.fromkeys(COUNT_SERIES, 0)
         self.card_reads = 0
-        self.chunks = dict.fromkeys(CHUNK_KINDS, 0)
-        self.chunk_pods = dict.fromkeys(CHUNK_KINDS, 0)
-        self.chunk_iterations = dict.fromkeys(FAST_KINDS, 0)
-        self.waterfill_iterations = 0
-        self.grouped_graph_replays = dict.fromkeys(QUOTA_KINDS, 0)
-        self.grouped_graph_captures = dict.fromkeys(QUOTA_KINDS, 0)
-
-    def chunk_counts(self) -> dict:
-        """The grouped path's counts, flat: ``chunks.<kind>``,
-        ``chunk_pods.<kind>``, ``chunk_iterations.<kind>``,
-        ``waterfill_iterations``, ``grouped_graph_replays.<kind>`` and
-        ``grouped_graph_captures.<kind>``, the keys of the StageProfiler's
-        ledger."""
-        out = {f"chunks.{k}": v for k, v in self.chunks.items()}
-        out.update((f"chunk_pods.{k}", v) for k, v in self.chunk_pods.items())
-        out.update((f"chunk_iterations.{k}", v) for k, v in self.chunk_iterations.items())
-        out["waterfill_iterations"] = self.waterfill_iterations
-        out.update((f"grouped_graph_replays.{k}", v)
-                   for k, v in self.grouped_graph_replays.items())
-        out.update((f"grouped_graph_captures.{k}", v)
-                   for k, v in self.grouped_graph_captures.items())
-        return out
 
     def stage(self, name: str) -> _Stage:
         return _Stage(self, name, {})

@@ -69,6 +69,7 @@ def main() -> int:
     import chip_smoke as cs
     from kubernetes_tpu_torch.api.wrappers import MakeNode, MakePod
     from kubernetes_tpu_torch.solver import graphs as sg
+    from kubernetes_tpu_torch.solver import timing
     from kubernetes_tpu_torch.solver.exact import ExactSolver, ExactSolverConfig
     from kubernetes_tpu_torch.tensorize.schema import ResourceVocab
 
@@ -91,9 +92,10 @@ def main() -> int:
         """(units, replayed, captured) of the last solve: scan steps, or
         the spread chunks' loop iterations."""
         if spread:
-            return (tm.chunk_iterations["spread"], sum(tm.grouped_graph_replays.values()),
-                    sum(tm.grouped_graph_captures.values()))
-        return tm.scan_steps, tm.graph_replays, tm.graph_captures
+            return (tm.counts["chunk_iterations.spread"],
+                    sum(tm.counts[f"grouped_graph_replays.{k}"] for k in timing.QUOTA_KINDS),
+                    sum(tm.counts[f"grouped_graph_captures.{k}"] for k in timing.QUOTA_KINDS))
+        return tm.counts["scan_steps"], tm.counts["graph_replays"], tm.counts["graph_captures"]
     cfg = ExactSolverConfig(tie_break="random", balanced_fdtype="float64", seed=cs.SEED)
 
     def solve(solver):

@@ -1559,8 +1559,8 @@ def test_step_graphs_equal_the_eager_steps_on_the_card(cuda_device, monkeypatch,
     assert launches == want_l and launches[0] > 0
     if tie == "random":
         assert launches[1] > 0
-    tm = solver.times
-    assert tm.graph_captures > 0 and tm.graph_replays > 0.9 * tm.scan_steps
+    counts = solver.times.counts
+    assert counts["graph_captures"] > 0 and counts["graph_replays"] > 0.9 * counts["scan_steps"]
 
 
 def test_step_graphs_recapture_when_the_class_tables_change_on_the_card(cuda_device, monkeypatch):
@@ -1585,7 +1585,8 @@ def test_step_graphs_recapture_when_the_class_tables_change_on_the_card(cuda_dev
             for pods in batches:
                 a = solver.solve(*_graph_inputs(nodes, pods), col_versions=versions.copy(),
                                  device=cuda_device)
-                seen.append((a, solver.times.graph_captures, solver.times.graph_replays,
+                counts = solver.times.counts
+                seen.append((a, counts["graph_captures"], counts["graph_replays"],
                              solver.graphs.epoch if graphs else None))
         out[graphs] = seen
     for (a, *_), (b, *_) in zip(out[True], out[False]):
@@ -1706,8 +1707,7 @@ def _quota_graph_run(monkeypatch, dev, spec, graphs: bool):
             stream = solver.graphs.stream if graphs else made[-1]
             tm = solver.times
             out.append((got, state, stream.key_words(), dict(
-                tm.chunk_counts(), grouped_iterations=tm.grouped_iterations,
-                card_reads=tm.card_reads), launches))
+                tm.counts, card_reads=tm.card_reads), launches))
     return out, keys, outcomes, reads
 
 

@@ -14,15 +14,13 @@ hold the real graphs the same way."""
 from __future__ import annotations
 
 import json
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
 
 from kubernetes_tpu_torch import metrics
-from kubernetes_tpu_torch.api.wrappers import MakeNode, MakePod
+from kubernetes_tpu_torch.api.wrappers import MakePod
 from kubernetes_tpu_torch.obs import ObsConfig
-from kubernetes_tpu_torch.ops import threefry as tf
 from kubernetes_tpu_torch.parallel import sharding as sh
 from kubernetes_tpu_torch.scheduler import Scheduler, SchedulerConfig
 from kubernetes_tpu_torch.solver import graphs as sg
@@ -30,22 +28,19 @@ from kubernetes_tpu_torch.solver import grouped as gp
 from kubernetes_tpu_torch.solver import timing
 from kubernetes_tpu_torch.solver.exact import ExactSolver, ExactSolverConfig
 from kubernetes_tpu_torch.state.cluster import ClusterState
-from kubernetes_tpu_torch.tensorize.interpod import build_interpod_tensors
-from kubernetes_tpu_torch.tensorize.plugins import build_port_tensors, build_static_tensors
-from kubernetes_tpu_torch.tensorize.schema import ResourceVocab, build_node_batch, build_pod_batch
-from kubernetes_tpu_torch.tensorize.spread import build_spread_tensors
+from kubernetes_tpu_torch.tensorize.plugins import build_port_tensors
 
-ZONE = "topology.kubernetes.io/zone"
-HOST = "kubernetes.io/hostname"
+from _torch_graph_emulation import HOST, ZONE, emulated  # noqa: F401 (a fixture)
+from _torch_graph_emulation import inputs as _inputs
+from _torch_graph_emulation import nodes as graph_nodes
+
 GROUP = 16
 
 
 def _nodes(n=48, varied=False):
     """``n`` nodes in 3 zones; ``varied``: capacities that differ, so that
     ties are few and a chunk takes many iterations."""
-    return [MakeNode().name(f"n{i:03}").capacity(
-        {"cpu": f"{8 + (i if varied else 0)}", "memory": "32Gi", "pods": "40"})
-        .label(ZONE, f"z{i % 3}").label(HOST, f"n{i:03}").obj() for i in range(n)]
+    return graph_nodes(n, cpu=8, memory="32Gi", pods=40, varied=varied)
 
 
 def _pods(n, kind, prefix="p", skew=1, bad_every=0, cpu="100m"):
@@ -69,17 +64,6 @@ def _pods(n, kind, prefix="p", skew=1, bad_every=0, cpu="100m"):
     return out
 
 
-def _inputs(nodes, pods):
-    vocab = ResourceVocab.build([], nodes)  # a resource no node has stays unknown
-    nb = build_node_batch(nodes, vocab=vocab)
-    pb = build_pod_batch(pods, vocab)
-    slots = list(nodes) + [None] * (nb.padded - len(nodes))
-    st = build_static_tensors(pods, pb, slots, nb.padded)
-    return (nb, pb, st, build_port_tensors(pods, pb, slots, {}, nb.padded),
-            build_spread_tensors(pods, st.reps, pb, slots, {}, nb.padded, st.c_pad),
-            build_interpod_tensors(pods, st.reps, pb, slots, {}, nb.padded, st.c_pad))
-
-
 # each case: the batches one solver solves in turn, and how
 CASES = {
     # maxSkew 1 from empty zones: the water-fill is kept
@@ -96,24 +80,6 @@ CASES = {
     "two_solves": dict(mode="session", batches=lambda: [_pods(64, "spread", prefix="a"),
                                                         _pods(64, "spread", prefix="a")]),
 }
-
-
-@pytest.fixture
-def emulated(monkeypatch):
-    """Graphs engage on the CPU, and a capture records the function, which
-    each replay runs again; the eager solves' streams are recorded."""
-    monkeypatch.setattr(sg, "engages",
-                        lambda device, shards, use_nominated: shards == 1 and not use_nominated)
-    monkeypatch.setattr(sg.StepGraphs, "capture", lambda self, fn: SimpleNamespace(replay=fn))
-    made = []
-
-    class Recorded(tf.Stream):
-        def __init__(self, *a, **k):
-            super().__init__(*a, **k)
-            made.append(self)
-
-    monkeypatch.setattr(tf, "Stream", Recorded)
-    return made
 
 
 def _run(spec, graphs: bool, made, seed=11):
@@ -137,7 +103,7 @@ def _run(spec, graphs: bool, made, seed=11):
             mp.setattr(sg, "engages", lambda *a: False)
         for pods in spec["batches"]():
             inp = _inputs(nodes, pods)
-            reads0 = gp.READS
+            reads0 = timing.COUNTS["grouped"]
             if spec["mode"] == "standalone":
                 got = solver.solve(*inp, device="cpu")
                 state = [getattr(inp[0], k).copy() for k in ("used", "nonzero_used", "pod_count")]
@@ -149,8 +115,8 @@ def _run(spec, graphs: bool, made, seed=11):
             stream = solver.graphs.stream if graphs else made[-1]
             tm = solver.times
             out.append((got, state, stream.key_words(), dict(
-                tm.chunk_counts(), grouped_iterations=tm.grouped_iterations,
-                card_reads=tm.card_reads, reads=gp.READS - reads0)))
+                tm.counts, card_reads=tm.card_reads,
+                reads=timing.COUNTS["grouped"] - reads0)))
     return out, outcomes, solver
 
 
@@ -219,6 +185,11 @@ def test_a_signature_is_captured_after_its_eager_iterations(emulated):
     assert all(len(k) == 5 and k[0] == "spread" for k in solver.graphs.iterations)
 
 
+def _quota(tm, name) -> dict:
+    """The solve's count ``name.<kind>`` by quota kind."""
+    return {k: tm.counts[f"{name}.{k}"] for k in timing.QUOTA_KINDS}
+
+
 def _solve_counts(pods, cfg, **kw):
     solver = ExactSolver(cfg)
     solver.solve(*_inputs(_nodes(), pods), **kw)
@@ -237,8 +208,9 @@ def test_plain_chunks_and_first_mode_keep_the_eager_loop(emulated, case):
     solver = _solve_counts(pods, ExactSolverConfig(tie_break=tie, seed=2, group_size=GROUP),
                            device="cpu")
     tm = solver.times
-    assert tm.grouped_iterations > 0
-    assert tm.grouped_graph_replays == tm.grouped_graph_captures == {"spread": 0, "anti": 0}
+    assert tm.counts["grouped_iterations"] > 0
+    assert (_quota(tm, "grouped_graph_replays") == _quota(tm, "grouped_graph_captures")
+            == {"spread": 0, "anti": 0})
     assert solver.graphs is None or not solver.graphs.iterations
 
 
@@ -246,16 +218,16 @@ def test_the_cpu_keeps_the_eager_loop():
     solver = _solve_counts(_pods(64, "spread"),
                            ExactSolverConfig(tie_break="random", seed=2, group_size=GROUP),
                            device="cpu")
-    assert solver.graphs is None and solver.times.chunk_iterations["spread"] > 0
-    assert solver.times.grouped_graph_replays == {"spread": 0, "anti": 0}
+    assert solver.graphs is None and solver.times.counts["chunk_iterations.spread"] > 0
+    assert _quota(solver.times, "grouped_graph_replays") == {"spread": 0, "anti": 0}
 
 
 def test_a_mesh_keeps_the_eager_loop(emulated):
     solver = _solve_counts(_pods(64, "anti"),
                            ExactSolverConfig(tie_break="random", seed=2, group_size=GROUP),
                            mesh=sh.NodeMesh(("cpu", "cpu")))
-    assert solver.graphs is None and solver.times.chunk_iterations["anti"] > 0
-    assert solver.times.grouped_graph_replays == {"spread": 0, "anti": 0}
+    assert solver.graphs is None and solver.times.counts["chunk_iterations.anti"] > 0
+    assert _quota(solver.times, "grouped_graph_replays") == {"spread": 0, "anti": 0}
 
 
 def test_a_nominated_batch_keeps_the_eager_loop(emulated):
@@ -273,7 +245,7 @@ def test_a_nominated_batch_keeps_the_eager_loop(emulated):
     solver = ExactSolver(ExactSolverConfig(tie_break="random", seed=4, group_size=GROUP))
     solver.solve(*inputs, nominated=nom, nominated_slot=nslot, device="cpu")
     assert solver.graphs is None
-    assert solver.times.grouped_graph_replays == {"spread": 0, "anti": 0}
+    assert _quota(solver.times, "grouped_graph_replays") == {"spread": 0, "anti": 0}
 
 
 def test_the_loop_key_holds_what_the_iteration_branches_on():

@@ -13,37 +13,29 @@ and the ``issue`` span's attributes are checked here too."""
 from __future__ import annotations
 
 import json
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
 
 from kubernetes_tpu_torch import metrics
-from kubernetes_tpu_torch.api.wrappers import MakeNode, MakePod
+from kubernetes_tpu_torch.api.wrappers import MakePod
 from kubernetes_tpu_torch.obs import ObsConfig
-from kubernetes_tpu_torch.obs.profile import GRAPH_COUNTS
 from kubernetes_tpu_torch.ops import prng
-from kubernetes_tpu_torch.ops import threefry as tf
 from kubernetes_tpu_torch.parallel import sharding as sh
 from kubernetes_tpu_torch.scheduler import Scheduler, SchedulerConfig
 from kubernetes_tpu_torch.solver import graphs as sg
 from kubernetes_tpu_torch.solver.exact import ExactSolver, ExactSolverConfig
+from kubernetes_tpu_torch.solver.timing import COUNT_SERIES
 from kubernetes_tpu_torch.state.cluster import ClusterState
-from kubernetes_tpu_torch.tensorize.interpod import build_interpod_tensors
-from kubernetes_tpu_torch.tensorize.plugins import build_port_tensors, build_static_tensors
-from kubernetes_tpu_torch.tensorize.schema import ResourceVocab, build_node_batch, build_pod_batch
-from kubernetes_tpu_torch.tensorize.spread import build_spread_tensors
+from kubernetes_tpu_torch.tensorize.plugins import build_port_tensors
 
-ZONE = "topology.kubernetes.io/zone"
-HOST = "kubernetes.io/hostname"
+from _torch_graph_emulation import HOST, ZONE, emulated  # noqa: F401 (a fixture)
+from _torch_graph_emulation import inputs as _inputs
+from _torch_graph_emulation import nodes as _nodes
+
 # interpod5k's four kinds: hostPort, hard zone spread, required hostname
 # anti-affinity, preferred zone affinity
 MIXED = ("ports", "spread", "anti", "pref")
-
-
-def _nodes(n=48):
-    return [MakeNode().name(f"n{i:03}").capacity({"cpu": "4", "memory": "16Gi", "pods": "20"})
-            .label(ZONE, f"z{i % 3}").label(HOST, f"n{i:03}").obj() for i in range(n)]
 
 
 def _pods(n, kinds=MIXED, prefix="p", bad_every=0):
@@ -67,35 +59,6 @@ def _pods(n, kinds=MIXED, prefix="p", bad_every=0):
             b = b.preferred_pod_affinity(50, ZONE, {"app": "spread"})
         out.append(b.obj())
     return out
-
-
-def _inputs(nodes, pods):
-    vocab = ResourceVocab.build([], nodes)  # a resource no node has stays unknown
-    nb = build_node_batch(nodes, vocab=vocab)
-    pb = build_pod_batch(pods, vocab)
-    slots = list(nodes) + [None] * (nb.padded - len(nodes))
-    st = build_static_tensors(pods, pb, slots, nb.padded)
-    return (nb, pb, st, build_port_tensors(pods, pb, slots, {}, nb.padded),
-            build_spread_tensors(pods, st.reps, pb, slots, {}, nb.padded, st.c_pad),
-            build_interpod_tensors(pods, st.reps, pb, slots, {}, nb.padded, st.c_pad))
-
-
-@pytest.fixture
-def emulated(monkeypatch):
-    """Graphs engage on the CPU, and a capture records the step, which each
-    replay runs again."""
-    monkeypatch.setattr(sg, "engages",
-                        lambda device, shards, use_nominated: shards == 1 and not use_nominated)
-    monkeypatch.setattr(sg.StepGraphs, "capture", lambda self, fn: SimpleNamespace(replay=fn))
-    made = []
-
-    class Recorded(tf.Stream):
-        def __init__(self, *a, **k):
-            super().__init__(*a, **k)
-            made.append(self)
-
-    monkeypatch.setattr(tf, "Stream", Recorded)
-    return made
 
 
 def _solve(solver, nodes, pods, mode):
@@ -129,6 +92,16 @@ CASES = {
                                             bad_every=5)
         + _pods(16, kinds=("plain",), prefix="r") + _pods(32, kinds=("anti", "ports"), prefix="s",
                                                           bad_every=6))),
+    # an all-padding chunk (every pod invalid) after a KIND_SLOW chunk that
+    # ends in invalid rows, then another such pair and a spread chunk: the
+    # owed splits carry across each padding chunk, to the next scan step and
+    # then to the spread chunk's first split
+    "padding_chunk": dict(mode="standalone", group=16, pods=lambda: (
+        _pods(16, kinds=("ports", "anti"), bad_every=4)
+        + _pods(16, kinds=("plain",), prefix="x", bad_every=1)
+        + _pods(16, kinds=("anti", "ports"), prefix="q", bad_every=4)
+        + _pods(16, kinds=("plain",), prefix="y", bad_every=1)
+        + _pods(16, kinds=("spread",), prefix="s"))),
 }
 
 
@@ -153,8 +126,8 @@ def test_graph_steps_equal_the_eager_steps(emulated, tie, case):
     for k, v in want_state.items():
         np.testing.assert_array_equal(state[k], v, err_msg=k)
     tm = solver.times
-    assert tm.graph_replays > 0 and tm.graph_captures > 0
-    assert tm.graph_replays <= tm.scan_steps
+    assert tm.counts["graph_replays"] > 0 and tm.counts["graph_captures"] > 0
+    assert tm.counts["graph_replays"] <= tm.counts["scan_steps"]
     if tie == "random":
         assert solver.graphs.stream.key_words() == want_key
     if spec["mode"] == "standalone" and spec.get("group", 1) == 1:
@@ -163,6 +136,27 @@ def test_graph_steps_equal_the_eager_steps(emulated, tie, case):
         for _ in range(_inputs(nodes, pods)[1].padded):
             key = prng.next_key(key)
         assert want_key in (None, key)
+
+
+def test_the_padding_case_owes_splits_across_padding_chunks(monkeypatch):
+    """The ``padding_chunk`` case's plan: two all-padding chunks that
+    place nothing and are not walked, the owed splits of the rows before
+    each carried to the next draw, a scan step's and then the spread
+    chunk's."""
+    from kubernetes_tpu_torch.solver import exact as ex
+    from kubernetes_tpu_torch.solver import grouped as gp
+
+    plans, real = [], ex._Run.plan
+    monkeypatch.setattr(ex._Run, "plan", lambda *a: plans.append(real(*a)) or plans[-1])
+    ExactSolver(ExactSolverConfig(tie_break="random", seed=11, group_size=16)).solve(
+        *_inputs(_nodes(), CASES["padding_chunk"]["pods"]()), device="cpu")
+    (plan,) = plans
+    assert plan.counts["chunks.plain"] == 0 and plan.counts["chunks.spread"] == 1
+    kinds = [item[0] for item in plan.items]
+    assert kinds == [gp.KIND_SLOW] * 24 + [gp.KIND_SPREAD]
+    # the first scan step of the second slow chunk, and the spread chunk
+    assert plan.items[12][3] == 1 and plan.items[-1][3] == 1
+    assert plan.items[12][1] == 32 and plan.items[-1][1:3] == [64, 64]
 
 
 def test_graphs_live_across_session_solves_and_recapture_on_new_tables(emulated):
@@ -180,16 +174,16 @@ def test_graphs_live_across_session_solves_and_recapture_on_new_tables(emulated)
 
     first = _pods(64, prefix="a")
     session(solver, first)
-    captured = solver.times.graph_captures
+    captured = solver.times.counts["graph_captures"]
     assert captured == 4  # one per kind
     epoch = solver.graphs.epoch
     session(solver, first)
-    assert solver.times.graph_captures == 0 and solver.times.graph_replays == 64
+    assert solver.times.counts["graph_captures"] == 0 and solver.times.counts["graph_replays"] == 64
     assert solver.graphs.epoch == epoch
 
     other = _pods(64, kinds=("ports", "anti"), prefix="b")
     got = session(solver, other)
-    assert solver.graphs.epoch != epoch and solver.times.graph_captures == 2
+    assert solver.graphs.epoch != epoch and solver.times.counts["graph_captures"] == 2
     eager = ExactSolver(cfg)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(sg, "engages", lambda *a: False)
@@ -207,8 +201,8 @@ def test_signature_below_the_threshold_steps_eagerly(emulated):
     solver = ExactSolver(ExactSolverConfig(tie_break="first"))
     solver.solve(*_inputs(nodes, pods), device="cpu")
     tm = solver.times
-    assert tm.scan_steps == 40 + few
-    assert tm.graph_captures == 2 and tm.graph_replays == 40 - 2
+    assert tm.counts["scan_steps"] == 40 + few
+    assert tm.counts["graph_captures"] == 2 and tm.counts["graph_replays"] == 40 - 2
 
 
 @pytest.mark.parametrize("device,shards,nominated,engaged", [
@@ -225,14 +219,14 @@ def test_the_cpu_keeps_the_eager_step():
     solver = ExactSolver(ExactSolverConfig(tie_break="random", seed=1))
     solver.solve(*_inputs(_nodes(), _pods(48)), device="cpu")
     assert solver.graphs is None
-    assert solver.times.graph_replays == 0 and solver.times.scan_steps == 48
+    assert solver.times.counts["graph_replays"] == 0 and solver.times.counts["scan_steps"] == 48
 
 
 def test_a_mesh_keeps_the_eager_step(emulated):
     """Even where graphs may engage, a mesh of two shards steps eagerly."""
     solver = ExactSolver(ExactSolverConfig(tie_break="first"))
     solver.solve(*_inputs(_nodes(), _pods(48)), mesh=sh.NodeMesh(("cpu", "cpu")))
-    assert solver.graphs is None and solver.times.graph_replays == 0
+    assert solver.graphs is None and solver.times.counts["graph_replays"] == 0
 
 
 def test_a_nominated_batch_keeps_the_eager_step(emulated):
@@ -251,8 +245,8 @@ def test_a_nominated_batch_keeps_the_eager_step(emulated):
     nslot = np.asarray([slot_of.get(p.key, -1) for p in pods], np.int32)
     solver = ExactSolver(ExactSolverConfig(tie_break="random", seed=4))
     solver.solve(*inputs, nominated=nom, nominated_slot=nslot, device="cpu")
-    assert solver.graphs is None and solver.times.graph_replays == 0
-    assert solver.times.scan_steps == 48
+    assert solver.graphs is None and solver.times.counts["graph_replays"] == 0
+    assert solver.times.counts["scan_steps"] == 48
 
 
 def test_packed_row_views_are_the_pod_rows():
@@ -296,7 +290,7 @@ def test_registry_series_and_issue_span_count_the_graphs(emulated):
     captures = sum(e["graph_captures"] for e in entries)
     steps = sum(e["scan_steps"] for e in entries)
     assert steps == 64 and 0 < replays < steps and captures >= 4
-    assert all(type(e[k]) is int for e in entries for k in GRAPH_COUNTS)
+    assert all(type(e[k]) is int for e in entries for k in COUNT_SERIES)
     assert metrics.solve_graph_replays_total.value() - before[0] == replays
     assert metrics.solve_graph_captures_total.value() - before[1] == captures
     assert metrics.solve_steps_total.labels("scan_steps").value() - before[2] == steps

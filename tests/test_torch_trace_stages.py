@@ -20,7 +20,6 @@ from kubernetes_tpu_torch.obs.profile import ALL_STAGES, NESTED_STAGES, STAGES, 
 from kubernetes_tpu_torch.ops import domain_counts as dc
 from kubernetes_tpu_torch.ops import threefry as tf
 from kubernetes_tpu_torch.scheduler import Scheduler, SchedulerConfig
-from kubernetes_tpu_torch.solver import grouped as gp
 from kubernetes_tpu_torch.solver import timing
 from kubernetes_tpu_torch.solver.exact import ExactSolverConfig
 from kubernetes_tpu_torch.state.cluster import ClusterState
@@ -62,7 +61,7 @@ def test_solve_sub_stages_fit_inside_dispatch(shape):
     _nodes(cs)
     _pods(cs, 48)
     sched = _sched(cs, obs=ObsConfig(profile=True), **SHAPES[shape])
-    reads0, sites0 = gp.READS, dict(timing.COUNTS)
+    sites0 = dict(timing.COUNTS)
     res = sched.run_pipelined()
     assert sum(len(r.scheduled) for r in res) == 48
     prof = sched.telemetry.profiler.snapshot()
@@ -86,8 +85,7 @@ def test_solve_sub_stages_fit_inside_dispatch(shape):
     else:
         assert steps == 0 and iterations > 0
         # the random loop's one read an iteration, timed at its site
-        assert reads == gp.READS - reads0 == iterations
-        assert timing.COUNTS["grouped"] - sites0["grouped"] == reads
+        assert reads == timing.COUNTS["grouped"] - sites0["grouped"] == iterations
         assert prof["stage_seconds"]["card_read"] > 0.0
     assert set(prof["stage_seconds"]) == set(ALL_STAGES)
     assert sum(prof["stage_fraction"].values()) == pytest.approx(1.0, abs=1e-3)
@@ -136,7 +134,15 @@ def test_the_event_wrapper_reads_the_clock_only_with_telemetry_on(profile):
     handled = []
     sched._handle_event = handled.append  # the watch handling itself, whose queue reads the clock
     clock.calls = 0
-    _pods(cs, 3)
+    # the profiler's collector callback reads this clock too: no collection
+    # may land in the counted window
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        _pods(cs, 3)
+    finally:
+        if collecting:
+            gc.enable()
     assert len(handled) == 3
     assert clock.calls == (2 * 3 if profile else 0)
 
@@ -173,7 +179,7 @@ def test_registry_counters_equal_the_globals_deltas():
         "tf": launches.labels("threefry_grouped").value(),
         "combines": metrics.mesh_combines_total.value(),
     }
-    g0 = (gp.READS, timing.SECONDS["grouped"], dc.LAUNCHES, tf.GROUPED_LAUNCHES)
+    g0 = (timing.COUNTS["grouped"], timing.SECONDS["grouped"], dc.LAUNCHES, tf.GROUPED_LAUNCHES)
     sched.schedule_batch()
     # the CPU launches no kernel of ours: stand in for the card's launch
     # sites between two batches, so the fold has something to carry
@@ -182,7 +188,8 @@ def test_registry_counters_equal_the_globals_deltas():
     sched.run_pipelined()
     entries = sched.telemetry.profiler.snapshot()["recent"]
     assert (metrics.solve_card_reads_total.labels("grouped").value() - before["reads"]
-            == gp.READS - g0[0] == sum(e["card_reads.grouped"] for e in entries) > 0)
+            == timing.COUNTS["grouped"] - g0[0]
+            == sum(e["card_reads.grouped"] for e in entries) > 0)
     assert (metrics.solve_card_read_seconds_total.labels("grouped").value() - before["read_s"]
             == pytest.approx(timing.SECONDS["grouped"] - g0[1]))
     assert (metrics.solve_steps_total.labels("grouped_iterations").value() - before["iters"]
@@ -263,6 +270,43 @@ def test_chunk_counters_by_kind(monkeypatch):
         assert metrics.solve_chunks_total.labels(k).value() - before[k][0] == want_chunks[k]
         assert metrics.solve_chunk_pods_total.labels(k).value() - before[k][1] == want_pods[k]
     assert metrics.solve_waterfill_iterations_total.value() - wf0 == got["waterfill_iterations"]
+
+
+@pytest.fixture(scope="module")
+def kinds_run():
+    """One Scheduler run over ``_kinds_batch`` with its spans and profiler
+    on: the ``issue`` spans' attributes and the ledger entries."""
+    cs = ClusterState()
+    _kinds_batch(cs)
+    sched = _sched(cs, group=16, obs=ObsConfig(profile=True, spans=True), batch=80)
+    assert sum(len(r.scheduled) for r in sched.run_pipelined()) == 80
+    attrs = [s["attrs"] for s in _spans(sched) if s["name"] == "issue"]
+    return attrs, sched.telemetry.profiler.snapshot()["recent"]
+
+
+@pytest.mark.parametrize("key", list(timing.COUNT_SERIES))
+def test_each_solve_count_reaches_the_ledger_the_span_and_its_series(kinds_run, key):
+    """Each key of the counts table is a ledger key and an attribute of
+    every ``issue`` span, the two summing alike, and one ``observe_batch``
+    advances the key's registry child, and no other count, by the solve's
+    count."""
+    attrs, entries = kinds_run
+    assert attrs and all(key in a for a in attrs)
+    assert entries and all(type(e[key]) is int for e in entries)
+    assert sum(a[key] for a in attrs) == sum(e[key] for e in entries)
+    series, label = timing.COUNT_SERIES[key]
+    assert label in (None, key.rsplit(".", 1)[-1])
+    parent = getattr(metrics, series)
+    assert any(parent is m for m in metrics.PORT_SERIES)
+    child = parent if label is None else parent.labels(label)
+    times = timing.SolveTimes()
+    times.counts[key] = 7
+    prof = StageProfiler()
+    before = child.value()
+    prof.add_solve(times)
+    entry = prof.observe_batch(step=1, pods=1)
+    assert entry[key] == 7 and child.value() - before == 7
+    assert all(entry[k] == 0 for k in timing.COUNT_SERIES if k != key)
 
 
 def test_the_auction_times_and_counts_its_reads():
