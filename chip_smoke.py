@@ -282,6 +282,16 @@ Phases (a failure in any of them propagates and exits nonzero):
    The kernels line lists both entry points beside domain_counts, each
    with its launches on the random-mode paths (4b, 6a, 6c, 13b, 13c,
    14b), every count set to 0 just before its path and read just after.
+15. The fused spread loop (``csrc/grouped_spread.cu`` through
+    ``ops/grouped_spread.py``), run right after phase 2: at spread5k's
+    shape (5,000 nodes in 3 zones, maxSkew 5, two batches of 1,024 pods,
+    64-pod chunks) the main path against the eager loop it replaces (the
+    fused loop and the graphs off) on the same inputs, exactly: every
+    batch's assignments, node state, stream key, iterations and kept
+    water-fills, every chunk's m and stream key. Per-chunk wall times of
+    both, the kernel's own time from CUDA events, and its bound. The
+    kernels line lists it with its launches on 4b's random spread run and
+    on 15, each count set to 0 just before its path and read just after.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -305,6 +315,7 @@ from kubernetes_tpu_torch import build  # noqa: E402
 from kubernetes_tpu_torch import metrics  # noqa: E402
 from kubernetes_tpu_torch.api.wrappers import MakeNode, MakePod  # noqa: E402
 from kubernetes_tpu_torch.ops import domain_counts as dc  # noqa: E402
+from kubernetes_tpu_torch.ops import grouped_spread as gs  # noqa: E402
 from kubernetes_tpu_torch.ops import prng  # noqa: E402
 from kubernetes_tpu_torch.ops import threefry as tf  # noqa: E402
 from kubernetes_tpu_torch.parallel import sharding as sh  # noqa: E402
@@ -901,6 +912,7 @@ def grouped_run(dev, kind, n_nodes, n_pods, batch, tie):
     dc.LAUNCHES = 0
     solve_timing.COUNTS["grouped"] = 0
     tf_reset()
+    gs.LAUNCHES = 0
     for lo in range(0, n_pods, batch):
         bp = pods[lo : lo + batch]
         t0 = time.perf_counter()
@@ -921,6 +933,7 @@ def grouped_run(dev, kind, n_nodes, n_pods, batch, tie):
             zones_after.append(np.bincount(np.fromiter(where.values(), np.int64) % 3,
                                            minlength=3))
     launches, reads, draws = dc.LAUNCHES, solve_timing.COUNTS["grouped"], tf_launches()
+    fused = gs.LAUNCHES
     if len(where) != n_pods:
         raise AssertionError(f"{kind} {tie}: only {len(where)}/{n_pods} pods placed")
     if dev.type == "cuda" and tie == "random" and draws["grouped_draw"] < reads:
@@ -930,13 +943,15 @@ def grouped_run(dev, kind, n_nodes, n_pods, batch, tie):
     chunks = solver.dispatch_counts[want]
     if chunks != n_pods // 64:
         raise AssertionError(f"{kind} {tie}: dispatch {dict(solver.dispatch_counts)}")
-    if kind != "plain" and launches <= 0:
-        raise AssertionError(f"{kind} {tie}: the grouped path launched no domain_counts")
+    if kind != "plain" and launches + fused <= 0:
+        raise AssertionError(f"{kind} {tie}: the grouped path launched no domain_counts "
+                             "and no fused spread loop")
     res = {
         "kind": kind, "tie_break": tie, "nodes": n_nodes, "pods": n_pods, "batch": batch,
         "placed": len(where), "pods_per_s": n_pods / (sum(tens_s) + sum(solve_s)),
         "solve_pods_per_s": n_pods / sum(solve_s), "solve_s": solve_s, "tensorize_s": tens_s,
-        "domain_counts_launches": launches, "threefry_launches": draws, "device_reads": reads,
+        "domain_counts_launches": launches, "threefry_launches": draws,
+        "grouped_spread_launches": fused, "device_reads": reads,
         "device_reads_per_chunk": reads / chunks, "h2d_bytes_per_batch": h2d,
         "dispatch": dict(solver.dispatch_counts),
     }
@@ -4591,6 +4606,196 @@ def threefry_records(grouped, sched, p13, p14):
     return records
 
 
+# -- phase 15: the fused spread loop ------------------------------------------
+
+# spread5k's shape (the benchmark's configuration): 5,000 nodes of 4 CPU /
+# 32Gi / 110 pods in 3 zones, pods of one hard zone spread at maxSkew 5 over
+# their own label (100m / 500Mi), batches of 1,024 pods, chunks of 64
+GS_NODES, GS_BATCH, GS_BATCHES, GS_GROUP = 5000, 1024, 2, 64
+# a lower bound of the integer operations one iteration of the fused loop
+# spends on a node: the ok test, the mask, the best score, the tie test,
+# the eligibility, the acceptance, the scatter test and the flags' reset
+GS_NODE_OPS = 8
+# bytes the loop reads of a node once a chunk (cap, base, counted_dom, dom:
+# int32; hk: bool; alloc, nonzero_used: two int64 rows each) and writes (m:
+# int32)
+GS_NODE_BYTES = 4 * 4 + 1 + 2 * 8 * 2 + 4
+
+
+def _spread5k_workload():
+    nodes = [MakeNode().name(f"node-{i:05}")
+             .capacity({"cpu": "4", "memory": "32Gi", "pods": "110"})
+             .label(ZONE, f"z{i % 3}").label(HOST, f"node-{i:05}").obj()
+             for i in range(GS_NODES)]
+    pods = [MakePod().name(f"s5-{i:05}").label("foo", "bar")
+            .req({"cpu": "100m", "memory": "500Mi"})
+            .spread_constraint(5, ZONE, "DoNotSchedule", {"foo": "bar"}).obj()
+            for i in range(GS_BATCH * GS_BATCHES)]
+    return nodes, pods
+
+
+def _settled(times) -> dict:
+    """A solve call's counts with the counts of its deferred device rows
+    added (waits for the card)."""
+    out = dict(times.counts)
+    for d in times.deferred:
+        for k, v in d.values().items():
+            out[k] += v
+    return out
+
+
+def _spread_solves(dev, nodes, pods, vocab, fused, seed):
+    """``pods`` in batches of GS_BATCH on one random-mode solver, each
+    batch's placements bound before the next. ``fused``: the main path (the
+    fused loop where it engages, the graphs on); else the eager loop
+    (``gs.engages`` and the graphs forced off). Returns per batch
+    (assignments, node state after, the stream's final key, the settled
+    counts), per spread chunk (its m, the stream's key after it, its wall ms
+    with the card synchronised before and after), and the fused kernel's
+    CUDA-event pairs."""
+    from kubernetes_tpu_torch.solver import graphs as sg
+    from kubernetes_tpu_torch.solver import grouped as gp
+
+    made, chunks, events = [], [], []
+    real = (tf.Stream, gp.fast_chunk, gs.spread_loop, gs.engages, sg.engages)
+
+    class Recorded(real[0]):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    def chunk(mode, *a, **k):
+        _sync(dev)
+        t0 = time.perf_counter()
+        asg, m = yield from real[1](mode, *a, **k)
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        if mode == "spread":
+            chunks.append((m.cpu().numpy().copy(), k["stream"].key_words(), ms))
+        return asg, m
+
+    def loop(stream, **kw):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        real[2](stream, **kw)
+        b.record()
+        events.append((a, b))
+
+    tf.Stream, gp.fast_chunk, gs.spread_loop = Recorded, chunk, loop
+    if not fused:
+        gs.engages = sg.engages = lambda *a: False
+    try:
+        solver = ExactSolver(ExactSolverConfig(tie_break="random", seed=seed,
+                                               group_size=GS_GROUP, balanced_fdtype="float64"))
+        placed: dict[str, list] = {}
+        batches = []
+        for lo in range(0, len(pods), GS_BATCH):
+            bp = pods[lo : lo + GS_BATCH]
+            inp = tensorize(nodes, bp, placed, vocab)
+            a = solver.solve(*inp, device=dev)
+            state = [getattr(inp[0], f).copy() for f in ("used", "nonzero_used", "pod_count")]
+            stream = solver.graphs.stream if solver.graphs is not None else made[-1]
+            batches.append((a, state, stream.key_words(), _settled(solver.times)))
+            for i, s_ in enumerate(a):
+                if s_ >= 0:
+                    placed.setdefault(nodes[s_].name, []).append(bp[i])
+    finally:
+        tf.Stream, gp.fast_chunk, gs.spread_loop, gs.engages, sg.engages = real
+    return batches, chunks, events
+
+
+def grouped_spread_check(dev, seed=SEED):
+    """15: the fused spread loop (``csrc/grouped_spread.cu``) against the
+    eager loop it replaces, at spread5k's shape: two batches of 1,024 pods
+    on 5,000 nodes, the second on the first's placements, solved once on
+    the main path and once with the fused loop and the graphs off. Every
+    batch's assignments, node state, final stream key, iterations and kept
+    water-fills, and every chunk's m and stream key, must be equal exactly.
+    Times: each spread chunk's wall with the card synchronised on both
+    sides (median over the chunks), the kernel's own time from CUDA events
+    around each launch, and its bound from the bytes it reads and a lower
+    bound of its integer operations."""
+    nodes, pods = _spread5k_workload()
+    vocab = ResourceVocab.build(pods, nodes)
+    gs.LAUNCHES = 0
+    got, got_chunks, events = _spread_solves(dev, nodes, pods, vocab, True, seed)
+    launches = gs.LAUNCHES
+    want, want_chunks, _ = _spread_solves(dev, nodes, pods, vocab, False, seed)
+    keys = ("grouped_iterations", "chunk_iterations.spread", "waterfill_iterations",
+            "chunks.spread", "chunk_pods.spread")
+    for b, ((a, sa, ka, ca), (w, sw, kw, cw)) in enumerate(zip(got, want)):
+        if not np.array_equal(a, w):
+            bad = np.flatnonzero(a != w)
+            raise AssertionError(f"15 grouped_spread batch {b} (seed {seed}): assignments "
+                                 f"differ at {bad.size} pods, first {bad[:5]}")
+        if not (a >= 0).all():
+            raise AssertionError(f"15 grouped_spread batch {b}: {(a < 0).sum()} pods unplaced")
+        for name, x, y in zip(("used", "nonzero_used", "pod_count"), sa, sw):
+            if not np.array_equal(x, y):
+                raise AssertionError(f"15 grouped_spread batch {b}: node {name} differs")
+        if ka != kw:
+            raise AssertionError(f"15 grouped_spread batch {b}: stream key {ka} != {kw}")
+        for k in keys:
+            if ca[k] != cw[k]:
+                raise AssertionError(f"15 grouped_spread batch {b}: {k} {ca[k]} != {cw[k]}")
+        if not ca["fused_chunks.spread"] == ca["chunks.spread"] > 0 or cw["fused_chunks.spread"]:
+            raise AssertionError(f"15 grouped_spread batch {b}: fused chunks "
+                                 f"{ca['fused_chunks.spread']} / {cw['fused_chunks.spread']} "
+                                 f"of {ca['chunks.spread']}")
+    if len(got_chunks) != len(want_chunks):
+        raise AssertionError(f"15 grouped_spread: {len(got_chunks)} != {len(want_chunks)} chunks")
+    for c, ((m, k, _), (mw, kw, _)) in enumerate(zip(got_chunks, want_chunks)):
+        if not np.array_equal(m, mw) or k != kw:
+            raise AssertionError(f"15 grouped_spread chunk {c}: m or stream key differs")
+    chunks = sum(c["fused_chunks.spread"] for _, _, _, c in got)
+    if launches != chunks or len(events) != chunks:
+        raise AssertionError(f"15 grouped_spread: {launches} launches, {len(events)} timed, "
+                             f"for {chunks} fused chunks")
+    torch.cuda.synchronize()
+    kernel_ms = [a.elapsed_time(b) for a, b in events]
+    iterations = sum(c["chunk_iterations.spread"] for _, _, _, c in got)
+    n = got[0][1][2].shape[0]  # the padded node count the kernel walks
+    bound = _bound(iterations * n * GS_NODE_OPS // chunks,
+                   n * GS_NODE_BYTES + GS_GROUP * 8)
+    out = {
+        "shape": {"N": GS_NODES, "padded_N": n, "zones": 3, "max_skew": 5,
+                  "pods": len(pods), "batch": GS_BATCH, "group": GS_GROUP},
+        "exact": True, "max_abs_err": 0, "launches": launches, "chunks": chunks,
+        "iterations": iterations, "iterations_per_chunk": iterations / chunks,
+        "waterfill_iterations": sum(c["waterfill_iterations"] for _, _, _, c in got),
+        "ms": float(np.median([ms for _, _, ms in got_chunks])),
+        "plain_ms": float(np.median([ms for _, _, ms in want_chunks])),
+        "device_ms": float(np.median(kernel_ms)),
+        "device_us_per_iteration": 1e3 * sum(kernel_ms) / iterations,
+        **bound,
+        "bound_note": "bytes and a lower bound of operations; the kernel is bound by "
+                      "latency, its chain of block-wide barriers an iteration",
+    }
+    log("grouped_spread 15 " + json.dumps(out))
+    return out
+
+
+def grouped_spread_record(grouped, check):
+    """The kernels line's record of the fused spread loop: 15's check and
+    times, and its launches on the random-mode paths, each count set to 0
+    just before its path and read just after. Raises when the grouped
+    spread run launched it not at all."""
+    by_path = {f"grouped {k}": r["grouped_spread_launches"] for k, r in grouped.items()
+               if r["grouped_spread_launches"]}
+    if not by_path.get("grouped spread/random"):
+        raise AssertionError(f"grouped_spread: the grouped spread run launched it not at all "
+                             f"({by_path})")
+    by_path["spread5k shape 15"] = check["launches"]
+    return {
+        "name": "grouped_spread", "route": "cuda",
+        "source": "kubernetes_tpu_torch/csrc/grouped_spread.cu",
+        "replaces": "kubernetes_tpu/solver/exact.py:999",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "library_ms": None, "library": "none: no library call computes the loop",
+        **{k: v for k, v in check.items() if k != "launches"},
+    }
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU")
@@ -4611,6 +4816,7 @@ def main():
     k3 = [make_kind_pod("anti", i) for i in range(1024)]
     kind3 = tensorize(nodes, k3, {}, ResourceVocab.build(k3, nodes))[5]
     cases, sweep, ran = kernel_checks(dev, interpod, kind2, kind3)
+    gs_check = grouped_spread_check(dev)
     reduced = reduced_depth(dev)
     full = full_width(dev)
     grouped, spread_first = {}, None
@@ -4723,7 +4929,8 @@ def main():
         "cluster_sweep": sweep,
         "paths_and_cluster_sizes_run": sorted(ran),
     }
-    records = [record] + threefry_records(grouped, sched, p13, p14)
+    records = [record] + threefry_records(grouped, sched, p13, p14) + [
+        grouped_spread_record(grouped, gs_check)]
     log(json.dumps({"kernels": records}))
     log(json.dumps({
         "full_width": {k: full[k] for k in ("wall_s", "pods_per_s", "placed")},

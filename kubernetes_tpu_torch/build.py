@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by ``nvcc``
+Each ``csrc/<name>.cu`` has a plain C interface (its shared device
+functions are ``csrc/*.cuh`` headers). It is compiled by ``nvcc``
 for ``sm_90a`` into ``BUILD_DIR/lib<name>-<hash>.so``, where ``<hash>`` is
 taken from the source and the flags: an edited source builds anew, an
 unchanged one is loaded as it is. ``BUILD_DIR`` is fixed for the process by
@@ -76,9 +77,11 @@ def build_dir() -> Path:
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is, or would be, built: it
-    needs the source, not the compiler."""
+    needs the source, not the compiler. The hash takes the headers beside
+    the source too (``csrc/*.cuh``), so an edited header builds anew."""
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    h = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

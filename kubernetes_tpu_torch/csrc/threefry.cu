@@ -42,69 +42,19 @@
 // below both of the card's rates at the solver's widths, so the launch sets
 // its time (PERF.md has the measured times beside the bound).
 //
+// The hash, the key chain and the bits a draw maps are threefry.cuh's device
+// functions, which grouped_spread.cu shares.
+//
 // The kernels allocate nothing and never synchronise the device; they launch
 // on the stream they are given.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "threefry.cuh"
 
 namespace {
 
+using namespace threefry;
+
 constexpr int kThreads = 256;
-
-struct Key {
-  uint32_t k0, k1;
-};
-
-__device__ __forceinline__ int rotation(int group, int i) {
-  return (group & 1) ? (i == 0 ? 17 : i == 1 ? 29 : i == 2 ? 16 : 24)
-                     : (i == 0 ? 13 : i == 1 ? 15 : i == 2 ? 26 : 6);
-}
-
-// Threefry-2x32-20: five groups of four rounds, a key injection after each.
-__device__ __forceinline__ Key threefry(Key k, uint32_t x0, uint32_t x1) {
-  const uint32_t ks[3] = {k.k0, k.k1, k.k0 ^ k.k1 ^ 0x1BD11BDAu};
-  x0 += k.k0;
-  x1 += k.k1;
-#pragma unroll
-  for (int g = 0; g < 5; ++g) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x0 += x1;
-      x1 = __funnelshift_l(x1, x1, rotation(g, i));
-      x1 ^= x0;
-    }
-    x0 += ks[(g + 1) % 3];
-    x1 += ks[(g + 2) % 3] + static_cast<uint32_t>(g + 1);
-  }
-  return {x0, x1};
-}
-
-__device__ __forceinline__ Key next_key(Key k) { return threefry(k, 0u, 0u); }
-__device__ __forceinline__ Key sub_key(Key k) { return threefry(k, 0u, 1u); }
-
-__device__ __forceinline__ Key hash_at(Key k, uint64_t i) {
-  return threefry(k, static_cast<uint32_t>(i >> 32), static_cast<uint32_t>(i));
-}
-
-__device__ __forceinline__ uint64_t bits64(Key k, uint64_t i) {
-  const Key b = hash_at(k, i);
-  return (static_cast<uint64_t>(b.k0) << 32) | b.k1;
-}
-
-__device__ __forceinline__ uint32_t bits32(Key k, uint64_t i) {
-  const Key b = hash_at(k, i);
-  return b.k0 ^ b.k1;
-}
-
-__device__ __forceinline__ Key load_key(const int64_t* w) {
-  return {static_cast<uint32_t>(w[0]), static_cast<uint32_t>(w[1])};
-}
-
-__device__ __forceinline__ void store_key(int64_t* w, Key k) {
-  w[0] = k.k0;
-  w[1] = k.k1;
-}
 
 __global__ void scan_draw_kernel(int64_t* state, int cur, const int64_t* n_ties,
                                  int64_t* rank, long long skip, const int64_t* skip_at) {

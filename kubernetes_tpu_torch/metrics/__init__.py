@@ -881,7 +881,7 @@ extender_request_seconds = Histogram(
 kernel_launches_total = Counter(
     "scheduler_kernel_launches_total",
     "Hand-written kernel launches, by kernel (domain_counts|"
-    "threefry_scan|threefry_grouped), folded once per batch from the "
+    "threefry_scan|threefry_grouped|grouped_spread), folded once per batch from the "
     "launch sites' cells by the per-stage profiler.",
     ["kernel"],
     registry=REGISTRY,
@@ -966,6 +966,14 @@ solve_grouped_graph_captures_total = Counter(
     ["kind"],
     registry=REGISTRY,
 )
+solve_fused_chunks_total = Counter(
+    "scheduler_solve_fused_chunks_total",
+    "Grouped-path chunks whose whole random loop the exact solver ran in "
+    "one launch of the fused kernel, by chunk kind (spread; of "
+    "scheduler_solve_chunks_total).",
+    ["kind"],
+    registry=REGISTRY,
+)
 mesh_combines_total = Counter(
     "scheduler_mesh_combines_total",
     "Cross-shard combines of the node-axis mesh's lockstep solves.",
@@ -997,6 +1005,7 @@ PORT_SERIES = (
     solve_waterfill_iterations_total,
     solve_grouped_graph_replays_total,
     solve_grouped_graph_captures_total,
+    solve_fused_chunks_total,
     mesh_combines_total,
     mesh_combine_seconds_total,
     gc_collections_total,

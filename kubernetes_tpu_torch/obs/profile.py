@@ -111,6 +111,7 @@ _DELTA_READERS = {
     "launches.domain_counts": _global("ops.domain_counts", "LAUNCHES"),
     "launches.threefry_scan": _global("ops.threefry", "SCAN_LAUNCHES"),
     "launches.threefry_grouped": _global("ops.threefry", "GROUPED_LAUNCHES"),
+    "launches.grouped_spread": _global("ops.grouped_spread", "LAUNCHES"),
     "combines": _global("parallel.sharding", "COMBINES"),
     "combine_s": _global("parallel.sharding", "COMBINE_S"),
     **{f"card_reads.{s}": (lambda s=s: timing.COUNTS[s]) for s in timing.SITES},
@@ -185,6 +186,8 @@ class StageProfiler:
         # add() calls between two commits belong to the batch closing)
         self._pending: dict[str, float] = {}
         self._pending_counts = dict.fromkeys(timing.COUNT_SERIES, 0)
+        # solve counts the card still holds (timing.DeferredCounts)
+        self._deferred: list = []
         self._totals = {s: 0.0 for s in ALL_STAGES}
         self._counters = {k: r() for k, r in _DELTA_READERS.items()}
         self._last_t: float | None = None
@@ -220,6 +223,20 @@ class StageProfiler:
         pending = self._pending_counts
         for k, v in times.counts.items():
             pending[k] += v
+        self._deferred.extend(times.deferred)
+
+    def _fold_deferred(self) -> None:
+        """Adds the deferred solve counts the card has written to the
+        batch in flight; the others wait for a later batch (a batch's own
+        have been written once its assignments were read)."""
+        waiting = []
+        for d in self._deferred:
+            if d.ready():
+                for k, v in d.values().items():
+                    self._pending_counts[k] += v
+            else:
+                waiting.append(d)
+        self._deferred = waiting
 
     def enqueue(self, seconds: float) -> None:
         """One watch event's handling."""
@@ -240,6 +257,7 @@ class StageProfiler:
         self._pending["gc"] = process[2] - last[2]
         stages = {s: self._pending.get(s, 0.0) for s in ALL_STAGES}
         self._pending.clear()
+        self._fold_deferred()
         deltas = dict(self._pending_counts, events=process[1] - last[1])
         for g in range(3):
             deltas[f"gc_runs.{g}"] = process[3][g] - last[3][g]

@@ -51,7 +51,11 @@ On the card, unsharded and with no nominated pods, the scan's steps replay
 CUDA graphs of the step, one graph launch a pod, and in random mode the
 iterations of a spread or anti chunk's loop replay graphs of the iteration
 (``solver/graphs.py``); everywhere else, and for a signature too rare to
-repay a capture, the step or iteration runs eagerly as written here.
+repay a capture, the step or iteration runs eagerly as written here. A
+spread chunk's whole random loop there (LeastAllocated or MostAllocated
+scoring) is one launch of the fused kernel instead
+(``ops/grouped_spread.py``), whose iteration counts the call reads when
+the card has written them (``timing.SolveTimes.deferred``).
 
 ``capture_hook`` (set by the Scheduler's flight telemetry) receives each
 solve's resolved inputs before the key is derived from the solve count,
@@ -72,6 +76,7 @@ import torch
 
 from .. import device as device_mod
 from .. import metrics
+from ..ops import grouped_spread as gs
 from ..ops import interpod as ip
 from ..ops import noderesources as nr
 from ..ops import plugins as pl
@@ -1134,12 +1139,18 @@ class _Run:
         for name, v in plan.counts.items():
             counts[name] += v
         group, kw = self.group, self.kw
+        fit_scorer = _fit_scorer(kw["scoring_strategy"], kw["rtc_shape"])
+        # the spread chunks' fused loops count their iterations on the card
+        fused = None
+        if plan.counts.get("chunks.spread") and gs.engages(self.dev, k, self.tie_break,
+                                                           fit_scorer):
+            fused = torch.zeros(2, dtype=torch.int64, device=self.dev)
         fast_kw = dict(
-            group=group, tie_break=self.tie_break, stream=stream,
-            fit_scorer=_fit_scorer(kw["scoring_strategy"], kw["rtc_shape"]),
+            group=group, tie_break=self.tie_break, stream=stream, fit_scorer=fit_scorer,
             fdtype=kw["fdtype"], w_fit=kw["w_fit"], w_balanced=kw["w_balanced"],
             w_taint=kw["w_taint"], w_nodeaff=kw["w_nodeaff"], w_image=kw["w_image"],
             use_extra=kw["use_extra_score"], read_placed=self.read_placed, graphs=gp_pass,
+            fused=fused,
         )
         for kind, at, row, owed, n in plan.items:
             if stream is not None:
@@ -1155,6 +1166,8 @@ class _Run:
             if self.tie_break != TIE_RANDOM:
                 counts["grouped_iterations"] += n  # one pod an iteration, no read
             mode = {gp.KIND_PLAIN: None, gp.KIND_SPREAD: "spread", gp.KIND_ANTI: "anti"}[kind]
+            if fused is not None and mode == "spread":
+                counts["fused_chunks.spread"] += 1
             xr = self.xs.row(row)
             h = self.xs.host_row(row)
             out = sh.lockstep(
@@ -1169,3 +1182,6 @@ class _Run:
                 shard_packed[s]["i32"] += xr[s]["take32"][:, None] * m[None, :]
         if stream is not None:
             stream.pending += plan.tail
+        if fused is not None:
+            self.times.defer(fused, (("grouped_iterations", "chunk_iterations.spread"),
+                                     ("waterfill_iterations",)))

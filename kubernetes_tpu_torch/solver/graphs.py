@@ -71,6 +71,7 @@ import numpy as np
 import torch
 
 from ..ops import domain_counts as dc
+from ..ops import grouped_spread as gs
 from ..ops import threefry as tf
 from ..parallel import sharding as sh
 from . import grouped as gp
@@ -177,11 +178,21 @@ def _own_launches(tables: dict) -> dict:
     return t
 
 
+def _add_launches(deltas) -> None:
+    """Adds ``deltas`` (in ``timing.KERNELS`` order) to the hand-written
+    kernels' launch cells."""
+    n_dc, n_scan, n_grouped, n_fused = deltas
+    dc.LAUNCHES += n_dc
+    tf.SCAN_LAUNCHES += n_scan
+    tf.GROUPED_LAUNCHES += n_grouped
+    gs.LAUNCHES += n_fused
+
+
 class _Graph:
     """A captured step or quota iteration: the graph, what it reads that
     must live as long as it does (the tables whose prepared launches it
     captured, or the kept loop), its launches of the hand-written kernels
-    (domain_counts, threefry_scan or threefry_grouped), and an iteration's
+    (in ``timing.KERNELS`` order), and an iteration's
     exit row (``out[-1]``) and the stream's key slot after it."""
 
     __slots__ = ("graph", "keep", "launches", "out", "cur")
@@ -194,10 +205,7 @@ class _Graph:
         """One launch of the graph, its hand-written kernels' launches
         counted."""
         self.graph.replay()
-        n_dc, n_scan, n_grouped = self.launches
-        dc.LAUNCHES += n_dc
-        tf.SCAN_LAUNCHES += n_scan
-        tf.GROUPED_LAUNCHES += n_grouped
+        _add_launches(self.launches)
 
 
 class _Buffers:
@@ -281,11 +289,9 @@ class StepGraphs:
         replays: a capture launches nothing."""
         before = launch_counts()
         graph = self.capture(fn)
-        n_dc, n_scan, n_grouped = (b - a for a, b in zip(before, launch_counts()))
-        dc.LAUNCHES -= n_dc
-        tf.SCAN_LAUNCHES -= n_scan
-        tf.GROUPED_LAUNCHES -= n_grouped
-        return _Graph(graph, keep, (n_dc, n_scan, n_grouped), out)
+        launches = tuple(b - a for a, b in zip(before, launch_counts()))
+        _add_launches(tuple(-x for x in launches))
+        return _Graph(graph, keep, launches, out)
 
     def _record(self, graph, fn) -> None:
         with torch.cuda.stream(self._side):

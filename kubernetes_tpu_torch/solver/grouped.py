@@ -36,6 +36,12 @@ bit. Its water-fill branch (spread mode) is a data-dependent choice in
 the JAX package (``lax.cond``); here both branches run and
 ``torch.where`` keeps one, so the iteration still reads the card once.
 
+On the card (one shard, random mode, LeastAllocated or MostAllocated
+scoring) a spread chunk's whole random loop runs in one launch of the
+fused kernel instead (``ops/grouped_spread.py``, ``_fused_spread``): the
+same iterations on the same inputs, the exit test on the card, no read
+per iteration; the CPU and every other chunk keep the loop below.
+
 Each iteration of a spread or anti chunk aggregates the per-node counts
 by domain through one launch of the ``domain_counts`` kernel: the counts
 ``base + m`` (spread) or ``base + (v_in + v_ex) * m`` (anti) are written
@@ -70,6 +76,7 @@ import numpy as np
 import torch
 
 from ..ops import domain_counts as dc
+from ..ops import grouped_spread as gs
 from ..ops import noderesources as nr
 from ..ops import plugins as pl
 from ..parallel import sharding as sh
@@ -354,6 +361,18 @@ def _global_order(group: int):
     return fn
 
 
+def _static_row(tables, cls: int, w_image: int, use_extra: bool):
+    """The class's static score row (ImageLocality and the extra scores,
+    int32 [N]) that every frontier score adds, or None."""
+    static_row = None
+    if w_image:
+        static_row = w_image * tables["image_score"][cls]
+    if use_extra:
+        extra = tables["extra_score"][cls]
+        static_row = extra if static_row is None else static_row + extra
+    return static_row
+
+
 class _Loop:
     """One fast chunk's loop on one shard: the buffers it reads and writes,
     and its iterations. A chunk runs on a loop of its own, which takes the
@@ -385,13 +404,7 @@ class _Loop:
         self.w_fit, self.w_balanced, self.w_taint, self.w_nodeaff = (
             w_fit, w_balanced, w_taint, w_nodeaff)
         cls = int(h["class_of"])
-        static_row = None
-        if w_image:
-            static_row = w_image * tables["image_score"][cls]
-        if use_extra:
-            extra = tables["extra_score"][cls]
-            static_row = extra if static_row is None else static_row + extra
-        self.static_row = static_row
+        self.static_row = _static_row(tables, cls, w_image, use_extra)
         self.taint_row = tables["taint_cnt"][cls]
         self.nodeaff_row = tables["nodeaff_pref"][cls]
         self.model = _DomainModel(mode, tables, h, group) if mode is not None else None
@@ -590,7 +603,7 @@ class _Loop:
 def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
                stream, fit_scorer, fdtype, w_fit: int, w_balanced: int,
                w_taint: int, w_nodeaff: int, w_image: int, use_extra: bool,
-               read_placed, graphs=None):
+               read_placed, graphs=None, fused=None):
     """Places ``vcnt`` identical pods (the chunk's representative rows:
     ``x`` on the device, ``h`` on the host) and returns (assignments
     [group] int64, per-node placements ``m`` [N] int32). ``mode``: None
@@ -603,7 +616,10 @@ def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
     iteration's water-fill flag). ``graphs``: the call's graph pass on one
     card (``solver/graphs.py``), or None; a spread or anti chunk's random
     loop then runs on the pass's kept loop, and its iterations replay
-    CUDA graphs where they engage."""
+    CUDA graphs where they engage. ``fused``: the call's device row of
+    the fused spread loops' counts where they engage
+    (``ops/grouped_spread.py`` ``engages``), or None; a spread chunk then
+    runs its whole random loop in one launch of that kernel."""
     alloc = tables["alloc"]
     req = x["req"]
     # ktpu: ignore[TPU001]: h is the pod's host row (_PodRows.host_row); no card value is read
@@ -636,6 +652,10 @@ def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
 
     score = dict(fit_scorer=fit_scorer, fdtype=fdtype, w_fit=w_fit, w_balanced=w_balanced,
                  w_taint=w_taint, w_nodeaff=w_nodeaff, w_image=w_image, use_extra=use_extra)
+    if mode == "spread" and fused is not None:
+        return _fused_spread(tables, st, x, cls, cap, vcnt, group, stream, fused,
+                             fit_scorer=fit_scorer, fdtype=fdtype, w_fit=w_fit,
+                             w_balanced=w_balanced, w_image=w_image, use_extra=use_extra)
     kept = graphs is not None and tie_break == "random" and mode is not None
     if kept:
         key = iteration_key(mode, tables, cls, h)
@@ -655,6 +675,32 @@ def fast_chunk(mode, tables, st, x, h, vcnt: int, *, group: int, tie_break: str,
         # the loop's exit test: one read per iteration
         placed_h = yield read_placed, exit_row
     return loop.asg, loop.m
+
+
+def _fused_spread(tables, st, x, cls: int, cap, vcnt: int, group: int, stream, counts, *,
+                  fit_scorer, fdtype, w_fit: int, w_balanced: int, w_image: int,
+                  use_extra: bool):
+    """A spread chunk (of class ``cls``) placed by its random loop in one
+    launch of the fused kernel (``ops/grouped_spread.py``): (assignments
+    [group] int64, per-node placements ``m`` [N] int32), as the eager loop
+    returns them; the chunk's iterations and kept water-fills go to the
+    device row ``counts``."""
+    spr = tables["spr"]
+    # the constraint row and its maxSkew and present domains: host numpy
+    j = max(spr["hard"][cls, 0], 0)
+    n = cap.shape[0]
+    m = torch.empty(n, dtype=torch.int32, device=cap.device)
+    asg = torch.empty(group, dtype=torch.int64, device=cap.device)
+    gs.spread_loop(
+        stream, vcnt=vcnt, group=group, skew=spr["max_skew"][j],
+        d_present=spr["present_host"][j].sum(), cap=cap, base=st["spr_cnt"][j],
+        counted_dom=spr["counted_dom"][j], dom=spr["dom"][j],
+        hk=spr["hk"][j], present=spr["present"][j], alloc=tables["alloc"],
+        nonzero_used=st["nonzero_used"], nz=x["nonzero_req"], fit_weights=tables["fit_weights"],
+        static_row=_static_row(tables, cls, w_image, use_extra), fit_scorer=fit_scorer,
+        fdtype=fdtype, w_fit=w_fit, w_balanced=w_balanced, m=m, asg=asg, counts=counts,
+    )
+    return asg, m
 
 
 def _winner_accept(model, m, cap, extra_ok, quota_d, f_now, best, eligible, ec, rb):

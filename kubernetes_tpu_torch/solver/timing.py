@@ -21,8 +21,15 @@ steps and the grouped loop's iterations, the scan steps' CUDA graph
 replays and captures (``solver/graphs.py``), the grouped path's chunks
 that held a valid pod, their pods and their loop's iterations by chunk
 kind (``CHUNK_KINDS``), the spread iterations that kept the water-fill,
-and the quota iterations' graph replays and captures (``QUOTA_KINDS``).
+the quota iterations' graph replays and captures (``QUOTA_KINDS``), and
+the chunks whose whole loop ran in one fused launch (``FUSED_KINDS``).
 A new count is its increment, its entry and, if it needs one, its series.
+
+A fused loop counts its iterations and kept water-fills on the card, in a
+device row per call; ``deferred`` holds the call's rows, each copied into
+pinned memory without waiting for the card (``DeferredCounts``). The
+StageProfiler adds them to its batch ledger once the card has written them,
+which it has by the time the batch's assignments have been read.
 
 With a Tracer set (the Scheduler's, when its spans are on) each
 sub-stage is also a span of the same name, ``card_read`` carrying its
@@ -54,8 +61,11 @@ CHUNK_KINDS = ("slow", "plain", "spread", "anti")
 FAST_KINDS = CHUNK_KINDS[1:]
 # the fast kinds whose random loop replays graphs of its iterations
 QUOTA_KINDS = CHUNK_KINDS[2:]
+# the fast kinds whose whole random loop may run in one fused launch
+# (ops/grouped_spread.py)
+FUSED_KINDS = ("spread",)
 SITES = ("grouped", "relax", "auction", "evaluate", "preemption")
-KERNELS = ("domain_counts", "threefry_scan", "threefry_grouped")
+KERNELS = ("domain_counts", "threefry_scan", "threefry_grouped", "grouped_spread")
 
 # each solve count's ledger key -> the registry series (an attribute of
 # ``metrics``) and label (None: unlabelled) its per-batch delta advances;
@@ -73,6 +83,7 @@ COUNT_SERIES = {
        for k in QUOTA_KINDS},
     **{f"grouped_graph_captures.{k}": ("solve_grouped_graph_captures_total", k)
        for k in QUOTA_KINDS},
+    **{f"fused_chunks.{k}": ("solve_fused_chunks_total", k) for k in FUSED_KINDS},
 }
 
 COUNTS = dict.fromkeys(SITES, 0)
@@ -86,12 +97,51 @@ def note(site: str, t0: float) -> None:
     COUNTS[site] += 1
 
 
-def launch_counts() -> tuple[int, int, int]:
+def launch_counts() -> tuple[int, int, int, int]:
     """The kernel launch cells, in ``KERNELS`` order."""
     from ..ops import domain_counts as dc
+    from ..ops import grouped_spread as gs
     from ..ops import threefry as tf
 
-    return dc.LAUNCHES, tf.SCAN_LAUNCHES, tf.GROUPED_LAUNCHES
+    return dc.LAUNCHES, tf.SCAN_LAUNCHES, tf.GROUPED_LAUNCHES, gs.LAUNCHES
+
+
+class DeferredCounts:
+    """Counts that the card holds at the end of a call: the int64 device
+    row ``row``, whose position i adds to each count that ``keys[i]``
+    names. The row is copied into pinned memory now, behind the work that
+    writes it, without waiting for the card (a row on the CPU is copied
+    as it is)."""
+
+    __slots__ = ("keys", "host", "event")
+
+    def __init__(self, row, keys: tuple) -> None:
+        import torch
+
+        self.keys = keys
+        self.event = None
+        if not row.is_cuda:
+            self.host = row.clone()
+            return
+        self.host = torch.empty(row.shape, dtype=row.dtype, pin_memory=True)
+        self.host.copy_(row, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record()
+
+    def ready(self) -> bool:
+        """Whether the card has written the row (does not wait)."""
+        return self.event is None or self.event.query()
+
+    def values(self) -> dict:
+        """The counts by key; waits for the card if it has not written the
+        row yet."""
+        if self.event is not None:
+            self.event.synchronize()
+        out: dict = {}
+        for v, names in zip(self.host.tolist(), self.keys):
+            for k in names:
+                out[k] = out.get(k, 0) + int(v)
+        return out
 
 
 class _NoSpan:
@@ -160,7 +210,13 @@ class SolveTimes:
         """Zero the account for a new solve call."""
         self.seconds = dict.fromkeys(SOLVE_STAGES, 0.0)
         self.counts = dict.fromkeys(COUNT_SERIES, 0)
+        self.deferred: list[DeferredCounts] = []
         self.card_reads = 0
+
+    def defer(self, row, keys: tuple) -> None:
+        """Counts of the call that the card holds in ``row`` (see
+        ``DeferredCounts``)."""
+        self.deferred.append(DeferredCounts(row, keys))
 
     def stage(self, name: str) -> _Stage:
         return _Stage(self, name, {})

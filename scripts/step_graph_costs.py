@@ -1,8 +1,8 @@
 """What the exact solver's CUDA graphs cost and save on one GPU: the scan
 step's, or the grouped random loop's quota iterations'.
 
-    python3 scripts/step_graph_costs.py --out FILE [--shape interpod5k|spread5k]
-        [--nodes N] [--pods P]
+    python3 scripts/step_graph_costs.py --out FILE
+        [--shape interpod5k|spread5k|spread5k_hostname] [--nodes N] [--pods P]
 
 ``interpod5k`` (the default; 5,120 nodes, 1,024 pods): chip_smoke's mixed
 InterPodAffinity workload, hostPort, hard zone spread, required hostname
@@ -11,6 +11,9 @@ unit is a scan step. ``spread5k`` (5,000 nodes, 1,024 pods): the benchmark
 configuration's nodes (4 CPU, 32Gi, 110 pods, 3 zones) and its pods (one
 hard zone spread at maxSkew 5 over their own label, 100m / 500Mi), 16
 spread chunks of 64 pods; the unit is a spread chunk's loop iteration.
+``spread5k_hostname``: the same with the constraint on
+kubernetes.io/hostname at maxSkew 1, a domain a node (the fused loop's
+arrays then live in its device workspace).
 Random tie-break, BalancedAllocation in float64, session solves of one
 batch on one solver:
 
@@ -23,10 +26,15 @@ batch on one solver:
   solve, after a synchronize);
 - ``threshold``: capture seconds over the eager unit's issue seconds, the
   number of eager units a capture costs (``graphs.MIN_STEPS`` or
-  ``graphs.MIN_ITERATIONS``).
+  ``graphs.MIN_ITERATIONS``);
+- ``fused`` (the spread shapes only): the spread chunks' fused loop
+  (``ops/grouped_spread.py``), which the other arms turn off: a warm-up
+  solve, then a measured one: the issue seconds and the kernel's device
+  seconds (CUDA events around each launch) per chunk and per iteration,
+  beside the replayed iteration it replaces.
 
-The assignments of the two solvers' measured solves must be equal. Writes
-one JSON object to FILE and prints it, with the card's name and power limit.
+The assignments of the measured solves must be equal. Writes one JSON
+object to FILE and prints it, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -52,11 +60,12 @@ def _smi() -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", required=True)
-    ap.add_argument("--shape", choices=("interpod5k", "spread5k"), default="interpod5k")
+    ap.add_argument("--shape", choices=("interpod5k", "spread5k", "spread5k_hostname"),
+                    default="interpod5k")
     ap.add_argument("--nodes", type=int, default=None)
     ap.add_argument("--pods", type=int, default=1024)
     args = ap.parse_args()
-    spread = args.shape == "spread5k"
+    spread = args.shape.startswith("spread5k")
     if args.nodes is None:
         args.nodes = 5000 if spread else 5120
     sys.path.insert(0, ROOT)
@@ -68,6 +77,7 @@ def main() -> int:
         return 2
     import chip_smoke as cs
     from kubernetes_tpu_torch.api.wrappers import MakeNode, MakePod
+    from kubernetes_tpu_torch.ops import grouped_spread as gs
     from kubernetes_tpu_torch.solver import graphs as sg
     from kubernetes_tpu_torch.solver import timing
     from kubernetes_tpu_torch.solver.exact import ExactSolver, ExactSolverConfig
@@ -75,13 +85,14 @@ def main() -> int:
 
     dev = torch.device("cuda")
     if spread:
+        key, skew = (cs.HOST, 1) if args.shape == "spread5k_hostname" else (cs.ZONE, 5)
         nodes = [MakeNode().name(f"node-{i:05}")
                  .capacity({"cpu": "4", "memory": "32Gi", "pods": "110"})
                  .label(cs.ZONE, f"z{i % 3}").label(cs.HOST, f"node-{i:05}").obj()
                  for i in range(args.nodes)]
         pods = [MakePod().name(f"pod-{i:05}").label("foo", "bar")
                 .req({"cpu": "100m", "memory": "500Mi"})
-                .spread_constraint(5, cs.ZONE, "DoNotSchedule", {"foo": "bar"}).obj()
+                .spread_constraint(skew, key, "DoNotSchedule", {"foo": "bar"}).obj()
                 for i in range(args.pods)]
     else:
         nodes = cs.make_nodes(args.nodes)
@@ -92,7 +103,9 @@ def main() -> int:
         """(units, replayed, captured) of the last solve: scan steps, or
         the spread chunks' loop iterations."""
         if spread:
-            return (tm.counts["chunk_iterations.spread"],
+            # the fused loops' iterations: in the call's deferred device rows
+            deferred = sum(d.values().get("chunk_iterations.spread", 0) for d in tm.deferred)
+            return (tm.counts["chunk_iterations.spread"] + deferred,
                     sum(tm.counts[f"grouped_graph_replays.{k}"] for k in timing.QUOTA_KINDS),
                     sum(tm.counts[f"grouped_graph_captures.{k}"] for k in timing.QUOTA_KINDS))
         return tm.counts["scan_steps"], tm.counts["graph_replays"], tm.counts["graph_captures"]
@@ -115,6 +128,9 @@ def main() -> int:
                    "issue_s": tm.seconds["issue"], "card_read_s": tm.seconds["card_read"],
                    "units": n, "replays": replays, "captures": captures}
 
+    # the graphs' arms measure the iterations the fused loop would take
+    fused_on = gs.engages
+    gs.engages = lambda *a: False
     real = sg.engages
     sg.engages = lambda *a: False
     try:
@@ -141,15 +157,49 @@ def main() -> int:
         a_graph, g = solve(solver)
     finally:
         sg.StepGraphs.capture = orig
+        gs.engages = fused_on
     if not np.array_equal(a_graph, a_eager):
         raise AssertionError("graphs: the replayed solve differs from the eager one")
     g["issue_us_per_unit"] = 1e6 * g["issue_s"] / g["units"]
     g["card_us_per_unit"] = 1e6 * g["card_s"] / g["units"]
+
+    fused = None
+    if spread:
+        launches = []
+        loop = gs.spread_loop
+
+        def timed_loop(stream, **kw):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            loop(stream, **kw)
+            b.record()
+            launches.append((a, b))
+
+        gs.spread_loop = timed_loop
+        try:
+            solver = ExactSolver(cfg)
+            solve(solver)  # warm-up
+            launches.clear()
+            a_fused, fused = solve(solver)
+        finally:
+            gs.spread_loop = loop
+        if not np.array_equal(a_fused, a_eager):
+            raise AssertionError("fused: the fused solve differs from the eager one")
+        chunks = solver.times.counts["fused_chunks.spread"]
+        kernel_s = sum(a.elapsed_time(b) for a, b in launches) / 1e3
+        fused.update(
+            chunks=chunks, launches=len(launches), kernel_s=kernel_s,
+            kernel_us_per_chunk=1e6 * kernel_s / chunks,
+            kernel_us_per_iteration=1e6 * kernel_s / fused["units"],
+            issue_us_per_chunk=1e6 * fused["issue_s"] / chunks,
+            issue_us_per_iteration=1e6 * fused["issue_s"] / fused["units"],
+            card_us_per_iteration=1e6 * fused["card_s"] / fused["units"],
+        )
     capture_s = statistics.median(captures)
     res = {
         "card": _smi(), "shape": args.shape, "nodes": args.nodes, "pods": args.pods,
         "unit": "spread iteration" if spread else "scan step",
-        "eager": e, "graphs_first_solve": first, "graphs": g,
+        "eager": e, "graphs_first_solve": first, "graphs": g, "fused": fused,
         "capture_s": captures,
         "threshold": {"capture_s_median": capture_s,
                       "eager_units_per_capture": capture_s / (e["issue_s"] / e["units"]),

@@ -467,14 +467,20 @@ def test_grouped_first_equals_scan_on_the_card(cuda_device, kind, want):
 @pytest.mark.parametrize("kind", ["plain", "spread", "anti"])
 def test_grouped_random_on_the_card(cuda_device, kind):
     """Random mode places every pod with the workload's invariants held,
-    one grouped draw launch per loop iteration or more, and the card
+    one grouped draw launch per loop iteration or more (a spread chunk:
+    one launch of the fused loop, ops/grouped_spread.py), and the card
     equals the CPU port bit for bit."""
+    from kubernetes_tpu_torch.ops import grouped_spread as gs
+
     nodes, _ = _cluster(300, 0)
     pods = _kind_pods(kind, 256)
     cfg = ExactSolverConfig(tie_break="random", seed=3)
-    before = tf.GROUPED_LAUNCHES
+    before = tf.GROUPED_LAUNCHES, gs.LAUNCHES
     a = ExactSolver(cfg).solve(*_tensorize(nodes, pods), device=cuda_device)
-    assert tf.GROUPED_LAUNCHES > before
+    if kind == "spread":
+        assert gs.LAUNCHES - before[1] == 4 and tf.GROUPED_LAUNCHES == before[0]
+    else:
+        assert tf.GROUPED_LAUNCHES > before[0]
     b = ExactSolver(cfg).solve(*_tensorize(nodes, pods), device="cpu")
     np.testing.assert_array_equal(a, b)
     assert (a >= 0).all()
@@ -1717,7 +1723,12 @@ def test_quota_graphs_equal_the_eager_loop_on_the_card(cuda_device, monkeypatch,
     the eager loop bit for bit: assignments, carried state, the stream's
     key after every chunk; the hand-written kernels' launch counts are the
     eager run's; the replays and the eager iterations add up to the
-    iterations, which equal the grouped card reads."""
+    iterations, which equal the grouped card reads. The spread chunks'
+    fused loop is off here (ops/grouped_spread.py), so that they iterate
+    through the graphs as a chunk it does not take does."""
+    from kubernetes_tpu_torch.ops import grouped_spread as gs
+
+    monkeypatch.setattr(gs, "engages", lambda *a: False)
     spec = QUOTA_GRAPH_CASES[case]
     want, want_keys, none, want_reads = _quota_graph_run(monkeypatch, cuda_device, spec, False)
     got, keys, outcomes, reads = _quota_graph_run(monkeypatch, cuda_device, spec, True)
