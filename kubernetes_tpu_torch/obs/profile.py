@@ -24,7 +24,7 @@ Stage taxonomy (one batch's life):
     apply         host: assume/reserve under the lock
     bind          host: commit to the state service (api round-trip)
 
-Six more stages overlap those seven, so the stage mix
+Seven more stages overlap those seven, so the stage mix
 (``stage_fraction``) leaves them out:
 
     upload        dispatch's uploads: the session's sync and heals, the
@@ -32,12 +32,14 @@ Six more stages overlap those seven, so the stage mix
     prepare       dispatch's host work before the run
     issue         dispatch's run: the scan's steps, the grouped chunks
     card_read     blocking card reads inside issue (lever 7)
+    capture       CUDA graph captures inside issue (solver/graphs.py)
     enqueue       the watch handler, every event (overlaps bind, whose
                   confirmations it handles)
     gc            the interpreter's collector pauses (overlap anything)
 
-The first four are the solver's own account of each call
-(``solver/timing.py``); dispatch less their sum is dispatch's self time.
+The first five are the solver's own account of each call
+(``solver/timing.py``); dispatch less upload, prepare and issue is
+dispatch's self time (card_read and capture are parts of issue).
 ``enqueue`` and ``gc`` are process-wide cells the profiler folds by
 delta at each batch. The ledger also carries the per-batch deltas of the
 program's bare counters (kernel launches, the mesh's combines, the card
@@ -45,7 +47,7 @@ reads by site) and of the solve counts the Scheduler hands over
 (``timing.COUNT_SERIES``), and advances their registry counters once per
 batch.
 
-Copied from ``kubernetes_tpu/obs/profile.py``; the six overlapping
+Copied from ``kubernetes_tpu/obs/profile.py``; the seven overlapping
 stages and the program's counters are the port's.
 """
 
@@ -69,7 +71,7 @@ STAGES = (
     "apply",
     "bind",
 )
-NESTED_STAGES = ("upload", "prepare", "issue", "card_read", "enqueue", "gc")
+NESTED_STAGES = ("upload", "prepare", "issue", "card_read", "capture", "enqueue", "gc")
 ALL_STAGES = STAGES + NESTED_STAGES
 
 

@@ -59,7 +59,9 @@ records has been loaded and launched once.
 Counters stay true: a capture (``StepGraphs.record``) launches nothing and
 counts nothing, each replay adds its hand-written kernels' launches to
 their cells (``timing.launch_counts``), and ``SolveTimes.counts`` counts
-the replays and captures.
+the replays and captures. Each capture, the step or iteration built and
+recorded and its graph instantiated, is timed as the solve's ``capture``
+sub-stage, a span carrying its kind when traced.
 """
 
 from __future__ import annotations
@@ -406,7 +408,8 @@ class _Pass:
                 return False
             if stream is not None:
                 stream.pending = 0  # the capture's draw owes only its row's splits
-            g = graphs.graphs[sig] = self._capture(sig)
+            with self.run.times.capture("scan"):
+                g = graphs.graphs[sig] = self._capture(sig)
             self.run.times.counts["graph_captures"] += 1
         if stream is not None:
             stream.pending = 0  # the replay pays them from the step table
@@ -466,7 +469,8 @@ class _Pass:
             if seen < MIN_ITERATIONS:
                 graphs.seen[sig] = seen + 1
                 return None
-            g = graphs.iterations[sig] = self._capture_iteration(loop, vcnt)
+            with self.run.times.capture(loop.mode):
+                g = graphs.iterations[sig] = self._capture_iteration(loop, vcnt)
             counts[f"grouped_graph_captures.{loop.mode}"] += 1
         g.replay()
         # what the captured draws left on the host: the split's key slot

@@ -14,6 +14,9 @@ in the order a solve runs them:
                ``_solve_chain``), one timer pair per call
     card_read  the blocking device-to-host reads inside the run (nested
                in ``issue``)
+    capture    the CUDA graph captures inside the run, of the scan's steps
+               and of the quota chunks' iterations (``solver/graphs.py``;
+               nested in ``issue``)
 
 Beside them it counts the card reads, and in ``counts`` the call's solve
 counts by their ledger keys, one entry of ``COUNT_SERIES`` each: the scan's
@@ -33,9 +36,10 @@ which it has by the time the batch's assignments have been read.
 
 With a Tracer set (the Scheduler's, when its spans are on) each
 sub-stage is also a span of the same name, ``card_read`` carrying its
-site; with a ``utils/tracing`` session on, a ``record_function`` range of
-the same name, so the operator's Chrome trace shows them against the
-kernels. Off, a sub-stage costs two clock reads.
+site and ``capture`` its kind (``scan``, or the quota chunk's kind); with
+a ``utils/tracing`` session on, a ``record_function`` range of the same
+name, so the operator's Chrome trace shows them against the kernels.
+Off, a sub-stage costs two clock reads.
 
 ``COUNTS`` / ``SECONDS`` are the process's hot-path cells of the blocking
 reads inside the solvers (ROADMAP speed lever 7), by site: the grouped
@@ -54,7 +58,7 @@ import time
 
 from ..utils import tracing
 
-SOLVE_STAGES = ("prepare", "upload", "issue", "card_read")
+SOLVE_STAGES = ("prepare", "upload", "issue", "card_read", "capture")
 # the grouped path's chunk kinds, indexed by solver/grouped.py's KIND_*
 # values; the fast kinds are the ones whose chunks run the grouped loop
 CHUNK_KINDS = ("slow", "plain", "spread", "anti")
@@ -220,6 +224,11 @@ class SolveTimes:
 
     def stage(self, name: str) -> _Stage:
         return _Stage(self, name, {})
+
+    def capture(self, kind: str) -> _Stage:
+        """The timed capture of a CUDA graph of ``kind``'s work: ``scan``
+        (a scan step) or a quota chunk's kind (an iteration)."""
+        return _Stage(self, "capture", {"kind": kind})
 
     def read(self, site: str, fn, parts):
         """``fn(parts)``, a lockstep combine that reads the card at

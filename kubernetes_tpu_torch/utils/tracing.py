@@ -2,9 +2,9 @@
 session (CPU and, on the card, CUDA activity) with one
 ``record_function`` range per batch of every loop (``schedule_batch``,
 ``run_pipelined``, ``run_streaming``) and one per solve sub-stage
-(``solver/timing.py``: prepare, upload, issue, card_read), plus the
-per-stage wall-time histograms the metrics module already exports under
-the reference's names.
+(``solver/timing.py``: prepare, upload, issue, card_read, capture), plus
+the per-stage wall-time histograms the metrics module already exports
+under the reference's names.
 
 Enable programmatically with ``enable(dir)`` (the same switch as the JAX
 package's ``utils/tracing.py``): the first annotated batch starts the

@@ -1757,3 +1757,39 @@ def test_quota_graphs_equal_the_eager_loop_on_the_card(cuda_device, monkeypatch,
     if case == "two_solves":
         assert counts[1]["grouped_graph_captures.spread"] == 0
         assert counts[1]["grouped_graph_replays.spread"] == counts[1]["chunk_iterations.spread"]
+
+
+@pytest.mark.parametrize("shape", ["scan", "anti"])
+def test_graph_captures_feed_the_capture_stage_on_the_card(cuda_device, shape):
+    """The card captures real CUDA graphs, of the scan's steps (one-off
+    pods, group 1) or of the anti chunks' iterations (hostname-anti pods,
+    group 16): each capture is the solve's ``capture`` sub-stage, whose
+    seconds the StageProfiler folds inside ``issue``, and a span, a child of
+    ``issue``, that carries its kind, one a capture the counts record."""
+    import json
+
+    from kubernetes_tpu_torch.obs import ObsConfig
+    from kubernetes_tpu_torch.scheduler import Scheduler, SchedulerConfig
+    from kubernetes_tpu_torch.state.cluster import ClusterState
+
+    cs = ClusterState()
+    cs.create_nodes(MakeNode().name(f"n{i:03}").capacity({"cpu": "8", "memory": "32Gi", "pods": "40"})
+                    .label(ZONE, f"z{i % 3}").label(HOST, f"n{i:03}").obj() for i in range(128))
+    for i in range(96):
+        b = MakePod().name(f"p{i:03}").label("app", shape).req({"cpu": "100m", "memory": "256Mi"})
+        cs.create_pod((b.pod_anti_affinity(HOST, {"app": shape}) if shape == "anti" else b).obj())
+    sched = Scheduler(cs, SchedulerConfig(
+        batch_size=96, obs=ObsConfig(profile=True, spans=True),
+        solver=ExactSolverConfig(tie_break="random", seed=5, group_size=1 if shape == "scan" else 16)),
+        device=cuda_device)
+    assert sum(len(r.scheduled) for r in sched.run_pipelined()) == 96
+    entries = sched.telemetry.profiler.snapshot()["recent"]
+    spans = [d for d in map(json.loads, sched.flight.lines()) if d.get("k") == "span"]
+    by_id = {s["span"]: s for s in spans}
+    captures = [s for s in spans if s["name"] == "capture"]
+    key = "graph_captures" if shape == "scan" else "grouped_graph_captures.anti"
+    want = sum(e[key] for e in entries)
+    assert want > 0 and len(captures) == want
+    assert all(s["attrs"]["kind"] == shape and by_id[s["parent"]]["name"] == "issue" for s in captures)
+    assert all(0.0 <= e["stages"]["capture"] <= e["stages"]["issue"] for e in entries)
+    assert sum(e["stages"]["capture"] for e in entries) > 0.0

@@ -1,9 +1,10 @@
 """The port's stages inside the program: the solve's sub-stages (prepare,
-upload, issue, card_read) as ExactSolver.solve times them and the Scheduler
-hands them to its StageProfiler; the watch handler's ``enqueue`` stage and
-the collector's ``gc`` stage; the program's bare counters folded once per
-batch into the registry; the spans' Unix-nanosecond stamps; and the
-``utils/tracing`` session's ranges. All on the CPU, the port alone."""
+upload, issue, card_read, capture) as ExactSolver.solve times them and the
+Scheduler hands them to its StageProfiler; the watch handler's ``enqueue``
+stage and the collector's ``gc`` stage; the program's bare counters folded
+once per batch into the registry; the spans' Unix-nanosecond stamps; and the
+``utils/tracing`` session's ranges. All on the CPU, the port alone (graph
+captures through an emulated capture)."""
 
 from __future__ import annotations
 
@@ -25,6 +26,9 @@ from kubernetes_tpu_torch.solver.exact import ExactSolverConfig
 from kubernetes_tpu_torch.state.cluster import ClusterState
 from kubernetes_tpu_torch.utils import tracing
 from kubernetes_tpu_torch.utils.clock import Clock, FakeClock
+
+from _torch_graph_emulation import HOST, ZONE, emulated  # noqa: F401 (a fixture)
+from _torch_graph_emulation import nodes as graph_nodes
 
 SUB = ("upload", "prepare", "issue")
 
@@ -79,6 +83,8 @@ def test_solve_sub_stages_fit_inside_dispatch(shape):
     steps = sum(e["scan_steps"] for e in entries)
     iterations = sum(e["grouped_iterations"] for e in entries)
     reads = sum(e["card_reads.grouped"] for e in entries)
+    # the CPU captures no graph
+    assert prof["stage_seconds"]["capture"] == 0.0
     if shape == "scan":
         assert steps == 48 and iterations == 0
         assert prof["stage_seconds"]["card_read"] == 0.0 and reads == 0
@@ -90,6 +96,65 @@ def test_solve_sub_stages_fit_inside_dispatch(shape):
     assert set(prof["stage_seconds"]) == set(ALL_STAGES)
     assert sum(prof["stage_fraction"].values()) == pytest.approx(1.0, abs=1e-3)
     assert set(prof["stage_fraction"]) == set(STAGES)
+
+
+def test_the_stage_sets():
+    assert STAGES == ("tensorize", "dispatch", "fence_wait", "deferred_read", "validate", "apply",
+                      "bind")
+    assert NESTED_STAGES == ("upload", "prepare", "issue", "card_read", "capture", "enqueue", "gc")
+    assert ALL_STAGES == STAGES + NESTED_STAGES
+    assert timing.SOLVE_STAGES == ("prepare", "upload", "issue", "card_read", "capture")
+
+
+# per shape: the solver's group size and the pods, and the captures' kinds
+# (the scan's steps; the quota chunks' iterations, on nodes of differing
+# sizes, so that a chunk takes several)
+CAPTURE_SHAPES = {
+    "scan": (1, lambda: _graph_pods(64, "plain"), ("scan",)),
+    "quota": (16, lambda: _graph_pods(96, "spread", "s") + _graph_pods(32, "anti", "a", cpu="2"),
+              timing.QUOTA_KINDS),
+}
+
+
+def _graph_pods(n, kind, prefix="p", cpu="100m"):
+    out = []
+    for i in range(n):
+        b = MakePod().name(f"{prefix}{i:04}").label("app", f"{prefix}-{kind}").req(
+            {"cpu": cpu, "memory": "256Mi"})
+        if kind == "spread":
+            b = b.spread_constraint(1, ZONE, "DoNotSchedule", {"app": f"{prefix}-{kind}"})
+        elif kind == "anti":
+            b = b.pod_anti_affinity(HOST, {"app": f"{prefix}-{kind}"})
+        out.append(b.obj())
+    return out
+
+
+@pytest.mark.parametrize("shape", sorted(CAPTURE_SHAPES))
+def test_a_captured_graph_advances_the_capture_stage_and_emits_its_span(emulated, shape):
+    """With graphs engaged (an emulated capture on the CPU), each capture is
+    the solve's ``capture`` sub-stage: its seconds reach the ledger inside
+    ``issue``, and its span, a child of ``issue``, carries its kind, one a
+    capture the counts record."""
+    group, pods, kinds = CAPTURE_SHAPES[shape]
+    cs = ClusterState()
+    cs.create_nodes(graph_nodes(48, cpu=8, memory="32Gi", pods=40, varied=shape == "quota"))
+    for p in pods():
+        cs.create_pod(p)
+    sched = _sched(cs, group=group, obs=ObsConfig(profile=True, spans=True), batch=64)
+    sched.run_pipelined()
+    entries = sched.telemetry.profiler.snapshot()["recent"]
+    spans = _spans(sched)
+    by_id = {s["span"]: s for s in spans}
+    captures = [s for s in spans if s["name"] == "capture"]
+    got = {k: sum(1 for s in captures if s["attrs"]["kind"] == k) for k in kinds}
+    want = {k: sum(e["graph_captures" if k == "scan" else f"grouped_graph_captures.{k}"]
+                   for e in entries) for k in kinds}
+    assert got == want and all(want.values()) and len(captures) == sum(want.values())
+    assert all(by_id[s["parent"]]["name"] == "issue" for s in captures)
+    assert all(e["stages"]["capture"] <= e["stages"]["issue"] for e in entries)
+    stage = sum(e["stages"]["capture"] for e in entries)
+    assert stage > 0.0
+    assert stage == pytest.approx(sum(s["dur"] for s in captures), rel=0.05, abs=1e-3)
 
 
 def test_every_watch_event_feeds_enqueue():
