@@ -292,6 +292,14 @@ Phases (a failure in any of them propagates and exits nonzero):
     both, the kernel's own time from CUDA events, and its bound. The
     kernels line lists it with its launches on 4b's random spread run and
     on 15, each count set to 0 just before its path and read just after.
+16. The fused scan step (``csrc/scan_step.cu`` through
+    ``ops/scan_step.py``), run right after phase 15: at interpod5k's shape
+    (5,120 nodes, two batches of 1,024 pods of its four kinds) the main
+    path against the torch step's graphs (the fused step off) on the same
+    inputs, exactly: every batch's assignments, node state and stream key.
+    The whole replayed step on both paths and the kernel's eager launches,
+    each timed by CUDA events behind a sleep of the card, and the kernel's
+    device time from the profiler; the kernels line lists its record.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -317,6 +325,7 @@ from kubernetes_tpu_torch.api.wrappers import MakeNode, MakePod  # noqa: E402
 from kubernetes_tpu_torch.ops import domain_counts as dc  # noqa: E402
 from kubernetes_tpu_torch.ops import grouped_spread as gs  # noqa: E402
 from kubernetes_tpu_torch.ops import prng  # noqa: E402
+from kubernetes_tpu_torch.ops import scan_step as ss  # noqa: E402
 from kubernetes_tpu_torch.ops import threefry as tf  # noqa: E402
 from kubernetes_tpu_torch.parallel import sharding as sh  # noqa: E402
 from kubernetes_tpu_torch.scheduler import Scheduler, SchedulerConfig  # noqa: E402
@@ -349,12 +358,14 @@ LANE_OPS_PER_S = 67e12
 
 
 def tf_reset():
-    """The threefry kernel's launch counts to 0 (both entry points)."""
-    tf.SCAN_LAUNCHES = tf.GROUPED_LAUNCHES = 0
+    """The launch counts of the kernels that draw the random stream to 0:
+    the threefry kernel's two entry points and the fused scan step."""
+    tf.SCAN_LAUNCHES = tf.GROUPED_LAUNCHES = ss.LAUNCHES = 0
 
 
 def tf_launches() -> dict:
-    return {"scan_draw": tf.SCAN_LAUNCHES, "grouped_draw": tf.GROUPED_LAUNCHES}
+    return {"scan_draw": tf.SCAN_LAUNCHES, "grouped_draw": tf.GROUPED_LAUNCHES,
+            "scan_step": ss.LAUNCHES}
 
 
 def log(*a):
@@ -810,7 +821,7 @@ def full_width(dev, n_nodes=5120, n_pods=5120, batch=1024):
     placed: dict[str, list] = {}
     where = {}
     tens_s, solve_s, first_interpod = [], [], None
-    dc.LAUNCHES = 0
+    dc.LAUNCHES = ss.LAUNCHES = 0
     t_start = time.perf_counter()
     for lo in range(0, n_pods, batch):
         bp = pods[lo : lo + batch]
@@ -830,7 +841,7 @@ def full_width(dev, n_nodes=5120, n_pods=5120, batch=1024):
                 placed.setdefault(nodes[s].name, []).append(bp[i])
                 where[lo + i] = int(s)
     wall = time.perf_counter() - t_start
-    launches = dc.LAUNCHES
+    launches, steps = dc.LAUNCHES, ss.LAUNCHES
 
     # invariants
     if len(where) != n_pods:
@@ -867,7 +878,7 @@ def full_width(dev, n_nodes=5120, n_pods=5120, batch=1024):
         "nodes": n_nodes, "pods": n_pods, "batch": batch, "placed": len(where),
         "wall_s": wall, "pods_per_s": n_pods / wall,
         "solve_s": solve_s, "tensorize_s": tens_s,
-        "domain_counts_launches": launches,
+        "domain_counts_launches": launches, "scan_step_launches": steps,
         "launches_per_step": launches / n_pods,
         "spread_zone_counts": zones.tolist(),
         "interpod_d_pad": first_interpod.d_pad,
@@ -1227,7 +1238,7 @@ def drain(sched, label, max_batches=10_000):
         "latency_p50_s": float(np.percentile(lat, 50)) if lat.size else None,
         "latency_p99_s": float(np.percentile(lat, 99)) if lat.size else None,
         "domain_counts_launches": launches,
-        "threefry_launches": draws,
+        "threefry_launches": draws, "scan_step_launches": draws["scan_step"],
         **guard.close(),
     }
     return results, reading
@@ -1598,10 +1609,10 @@ def loop_reading(sched, loop, label, **kw):
     chained0 = sched.solver.dispatch_counts.get("stream_chained", 0)
     paid0, hidden0 = sched._reads_paid, sched._reads_hidden
     tens0 = metrics.tensorize_seconds.sum()
-    dc.LAUNCHES = 0
+    dc.LAUNCHES = ss.LAUNCHES = 0
     t0 = time.perf_counter()
     results, report = run_loop(sched, loop, **kw)
-    launches = dc.LAUNCHES
+    launches, steps = dc.LAUNCHES, ss.LAUNCHES
     del sched._note_flight_timing
     for r in results:
         guard.batch(r)
@@ -1614,7 +1625,7 @@ def loop_reading(sched, loop, label, **kw):
         "unschedulable": sum(len(r.unschedulable) for r in results),
         "wall_s": wall, "pods_bound_per_s": bound / wall,
         "tensorize_s": metrics.tensorize_seconds.sum() - tens0,
-        "solve_s": sum(r.solve_seconds for r in results), **timing,
+        "solve_s": sum(r.solve_seconds for r in results), **timing, "scan_step_launches": steps,
         "latency_p50_s": float(np.percentile(lat, 50)) if lat.size else None,
         "latency_p99_s": float(np.percentile(lat, 99)) if lat.size else None,
         "chained_slots": sched.solver.dispatch_counts.get("stream_chained", 0) - chained0,
@@ -1816,13 +1827,17 @@ def backlog_drain(dev, n_nodes, n_pods, batch=1024):
         return out
 
     sched._dispatch_stream = measured
+    gs.LAUNCHES = 0
     _, report, reading = loop_reading(sched, "drain", "7d")
+    reading["grouped_spread_launches"] = gs.LAUNCHES
     del sched._dispatch_stream
     if report.drained != n_pods:
         raise AssertionError(f"7d: {report.drained} of {n_pods} bound")
     check_cluster(cs, "7d")
-    if dev.type == "cuda" and reading["domain_counts_launches"] <= 0:
-        raise AssertionError("7d: the drain launched no domain_counts kernel")
+    # the spread chunks aggregate inside the fused spread loop (phase 15),
+    # so a drain of whole chunks may launch no domain_counts kernel
+    if dev.type == "cuda" and reading["domain_counts_launches"] + gs.LAUNCHES <= 0:
+        raise AssertionError("7d: the drain launched neither domain_counts nor grouped_spread")
     raw = est.sharded_bytes + est.replicated_bytes
     reading.update({
         "nodes": n_nodes, "pods": n_pods, "setup_s": setup,
@@ -4528,12 +4543,22 @@ def threefry_checks(dev, seed=SEED):
 
 def threefry_scan(dev, n_nodes=5120, n_pods=1024, cpu_pods=64):
     """14b: the random-mode scan at 13a's shape (6b's mixed workload, one
-    batch, unsharded, balanced float64) on the card, its threefry launch
-    count set to 0 just before and read just after: one scan draw per
-    valid pod and no grouped draw; pods/s; torch launches per step in both
-    tie-break modes. Then card == the CPU port at 13a's width and
-    ``cpu_pods`` pods (the CPU's interpod aggregation at 5,120 nodes costs
-    seconds a step)."""
+    batch, unsharded, balanced float64) on the card through the torch step
+    (the fused step, which draws inside its own kernel, forced off: phase
+    16 runs it), its threefry launch count set to 0 just before and read
+    just after: one scan draw per valid pod and no grouped draw; pods/s;
+    torch launches per step in both tie-break modes. Then card == the CPU
+    port at 13a's width and ``cpu_pods`` pods (the CPU's interpod
+    aggregation at 5,120 nodes costs seconds a step)."""
+    real = ss.engages
+    ss.engages = lambda *a: False
+    try:
+        return _threefry_scan(dev, n_nodes, n_pods, cpu_pods)
+    finally:
+        ss.engages = real
+
+
+def _threefry_scan(dev, n_nodes, n_pods, cpu_pods):
     nodes = make_nodes(n_nodes)
     pods = [make_pod(i) for i in range(n_pods)]
     vocab = ResourceVocab.build(pods, nodes)
@@ -4566,12 +4591,11 @@ def threefry_scan(dev, n_nodes=5120, n_pods=1024, cpu_pods=64):
     return out
 
 
-def threefry_records(grouped, sched, p13, p14):
-    """The kernels line's records of the threefry kernel's two entry
-    points: 14a's checks and times, and the launches on the random-mode
-    paths, each count set to 0 just before its path and read just after.
-    Raises when an entry point was launched on no main path."""
-    draws_by_path = {
+def draws_by_path(grouped, sched, p13, p14) -> dict:
+    """The launches of the kernels that draw the random stream
+    (``tf_launches``) on the random-mode paths, each count set to 0 just
+    before its path and read just after."""
+    return {
         **{f"grouped {k}": r["threefry_launches"] for k, r in grouped.items()
            if k.endswith("random")},
         "scheduler 6a random": sched["6a"]["random"]["threefry_launches"],
@@ -4585,11 +4609,18 @@ def threefry_records(grouped, sched, p13, p14):
         "sharded 13c reduced": p13["scheduler_13c"]["reduced"]["threefry_launches"],
         "random scan 14b": p14["scan_14b"]["threefry_launches"],
     }
+
+
+def threefry_records(draws, p14):
+    """The kernels line's records of the threefry kernel's two entry
+    points: 14a's checks and times, and the launches on the random-mode
+    paths (``draws_by_path``). Raises when an entry point was launched on
+    no main path."""
     records = []
     for entry, replaces in (("scan_draw", "kubernetes_tpu/solver/exact.py:352"),
                             ("grouped_draw", "kubernetes_tpu/solver/exact.py:759")):
         case = p14["checks_14a"][entry]
-        by_path = {k: v[entry] for k, v in draws_by_path.items() if v[entry]}
+        by_path = {k: v[entry] for k, v in draws.items() if v[entry]}
         if not by_path:
             raise AssertionError(f"threefry_{entry}: no main path launched it")
         records.append({
@@ -4796,6 +4827,166 @@ def grouped_spread_record(grouped, check):
     }
 
 
+def scan_step_record(full, sched, loops, draws, check):
+    """The kernels line's record of the fused scan step: 16's check and
+    times, and its launches on the paths that drive the scan, each count
+    set to 0 just before its path and read just after: the interpod
+    full-width scan, the scheduler's and the loops' drains, and the
+    random-mode paths (``draws_by_path``; the sharded ones keep the torch
+    step). Raises when the full-width scan launched it not at all."""
+    drains = {**{f"scheduler {k}": sched[k] for k in ("6b", "6c", "6d")},
+              **{f"loops {k}": r for k, r in loops.items() if isinstance(r, dict)}}
+    by_path = {k: v["scan_step"] for k, v in draws.items()}
+    by_path.update({k: r["scan_step_launches"] for k, r in drains.items()
+                    if "scan_step_launches" in r})
+    by_path["interpod full width (scan)"] = full["scan_step_launches"]
+    by_path = {k: v for k, v in by_path.items() if v}
+    if not by_path.get("interpod full width (scan)"):
+        raise AssertionError(f"scan_step: the full-width scan launched it not at all ({by_path})")
+    by_path["interpod5k shape 16"] = check["launches"]
+    return {
+        "name": "scan_step", "route": "cuda",
+        "source": "kubernetes_tpu_torch/csrc/scan_step.cu",
+        "replaces": "kubernetes_tpu_torch/solver/exact.py _make_step (no TPU kernel)",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "library_ms": None, "library": "none: no library call computes the step",
+        **{k: v for k, v in check.items() if k != "launches"},
+    }
+
+
+# interpod5k's shape: 5,120 nodes in 3 zones, two batches of 1,024 pods of
+# its four kinds (make_pod), the second on the first's placements
+SS_NODES, SS_BATCH, SS_BATCHES = 5120, 1024, 2
+# the card's sleep queued ahead of each timed launch, so that its event pair
+# times the card alone and not the host's issue (about 100 us at 1.98 GHz)
+SS_SLEEP_CYCLES = 200_000
+
+
+def _scan_solves(dev, nodes, pods, vocab, fused, seed):
+    """``pods`` in batches of SS_BATCH on one random-mode solver with the
+    step graphs on, each batch's placements bound before the next.
+    ``fused``: the main path (the fused step kernel); else the torch step
+    (``ss.engages`` forced off). Returns per batch (assignments, node state
+    after, the stream's final key, the counts), the CUDA-event pairs of
+    every replayed step and of every eager fused launch, each queued
+    behind a sleep of the card, and the profiler's kernel device times
+    (name -> (microseconds, calls))."""
+    from kubernetes_tpu_torch.solver import graphs as sg
+
+    replays, eager = [], []
+    real = (sg._Graph.replay, ss.Step._emit, ss.engages)
+
+    def timed(fn, out):
+        torch.cuda._sleep(SS_SLEEP_CYCLES)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        out.append((a, b))
+
+    def replay(g):
+        timed(lambda: real[0](g), replays)
+
+    def emit(step, words, stream):
+        if torch.cuda.is_current_stream_capturing():
+            real[1](step, words, stream)
+        else:
+            timed(lambda: real[1](step, words, stream), eager)
+
+    sg._Graph.replay, ss.Step._emit = replay, emit
+    if not fused:
+        ss.engages = lambda *a: False
+    try:
+        solver = ExactSolver(ExactSolverConfig(tie_break="random", seed=seed,
+                                               balanced_fdtype="float64"))
+        placed: dict[str, list] = {}
+        batches = []
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for lo in range(0, len(pods), SS_BATCH):
+                bp = pods[lo : lo + SS_BATCH]
+                inp = tensorize(nodes, bp, placed, vocab)
+                a = solver.solve(*inp, device=dev)
+                state = [getattr(inp[0], f).copy() for f in ("used", "nonzero_used", "pod_count")]
+                batches.append((a, state, solver.graphs.stream.key_words(),
+                                dict(solver.times.counts)))
+                for i, s_ in enumerate(a):
+                    if s_ >= 0:
+                        placed.setdefault(nodes[s_].name, []).append(bp[i])
+        _sync(dev)
+    finally:
+        sg._Graph.replay, ss.Step._emit, ss.engages = real
+    kernels = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        for name in ("scan_step_kernel", "domain_counts_kernel"):
+            if name in e.key and us:
+                prev = kernels.get(name, (0.0, 0))
+                kernels[name] = (prev[0] + float(us), prev[1] + int(e.count))
+    return batches, replays, eager, kernels
+
+
+def scan_step_check(dev, seed=SEED):
+    """16: the fused scan step (``csrc/scan_step.cu``) against the torch
+    step it replaces, at interpod5k's shape: two batches of 1,024 pods of
+    its four kinds on 5,120 nodes, the second on the first's placements,
+    solved once on the main path (the step graphs replaying the step's
+    domain_counts launches and the kernel) and once with the torch step's
+    graphs. Every batch's assignments, node state and final stream key must
+    be equal exactly. Times, each launch queued behind a sleep of the card
+    so that its CUDA-event pair times the card alone: the whole replayed
+    step on both paths and the kernel's eager launches (medians), and the
+    kernel's device time a launch from the profiler."""
+    nodes = make_nodes(SS_NODES)
+    pods = [make_pod(i) for i in range(SS_BATCH * SS_BATCHES)]
+    vocab = ResourceVocab.build(pods, nodes)
+    ss.LAUNCHES = 0
+    got, fused_replays, eager, kernels = _scan_solves(dev, nodes, pods, vocab, True, seed)
+    launches = ss.LAUNCHES
+    want, torch_replays, _, torch_kernels = _scan_solves(dev, nodes, pods, vocab, False, seed)
+    for b, ((a, sa, ka, ca), (w, sw, kw, cw)) in enumerate(zip(got, want)):
+        if not np.array_equal(a, w):
+            bad = np.flatnonzero(a != w)
+            raise AssertionError(f"16 scan_step batch {b} (seed {seed}): assignments differ at "
+                                 f"{bad.size} pods, first {bad[:5]}")
+        for name, x, y in zip(("used", "nonzero_used", "pod_count"), sa, sw):
+            if not np.array_equal(x, y):
+                raise AssertionError(f"16 scan_step batch {b}: node {name} differs")
+        if ka != kw:
+            raise AssertionError(f"16 scan_step batch {b}: stream key {ka} != {kw}")
+        if not ca["fused_scan_steps"] == ca["scan_steps"] > 0 or cw["fused_scan_steps"]:
+            raise AssertionError(f"16 scan_step batch {b}: fused steps "
+                                 f"{ca['fused_scan_steps']} / {cw['fused_scan_steps']} "
+                                 f"of {ca['scan_steps']}")
+    steps = sum(c["scan_steps"] for _, _, _, c in got)
+    if launches != steps:
+        raise AssertionError(f"16 scan_step: {launches} launches for {steps} steps")
+    torch.cuda.synchronize()
+
+    def us(pairs):
+        return [1e3 * a.elapsed_time(b) for a, b in pairs]
+
+    k_us, k_calls = kernels.get("scan_step_kernel", (0.0, 0))
+    dc_us, dc_calls = kernels.get("domain_counts_kernel", (0.0, 0))
+    out = {
+        "shape": {"N": SS_NODES, "pods": len(pods), "batch": SS_BATCH,
+                  "kinds": "hostPort, hard zone spread, required hostname anti, "
+                           "preferred zone affinity"},
+        "exact": True, "max_abs_err": 0, "launches": launches, "steps": steps,
+        "replays": len(fused_replays), "eager_launches": len(eager),
+        "device_us_per_launch": k_us / k_calls if k_calls else None,
+        "domain_counts_device_us_per_launch": dc_us / dc_calls if dc_calls else None,
+        "domain_counts_launches_per_step": dc_calls / steps,
+        "torch_domain_counts_launches_per_step": torch_kernels.get(
+            "domain_counts_kernel", (0.0, 0))[1] / steps,
+        "eager_launch_us": float(np.median(us(eager))) if eager else None,
+        "replayed_step_us": float(np.median(us(fused_replays))),
+        "torch_replayed_step_us": float(np.median(us(torch_replays))),
+        "profiled": sorted(kernels),
+    }
+    log("scan_step 16 " + json.dumps(out))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU")
@@ -4817,6 +5008,7 @@ def main():
     kind3 = tensorize(nodes, k3, {}, ResourceVocab.build(k3, nodes))[5]
     cases, sweep, ran = kernel_checks(dev, interpod, kind2, kind3)
     gs_check = grouped_spread_check(dev)
+    ss_check = scan_step_check(dev)
     reduced = reduced_depth(dev)
     full = full_width(dev)
     grouped, spread_first = {}, None
@@ -4929,8 +5121,9 @@ def main():
         "cluster_sweep": sweep,
         "paths_and_cluster_sizes_run": sorted(ran),
     }
-    records = [record] + threefry_records(grouped, sched, p13, p14) + [
-        grouped_spread_record(grouped, gs_check)]
+    draws = draws_by_path(grouped, sched, p13, p14)
+    records = [record] + threefry_records(draws, p14) + [
+        grouped_spread_record(grouped, gs_check), scan_step_record(full, sched, loops, draws, ss_check)]
     log(json.dumps({"kernels": records}))
     log(json.dumps({
         "full_width": {k: full[k] for k in ("wall_s", "pods_per_s", "placed")},

@@ -29,7 +29,8 @@
 //     incrementally), the minimum over present domains, the ok mask, quotas;
 //   - frontier_rows for m+1 and m+2: LeastAllocated or MostAllocated in int64
 //     with floor division, BalancedAllocation in float64 or float32 with
-//     round-to-nearest intrinsics (no contraction), the static row added;
+//     round-to-nearest intrinsics (no contraction; resource_score.cuh, which
+//     scan_step.cu shares), the static row added;
 //   - scores_at, the best score, the tie set, eligible and ec;
 //   - the threefry split and node keys (threefry.cuh, the stream of
 //     threefry.cu), for the tie nodes, the only ones whose keys are read;
@@ -48,10 +49,12 @@
 // on the stream it is given. Built with nvcc for the card; the block body
 // (run_chunk) is plain C++ under a host shim too, which the CPU tests use.
 
+#include "resource_score.cuh"
 #include "threefry.cuh"
 
 namespace {
 
+using namespace resource_score;
 using namespace threefry;
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -124,53 +127,17 @@ __host__ __device__ inline Layout layout(long long n, long long d_pad) {
   return l;
 }
 
-__device__ __forceinline__ long long floordiv(long long a, long long b) {
-  long long q = a / b;
-  if ((a % b != 0) && ((a < 0) != (b < 0))) --q;
-  return q;
-}
-
 // frontier_rows: fit + balanced (+ the static row) of placing the jj-th
-// identical pod on node i, as torch computes it (int64 scores with floor
-// division, the balanced score in the configured float type, the sum cut to
-// int32 and the static row added in int32).
+// identical pod on node i, as torch computes it (resource_score.cuh; the
+// static row added in int32).
 __device__ int32_t frontier(const Args& a, long long i, long long jj) {
-  const int64_t w0 = a.fitw[0], w1 = a.fitw[1];
-  int64_t per[2];
-  double fd[2];
-  float ff[2];
+  int64_t req[2], al[2];
   for (int r = 0; r < 2; ++r) {
-    const int64_t req = a.nzu[r * a.nzu_stride + i] + a.nz[r] * jj;
-    const int64_t al = a.alloc[r * a.alloc_stride + i];
-    const int64_t al1 = al > 1 ? al : 1;
-    const bool ok = al > 0 && req <= al;
-    per[r] = ok ? floordiv((a.most ? req : al - req) * 100, al1) : 0;
-    if (a.f64) {
-      const double f = al > 0 ? __ddiv_rn(static_cast<double>(req), static_cast<double>(al1))
-                               : 1.0;
-      fd[r] = f > 1.0 ? 1.0 : f;
-    } else {
-      const float f = al > 0 ? __fdiv_rn(__ll2float_rn(req), __ll2float_rn(al1)) : 1.0f;
-      ff[r] = f > 1.0f ? 1.0f : f;
-    }
+    req[r] = a.nzu[r * a.nzu_stride + i] + a.nz[r] * jj;
+    al[r] = a.alloc[r * a.alloc_stride + i];
   }
-  const int64_t wsum = w0 + w1;
-  const int64_t fit = floordiv(per[0] * w0 + per[1] * w1, wsum > 1 ? wsum : 1);
-  int32_t bal;
-  if (a.f64) {
-    const double sd = __ddiv_rn(fabs(__dsub_rn(fd[0], fd[1])), 2.0);
-    bal = static_cast<int32_t>(__dmul_rn(__dsub_rn(1.0, sd), 100.0));
-  } else {
-    const float sd = __fdiv_rn(fabsf(__fsub_rn(ff[0], ff[1])), 2.0f);
-    bal = static_cast<int32_t>(__fmul_rn(__fsub_rn(1.0f, sd), 100.0f));
-  }
-  // int32 balanced times its weight wraps in int32, the sum in int64, the
-  // cast to int32 and the static row in int32 (as the tensors' dtypes do)
-  const int32_t balw = static_cast<int32_t>(static_cast<uint32_t>(a.w_bal) *
-                                            static_cast<uint32_t>(bal));
-  const uint64_t s = static_cast<uint64_t>(a.w_fit) * static_cast<uint64_t>(fit) +
-                     static_cast<uint64_t>(static_cast<int64_t>(balw));
-  uint32_t f = static_cast<uint32_t>(s);
+  uint32_t f = static_cast<uint32_t>(
+      fit_balanced(req, al, a.fitw, a.most, a.f64, a.w_fit, a.w_bal));
   if (a.srow != nullptr) f += static_cast<uint32_t>(a.srow[i]);
   return static_cast<int32_t>(f);
 }

@@ -881,8 +881,8 @@ extender_request_seconds = Histogram(
 kernel_launches_total = Counter(
     "scheduler_kernel_launches_total",
     "Hand-written kernel launches, by kernel (domain_counts|"
-    "threefry_scan|threefry_grouped|grouped_spread), folded once per batch from the "
-    "launch sites' cells by the per-stage profiler.",
+    "threefry_scan|threefry_grouped|grouped_spread|scan_step), folded once per "
+    "batch from the launch sites' cells by the per-stage profiler.",
     ["kernel"],
     registry=REGISTRY,
 )
@@ -920,6 +920,13 @@ solve_graph_captures_total = Counter(
     "scheduler_solve_graph_captures_total",
     "CUDA graphs of the exact solver's scan step captured, one per step "
     "signature per epoch of tables.",
+    registry=REGISTRY,
+)
+solve_fused_scan_steps_total = Counter(
+    "scheduler_solve_fused_scan_steps_total",
+    "Scan steps the exact solver ran in one launch of the fused step kernel, "
+    "replayed from a CUDA graph or eager (of "
+    "scheduler_solve_steps_total{kind=\"scan_steps\"}).",
     registry=REGISTRY,
 )
 solve_chunks_total = Counter(
@@ -999,6 +1006,7 @@ PORT_SERIES = (
     solve_steps_total,
     solve_graph_replays_total,
     solve_graph_captures_total,
+    solve_fused_scan_steps_total,
     solve_chunks_total,
     solve_chunk_pods_total,
     solve_chunk_iterations_total,

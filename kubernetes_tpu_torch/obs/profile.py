@@ -114,6 +114,7 @@ _DELTA_READERS = {
     "launches.threefry_scan": _global("ops.threefry", "SCAN_LAUNCHES"),
     "launches.threefry_grouped": _global("ops.threefry", "GROUPED_LAUNCHES"),
     "launches.grouped_spread": _global("ops.grouped_spread", "LAUNCHES"),
+    "launches.scan_step": _global("ops.scan_step", "LAUNCHES"),
     "combines": _global("parallel.sharding", "COMBINES"),
     "combine_s": _global("parallel.sharding", "COMBINE_S"),
     **{f"card_reads.{s}": (lambda s=s: timing.COUNTS[s]) for s in timing.SITES},

@@ -53,13 +53,7 @@ def node_totals_g(ipa, in_cnt, ex_cnt, d_pad: int, ident: bool = False):
         return (torch.where(ipa["in_hk"], in_cnt, 0),
                 torch.where(ipa["ex_hk"], ex_cnt, 0))
     sharded = ipa.get("shards", 1) > 1
-    cache = ipa.get("launch", {})
-    agg = cache.get("totals")
-    if agg is None or agg.sets[0][1] is not in_cnt or agg.sets[1][1] is not ex_cnt:
-        agg = cache["totals"] = dc.Aggregation(
-            [(ipa["in_dom"], in_cnt, None), (ipa["ex_dom"], ex_cnt, None)],
-            d_pad, counts=sharded, gather=not sharded,
-        )
+    agg = prepared_totals(ipa, in_cnt, ex_cnt, d_pad)
     (in_out, in_tot), (ex_out, ex_tot) = agg()
     if sharded:
         ti = in_out.shape[0]
@@ -69,6 +63,21 @@ def node_totals_g(ipa, in_cnt, ex_cnt, d_pad: int, ident: bool = False):
         in_tot = dc.gather_plain(out[:ti], ipa["in_dom"])
         ex_tot = dc.gather_plain(out[ti:], ipa["ex_dom"])
     return in_tot, ex_tot
+
+
+def prepared_totals(ipa, in_cnt, ex_cnt, d_pad: int):
+    """The aggregation of both tables over the carried counts, kept in
+    ``ipa["launch"]`` from one step to the next (prepared anew for other
+    count tensors): gathered unsharded, counts-only sharded."""
+    sharded = ipa.get("shards", 1) > 1
+    cache = ipa.get("launch", {})
+    agg = cache.get("totals")
+    if agg is None or agg.sets[0][1] is not in_cnt or agg.sets[1][1] is not ex_cnt:
+        agg = cache["totals"] = dc.Aggregation(
+            [(ipa["in_dom"], in_cnt, None), (ipa["ex_dom"], ex_cnt, None)],
+            d_pad, counts=sharded, gather=not sharded,
+        )
+    return agg
 
 
 def static_tables(in_dom, ex_dom) -> dict:

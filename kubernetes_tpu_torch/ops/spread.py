@@ -78,6 +78,21 @@ def _domain_aggregate_g(spr, j: int, cnt, d_pad: int):
     The prepared launch and the constraint's static rows are kept in
     ``spr["launch"]`` from one step to the next."""
     sharded = spr.get("shards", 1) > 1
+    _, agg, present, n_dom, hk = prepared(spr, j, cnt, d_pad)
+    ((dom_counts, node_cnt),) = agg()
+    if sharded:
+        dom_counts = yield sh.c_sum, dom_counts
+        node_cnt = dc.gather_plain(dom_counts, spr["dom"][j : j + 1])
+    min_match = torch.min(torch.where(present, dom_counts[0], INF_COUNT))
+    return node_cnt[0], n_dom, min_match, hk
+
+
+def prepared(spr, j: int, cnt, d_pad: int) -> tuple:
+    """(cnt, the prepared aggregation, presence row, domain count, has_key
+    row) of constraint ``j`` over the carried counts ``cnt``, kept in
+    ``spr["launch"]`` from one step to the next (prepared anew for another
+    ``cnt``). Sharded, the aggregation is counts-only."""
+    sharded = spr.get("shards", 1) > 1
     cache = spr.get("launch", {})
     hit = cache.get(j)
     if hit is None or hit[0] is not cnt:
@@ -87,13 +102,7 @@ def _domain_aggregate_g(spr, j: int, cnt, d_pad: int):
             d_pad, gather=not sharded,
         )
         hit = cache[j] = (cnt, agg, spr["present"][j], spr["n_dom"][j], spr["hk"][j])
-    _, agg, present, n_dom, hk = hit
-    ((dom_counts, node_cnt),) = agg()
-    if sharded:
-        dom_counts = yield sh.c_sum, dom_counts
-        node_cnt = dc.gather_plain(dom_counts, spr["dom"][j : j + 1])
-    min_match = torch.min(torch.where(present, dom_counts[0], INF_COUNT))
-    return node_cnt[0], n_dom, min_match, hk
+    return hit
 
 
 def _domain_aggregate(spr, j: int, cnt, d_pad: int):

@@ -48,7 +48,10 @@ JAX package's bit for bit, so random mode gives its assignments as first
 mode does (the paired tests hold both with ``balanced_fdtype="float64"``).
 
 On the card, unsharded and with no nominated pods, the scan's steps replay
-CUDA graphs of the step, one graph launch a pod, and in random mode the
+CUDA graphs of the step, one graph launch a pod; with LeastAllocated or
+MostAllocated scoring the step, eager or captured, is its domain_counts
+launches and one launch of the fused step kernel (``ops/scan_step.py``),
+whose plain version ``_make_step`` is. In random mode the
 iterations of a spread or anti chunk's loop replay graphs of the iteration
 (``solver/graphs.py``); everywhere else, and for a signature too rare to
 repay a capture, the step or iteration runs eagerly as written here. A
@@ -81,6 +84,7 @@ from ..ops import interpod as ip
 from ..ops import noderesources as nr
 from ..ops import plugins as pl
 from ..ops import prng
+from ..ops import scan_step as ss
 from ..ops import spread as sp
 from ..ops import threefry as tf
 from ..parallel import sharding as sh
@@ -1039,6 +1043,9 @@ class _Run:
         self.dev = mesh.lead
         self.assignments = torch.full((valid.shape[0],), -1, dtype=torch.int64,
                                       device=self.dev)
+        self.fit_scorer = _fit_scorer(kw["scoring_strategy"], kw["rtc_shape"])
+        # whether the scan steps run in the fused step kernel (ops/scan_step.py)
+        self.fused = ss.engages(self.dev, mesh.size, kw["use_nominated"], self.fit_scorer)
 
     def packed(self, persist, bstate_dev) -> dict:
         """The carried state of a solve: the fit rows (the session's
@@ -1063,6 +1070,14 @@ class _Run:
     def make_step(self, tables, stream):
         """The scan step of one shard's ``tables`` drawing from ``stream``."""
         return _make_step(tables, tie_break=self.tie_break, stream=stream, **self.kw)
+
+    def fused_step(self, tables, st, packed):
+        """The fused step kernel's step over the unsharded ``tables``, state
+        views ``st`` and packed state ``packed`` where it engages, else
+        None."""
+        if not self.fused:
+            return None
+        return ss.Step(tables, st, packed, self.kw, self.tie_break, self.fit_scorer)
 
     def read_placed(self, parts):
         """The grouped random loop's exit test, timed: one iteration. A
@@ -1135,11 +1150,11 @@ class _Run:
         sts = [self.state_views(packed, s) for s in range(k)]
         shard_packed = [{"i64": packed["i64"][s], "i32": packed["i32"][s]} for s in range(k)]
         steps = [self.make_step(self.tables[s], stream) for s in range(k)]
+        fused_step = None  # made at the first eager scan step it takes
         counts = self.times.counts
         for name, v in plan.counts.items():
             counts[name] += v
-        group, kw = self.group, self.kw
-        fit_scorer = _fit_scorer(kw["scoring_strategy"], kw["rtc_shape"])
+        group, kw, fit_scorer = self.group, self.kw, self.fit_scorer
         # the spread chunks' fused loops count their iterations on the card
         fused = None
         if plan.counts.get("chunks.spread") and gs.engages(self.dev, k, self.tie_break,
@@ -1159,6 +1174,15 @@ class _Run:
                 if gp_pass is not None and gp_pass.step(n):
                     continue
                 xr = self.xs.row(row)
+                if self.fused:
+                    if fused_step is None:
+                        # a graph pass steps through its epoch's, which its
+                        # captures launch too
+                        fused_step = (gp_pass.fused_step() if gp_pass is not None else
+                                      self.fused_step(self.tables[0], sts[0], shard_packed[0]))
+                    fused_step(xr[0], at, asg, stream)
+                    counts["fused_scan_steps"] += 1
+                    continue
                 asg[at] = sh.lockstep(
                     steps[s](sts[s], shard_packed[s], xr[s]) for s in range(k))[0]
                 continue

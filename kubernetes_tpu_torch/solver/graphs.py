@@ -7,7 +7,10 @@ from Python, each of which runs for about a microsecond on the card, so the
 host's issue sets the scan's pace. ``StepGraphs`` captures the step into a
 CUDA graph once per *signature* and replays it with one graph launch a pod:
 the same kernels in the same order, so a replayed step gives what the eager
-step gives, bit for bit.
+step gives, bit for bit. Where the fused step kernel engages
+(``ops/scan_step.py``), the eager step and the captured one are the step's
+``domain_counts`` launches and one launch of that kernel, which reads the
+step table at the cursor, writes the pick and advances the cursor itself.
 
 Signature: what the step branches on in host code, the pod's ``class_of``
 and ``has_port_conflicts``, and in random mode the stream's live key slot
@@ -59,9 +62,10 @@ records has been loaded and launched once.
 Counters stay true: a capture (``StepGraphs.record``) launches nothing and
 counts nothing, each replay adds its hand-written kernels' launches to
 their cells (``timing.launch_counts``), and ``SolveTimes.counts`` counts
-the replays and captures. Each capture, the step or iteration built and
-recorded and its graph instantiated, is timed as the solve's ``capture``
-sub-stage, a span carrying its kind when traced.
+the replays and captures, and the replays of fused steps. Each capture,
+the step or iteration built and recorded and its graph instantiated, is
+timed as the solve's ``capture`` sub-stage, a span carrying its kind when
+traced.
 """
 
 from __future__ import annotations
@@ -74,6 +78,7 @@ import torch
 
 from ..ops import domain_counts as dc
 from ..ops import grouped_spread as gs
+from ..ops import scan_step as ss
 from ..ops import threefry as tf
 from ..parallel import sharding as sh
 from . import grouped as gp
@@ -183,25 +188,28 @@ def _own_launches(tables: dict) -> dict:
 def _add_launches(deltas) -> None:
     """Adds ``deltas`` (in ``timing.KERNELS`` order) to the hand-written
     kernels' launch cells."""
-    n_dc, n_scan, n_grouped, n_fused = deltas
+    n_dc, n_scan, n_grouped, n_fused, n_step = deltas
     dc.LAUNCHES += n_dc
     tf.SCAN_LAUNCHES += n_scan
     tf.GROUPED_LAUNCHES += n_grouped
     gs.LAUNCHES += n_fused
+    ss.LAUNCHES += n_step
 
 
 class _Graph:
     """A captured step or quota iteration: the graph, what it reads that
     must live as long as it does (the tables whose prepared launches it
-    captured, or the kept loop), its launches of the hand-written kernels
-    (in ``timing.KERNELS`` order), and an iteration's
-    exit row (``out[-1]``) and the stream's key slot after it."""
+    captured, or the fused step, or the kept loop), its launches
+    of the hand-written kernels (in ``timing.KERNELS`` order), whether it
+    is a step of the fused step kernel, and an iteration's exit row
+    (``out[-1]``) and the stream's key slot after it."""
 
-    __slots__ = ("graph", "keep", "launches", "out", "cur")
+    __slots__ = ("graph", "keep", "launches", "fused", "out", "cur")
 
     def __init__(self, graph, keep, launches, out=None):
         self.graph, self.keep, self.launches, self.out, self.cur = (
             graph, keep, launches, out, 0)
+        self.fused = False
 
     def replay(self) -> None:
         """One launch of the graph, its hand-written kernels' launches
@@ -238,6 +246,7 @@ class StepGraphs:
 
     def __init__(self):
         self.graphs: dict[tuple, _Graph] = {}
+        self.fused = None  # the epoch's fused step (_Pass.fused_step)
         self.warm: set[tuple] = set()  # signatures stepped eagerly in this epoch
         # the quota iterations': kept loops by iteration key, graphs and the
         # eager iterations seen by signature
@@ -256,6 +265,7 @@ class StepGraphs:
         """Forget every graph. Their memory pool dies with the last of them,
         so the next capture starts a new one."""
         self.graphs.clear()
+        self.fused = None
         self.warm.clear()
         self.loops.clear()
         self.iterations.clear()
@@ -414,18 +424,43 @@ class _Pass:
         if stream is not None:
             stream.pending = 0  # the replay pays them from the step table
         g.replay()
-        self.run.times.counts["graph_replays"] += 1
+        counts = self.run.times.counts
+        counts["graph_replays"] += 1
+        if g.fused:
+            counts["fused_scan_steps"] += 1
         return True
+
+    def fused_step(self):
+        """The epoch's fused step (``ops/scan_step.py``) over the buffers,
+        made at its first eager step: the pass's eager steps and every
+        capture of the epoch launch it, and its tables' prepared launches
+        are the graphs' own. None where it does not engage."""
+        graphs, run, buf = self.graphs, self.run, self.buf
+        if graphs.fused is None and run.fused:
+            graphs.fused = run.fused_step(_own_launches(run.tables[0]),
+                                          run.state_views(self.packed, 0),
+                                          {"i64": buf.i64, "i32": buf.i32})
+        return graphs.fused
 
     def _capture(self, sig) -> _Graph:
         run, buf, stream = self.run, self.buf, self.stream
-        tables = _own_launches(run.tables[0])
-        step = run.make_step(tables, stream)
-        st = run.state_views(self.packed, 0)
-        spk = {"i64": buf.i64, "i32": buf.i32}
         host = run.xs.host
         layout, k, b = self.graphs.layout, host["req_mask"].shape[1], host["pod_takes"].shape[1]
         cls, hpc, _ = sig
+        fused = self.fused_step()
+        if fused is not None:
+
+            def replayed():
+                fused.replayed(cls, hpc, stream, buf.rows, layout, buf.steps, buf.cursor,
+                               buf.asg)
+
+            g = self.graphs.record(replayed, fused)
+            g.fused = True
+            return g
+        tables = _own_launches(run.tables[0])
+        st = run.state_views(self.packed, 0)
+        spk = {"i64": buf.i64, "i32": buf.i32}
+        step = run.make_step(tables, stream)
 
         def fn():
             ent = buf.steps.index_select(1, buf.cursor)  # [3, 1]: row, pod, owed splits

@@ -21,11 +21,13 @@ in the order a solve runs them:
 Beside them it counts the card reads, and in ``counts`` the call's solve
 counts by their ledger keys, one entry of ``COUNT_SERIES`` each: the scan's
 steps and the grouped loop's iterations, the scan steps' CUDA graph
-replays and captures (``solver/graphs.py``), the grouped path's chunks
-that held a valid pod, their pods and their loop's iterations by chunk
-kind (``CHUNK_KINDS``), the spread iterations that kept the water-fill,
-the quota iterations' graph replays and captures (``QUOTA_KINDS``), and
-the chunks whose whole loop ran in one fused launch (``FUSED_KINDS``).
+replays and captures (``solver/graphs.py``), the scan steps that ran in
+one launch of the fused step kernel (``ops/scan_step.py``), the grouped
+path's chunks that held a valid pod, their pods and their loop's
+iterations by chunk kind (``CHUNK_KINDS``), the spread iterations that
+kept the water-fill, the quota iterations' graph replays and captures
+(``QUOTA_KINDS``), and the chunks whose whole loop ran in one fused launch
+(``FUSED_KINDS``).
 A new count is its increment, its entry and, if it needs one, its series.
 
 A fused loop counts its iterations and kept water-fills on the card, in a
@@ -69,7 +71,7 @@ QUOTA_KINDS = CHUNK_KINDS[2:]
 # (ops/grouped_spread.py)
 FUSED_KINDS = ("spread",)
 SITES = ("grouped", "relax", "auction", "evaluate", "preemption")
-KERNELS = ("domain_counts", "threefry_scan", "threefry_grouped", "grouped_spread")
+KERNELS = ("domain_counts", "threefry_scan", "threefry_grouped", "grouped_spread", "scan_step")
 
 # each solve count's ledger key -> the registry series (an attribute of
 # ``metrics``) and label (None: unlabelled) its per-batch delta advances;
@@ -79,6 +81,7 @@ COUNT_SERIES = {
     "grouped_iterations": ("solve_steps_total", "grouped_iterations"),
     "graph_replays": ("solve_graph_replays_total", None),
     "graph_captures": ("solve_graph_captures_total", None),
+    "fused_scan_steps": ("solve_fused_scan_steps_total", None),
     **{f"chunks.{k}": ("solve_chunks_total", k) for k in CHUNK_KINDS},
     **{f"chunk_pods.{k}": ("solve_chunk_pods_total", k) for k in CHUNK_KINDS},
     **{f"chunk_iterations.{k}": ("solve_chunk_iterations_total", k) for k in FAST_KINDS},
@@ -101,13 +104,14 @@ def note(site: str, t0: float) -> None:
     COUNTS[site] += 1
 
 
-def launch_counts() -> tuple[int, int, int, int]:
+def launch_counts() -> tuple[int, int, int, int, int]:
     """The kernel launch cells, in ``KERNELS`` order."""
     from ..ops import domain_counts as dc
     from ..ops import grouped_spread as gs
+    from ..ops import scan_step as ss
     from ..ops import threefry as tf
 
-    return dc.LAUNCHES, tf.SCAN_LAUNCHES, tf.GROUPED_LAUNCHES, gs.LAUNCHES
+    return dc.LAUNCHES, tf.SCAN_LAUNCHES, tf.GROUPED_LAUNCHES, gs.LAUNCHES, ss.LAUNCHES
 
 
 class DeferredCounts:

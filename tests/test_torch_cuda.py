@@ -298,17 +298,27 @@ def test_card_equals_cpu(cuda_device, fdtype):
         np.testing.assert_array_equal(getattr(card[0], k), getattr(cpu[0], k))
 
 
-def test_random_tie_break_on_the_card(cuda_device):
-    """Random mode draws the threefry stream through the kernel, one scan
-    draw per valid pod: the card equals the CPU port bit for bit, and
-    every pod is placed with the anti-affinity and port rules held."""
+def test_random_tie_break_on_the_card(cuda_device, monkeypatch):
+    """Random mode draws the threefry stream on the card, one scan draw per
+    valid pod: inside the fused step kernel on the main path, through the
+    threefry kernel in the torch step (the fused step off). Both equal the
+    CPU port bit for bit, and every pod is placed with the anti-affinity
+    and port rules held."""
+    from kubernetes_tpu_torch.ops import scan_step as ss
+
     nodes, pods = _cluster(64, 120)
     cfg = ExactSolverConfig(tie_break="random", seed=5)
-    before = tf.SCAN_LAUNCHES
+    before = (tf.SCAN_LAUNCHES, ss.LAUNCHES)
     a = ExactSolver(cfg).solve(*_tensorize(nodes, pods), device=cuda_device)
-    assert tf.SCAN_LAUNCHES - before == len(pods)
+    assert (tf.SCAN_LAUNCHES - before[0], ss.LAUNCHES - before[1]) == (0, len(pods))
+    with monkeypatch.context() as mp:
+        mp.setattr(ss, "engages", lambda *a: False)
+        before = tf.SCAN_LAUNCHES
+        plain = ExactSolver(cfg).solve(*_tensorize(nodes, pods), device=cuda_device)
+        assert tf.SCAN_LAUNCHES - before == len(pods)
     b = ExactSolver(cfg).solve(*_tensorize(nodes, pods), device="cpu")
     np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(plain, b)
     assert (a >= 0).all()
     anti = a[2::4]
     assert len(set(anti.tolist())) == len(anti)
@@ -1511,6 +1521,7 @@ GRAPH_CASES = {
 def _graph_solve(monkeypatch, dev, spec, tie, graphs: bool):
     """One solve of ``spec`` with the step graphs on or off: assignments,
     carried state, the stream's key words, launch deltas and the solver."""
+    from kubernetes_tpu_torch.ops import scan_step as ss
     from kubernetes_tpu_torch.solver import graphs as sg
 
     made = []
@@ -1528,7 +1539,7 @@ def _graph_solve(monkeypatch, dev, spec, tie, graphs: bool):
         inp = _graph_inputs(nodes, spec["pods"]())
         solver = ExactSolver(ExactSolverConfig(tie_break=tie, seed=2026, balanced_fdtype="float64",
                                                group_size=spec.get("group", 1)))
-        l0 = (dc.LAUNCHES, tf.SCAN_LAUNCHES, tf.GROUPED_LAUNCHES)
+        l0 = (dc.LAUNCHES, tf.SCAN_LAUNCHES, tf.GROUPED_LAUNCHES, ss.LAUNCHES)
         if spec["mode"] == "standalone":
             got = solver.solve(*inp, device=dev)
             state = [getattr(inp[0], k).copy() for k in ("used", "nonzero_used", "pod_count")]
@@ -1542,7 +1553,7 @@ def _graph_solve(monkeypatch, dev, spec, tie, graphs: bool):
             state = [p["i64"][0].cpu().numpy(), p["pod_count"][0].cpu().numpy()]
         torch.cuda.synchronize()
         launches = tuple(b - a for a, b in zip(l0, (dc.LAUNCHES, tf.SCAN_LAUNCHES,
-                                                     tf.GROUPED_LAUNCHES)))
+                                                     tf.GROUPED_LAUNCHES, ss.LAUNCHES)))
         stream = (solver.graphs.stream if graphs else made[-1]) if tie == "random" else None
         key = stream.key_words() if stream is not None else None
     return got, state, key, launches, solver
@@ -1554,7 +1565,9 @@ def test_step_graphs_equal_the_eager_steps_on_the_card(cuda_device, monkeypatch,
     """An interpod5k-shaped batch solved with the step graphs equals the
     eager solve bit for bit: assignments, carried state and the stream's
     key; the launch counters advance by the same counts, so the
-    hand-written kernels are seen launching inside the graphs."""
+    hand-written kernels are seen launching inside the graphs: the step's
+    domain_counts and the fused step kernel, which draws the random
+    stream itself."""
     spec = GRAPH_CASES[case]
     want, want_state, want_key, want_l, _ = _graph_solve(monkeypatch, cuda_device, spec, tie, False)
     got, state, key, launches, solver = _graph_solve(monkeypatch, cuda_device, spec, tie, True)
@@ -1563,8 +1576,7 @@ def test_step_graphs_equal_the_eager_steps_on_the_card(cuda_device, monkeypatch,
         np.testing.assert_array_equal(a, b)
     assert key == want_key
     assert launches == want_l and launches[0] > 0
-    if tie == "random":
-        assert launches[1] > 0
+    assert launches[3] > 0 and launches[1] == 0
     counts = solver.times.counts
     assert counts["graph_captures"] > 0 and counts["graph_replays"] > 0.9 * counts["scan_steps"]
 
@@ -1793,3 +1805,78 @@ def test_graph_captures_feed_the_capture_stage_on_the_card(cuda_device, shape):
     assert all(s["attrs"]["kind"] == shape and by_id[s["parent"]]["name"] == "issue" for s in captures)
     assert all(0.0 <= e["stages"]["capture"] <= e["stages"]["issue"] for e in entries)
     assert sum(e["stages"]["capture"] for e in entries) > 0.0
+
+
+# -- the fused scan step (ops/scan_step.py) ------------------------------------
+
+
+def _fused_cases():
+    from _torch_scan_step_cases import cases
+
+    # interpod5k's shape for its four kinds; the rest of the pipeline on a
+    # smaller cluster
+    return {**cases(1024, 256), "interpod_loaded": cases(5120, 1024)["interpod_loaded"]}
+
+
+@pytest.mark.parametrize("tie", ["random", "first"])
+@pytest.mark.parametrize("case", ["interpod_loaded", "infeasible", "first_pod", "scores",
+                                  "crowded"])
+def test_fused_steps_equal_the_torch_step_graphs_on_the_card(cuda_device, monkeypatch, case, tie):
+    """The fused step kernel, replayed from the step graphs and stepped
+    eagerly (the graphs off), equals the torch step's graphs bit for bit:
+    assignments, the carried i64 / i32 state and the stream's key after
+    every run; every scan step of the fused solves ran in the kernel, those
+    of classes with more than eight constraint slots in a list too."""
+    from _torch_scan_step_cases import assert_same, solve
+
+    spec = _fused_cases()[case]
+    seed = 2_147_483_647 + len(case)
+    with monkeypatch.context() as mp:
+        want = solve(mp, spec, cuda_device, seed, fused=False, graphs=True, tie=tie)
+    for graphs in (True, False):
+        with monkeypatch.context() as mp:
+            got = solve(mp, spec, cuda_device, seed, fused=True, graphs=graphs, tie=tie)
+        assert_same(got, want, f"{case} {tie} graphs={graphs}")
+        if graphs:
+            assert got[1][0]["graph_replays"] > 0.5 * got[1][0]["scan_steps"]
+
+
+def test_fused_step_on_both_layouts_on_the_card(cuda_device, monkeypatch):
+    """The per-node arrays in the device workspace (shared memory refused)
+    give what shared memory gives, and both equal the torch step."""
+    from _torch_scan_step_cases import assert_same, solve
+
+    from kubernetes_tpu_torch.ops import scan_step as ss
+
+    spec = _fused_cases()["interpod_loaded"]
+    with monkeypatch.context() as mp:
+        want = solve(mp, spec, cuda_device, 11, fused=False)
+    with monkeypatch.context() as mp:
+        mp.setattr(ss, "smem_limit", lambda device: 0)
+        got = solve(mp, spec, cuda_device, 11, fused=True)
+    assert_same(got, want, "workspace")
+
+
+def test_a_refused_launch_raises_kernel_error(cuda_device, monkeypatch):
+    """A launch the card refuses (2,048 threads a block) raises KernelError
+    from the wrapper; nothing falls back to the torch step. The refusal
+    leaves no error behind: the next solve launches and equals the CPU's."""
+    from kubernetes_tpu_torch.build import KernelError
+    from kubernetes_tpu_torch.ops import scan_step as ss
+
+    real = ss.Step.__init__
+
+    def init(self, *a, **k):
+        real(self, *a, **k)
+        self.base[ss.W_THREADS] = 2048
+
+    nodes, pods = _cluster(64, 16)
+    cfg = ExactSolverConfig(tie_break="random", seed=1)
+    with monkeypatch.context() as mp:
+        mp.setattr(ss.Step, "__init__", init)
+        with pytest.raises(KernelError, match="scan_step"):
+            ExactSolver(cfg).solve(*_tensorize(nodes, pods), device=cuda_device)
+    torch.cuda.synchronize()
+    got = ExactSolver(cfg).solve(*_tensorize(nodes, pods), device=cuda_device)
+    want = ExactSolver(cfg).solve(*_tensorize(nodes, pods), device="cpu")
+    np.testing.assert_array_equal(got, want)
