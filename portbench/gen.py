@@ -67,6 +67,9 @@ class Traffic:
     """The pod stream of one configuration for one seed."""
 
     def __init__(self, config: dict, seed: int):
+        if config.get("pod_disruption_budgets"):
+            # neither the program nor the reference would see them
+            raise NotImplementedError("the generator makes no PodDisruptionBudget")
         self.config = config
         self.seed = seed
         self.wave_pods = int(config["wave_pods"])

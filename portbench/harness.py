@@ -5,14 +5,17 @@ The served path is the program's own: pods are created as events in a
 (``Pod.from_dict``), and a ``kubernetes_tpu_torch.scheduler.Scheduler`` with
 the configuration's settings binds them through ``run_pipelined``, the loop
 that ``serve`` and the scheduler_perf runner drive. The harness keeps, in
-order, every binding the loop returned and every pod it deleted, and hands
-them with the dicts to the plain reference once the window has closed.
+order, every binding the loop returned, every preemption and eviction the
+program made and every pod the harness deleted, and hands them with the
+dicts to the plain reference once the window has closed.
 
 Everything a cell needs is found by name: its configuration
-(``configs/``), its traffic file (``traffic/``) and the arrival process
-that file names (``processes/<process>.py``, a class ``Process`` built on
-``Run``), its own overrides (``cells/<cell>.json``, optional) and a reader
-per per-layer metric (``metrics/``).
+(``configs/``), the reference module that configuration names (its
+``reference`` key, ``reference`` without it), its traffic file
+(``traffic/``) and the arrival process that file names
+(``processes/<process>.py``, a class ``Process`` built on ``Run``), its own
+overrides (``cells/<cell>.json``, optional) and a reader per per-layer
+metric (``metrics/``).
 """
 
 from __future__ import annotations
@@ -27,18 +30,13 @@ from pathlib import Path
 import numpy as np
 
 from . import gen, reference
-from .trace import DeviceSlice, Spans, wrap_layers
+from .trace import DeviceSlice, Spans, WindowTrace, wrap_layers
 
 BENCH_DIR = Path(__file__).resolve().parent
 ROOT = BENCH_DIR.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "kubernetes_tpu")
-# every number the reference compares is exact: a correct run reads 0 on each
-LIMITS = {
-    "infeasible_binds": 0,
-    "score_gap": 0,
-    "double_or_unknown_binds": 0,
-    "readback_mismatches": 0,
-}
+# the default reference's numbers and limits
+LIMITS = reference.LIMITS
 
 
 def forbidden_modules(names) -> list[str]:
@@ -87,6 +85,13 @@ def load_process(name: str):
     return _load(BENCH_DIR / "processes" / f"{name}.py", f"portbench_process_{name}").Process
 
 
+def load_reference(config: dict):
+    """The reference module a configuration names by its ``reference`` key:
+    ``<name>.py`` beside this file, with ``judge`` and ``LIMITS``; without
+    the key, ``reference``."""
+    return importlib.import_module(f"{__package__}.{config.get('reference', 'reference')}")
+
+
 def applies(entry: dict, cell: str) -> bool:
     return "workloads" not in entry or cell in entry["workloads"]
 
@@ -103,6 +108,14 @@ class Run:
         # the port builds its kernels into its own directory in this checkout,
         # so a second run there loads them and builds nothing
         enable_persistent_cache(ROOT / "kubernetes_tpu_torch" / "_build")
+        if device != "cpu":
+            from kubernetes_tpu_torch import build
+
+            # every kernel library now, built in a checkout's first run and
+            # loaded in the others, so that a path the warm-up batch does not
+            # reach builds nothing inside the window
+            for name in build.sources():
+                build.load(name)
         from kubernetes_tpu_torch.api.objects import Node, Pod
         from kubernetes_tpu_torch.obs import ObsConfig
         from kubernetes_tpu_torch.scheduler import Scheduler, SchedulerConfig
@@ -115,8 +128,10 @@ class Run:
         self.pods = gen.StreamPods(self.traffic)
         self.batch = int(config["scheduler"]["batch_size"])
         self.per_call = int(params["batches_per_call"])
-        # in order: ("bind", [(key, node), ...]) per batch the loop returned,
-        # ("delete", [key, ...]) per group of pods deleted
+        # in order: per batch the loop returned ("bind", [(key, node), ...]),
+        # then ("preempt", [(preemptor, node, [victim, ...]), ...]) and
+        # ("rebalance", [(key, source, target), ...]) where it evicted pods;
+        # ("delete", [key, ...]) per group of pods the harness deleted
         self.events: list[tuple[str, list]] = []
         # what the process tells the metric readers and the run's log
         self.extra: dict = {}
@@ -135,9 +150,14 @@ class Run:
         )
         self.spans = Spans()
         self.slice = DeviceSlice(torch, self.spans) if trace and device != "cpu" else None
+        # the profiler over the whole window, where an untraced run reports
+        # an end-to-end metric of the device trace
+        self.window_trace: WindowTrace | None = None
         if trace:
             wrap_layers(self.spans)
         self.bound_in_window = 0
+        # pods whose failed attempt ended in a nomination: attempted, not failed
+        self.nominated_in_window = 0
         self.failed_in_window = 0
         self.slice_batches = 0
         self.slice_keys: list[str] = []
@@ -164,16 +184,29 @@ class Run:
                 self.cs.delete_pod(ns, name)
         self.events.append(("delete", keys))
 
+    @property
+    def attempted_in_window(self) -> int:
+        return self.bound_in_window + self.nominated_in_window + self.failed_in_window
+
     def call(self, max_batches: int, in_window: bool) -> None:
+        """One loop call. Each batch's bindings go into the record before its
+        evictions: the batch's solve chose them all before any was made."""
         results = self.sched.run_pipelined(max_batches=max_batches)
         t = time.perf_counter()
         tracing = self.slice is not None and self.slice.prof is not None
         for r in results:
             self.events.append(("bind", list(r.scheduled)))
+            if r.preemptions:
+                self.events.append(("preempt", [(p, n, list(v)) for p, n, v in r.preemptions]))
+            if r.rebalance_evictions:
+                self.events.append(("rebalance", list(r.rebalance_evictions)))
             if in_window:
+                nominated = {p for p, _, _ in r.preemptions}
+                n_nominated = sum(1 for k in r.unschedulable if k in nominated)
                 self.bound_in_window += len(r.scheduled)
                 self.progress.append((t, self.bound_in_window))
-                self.failed_in_window += len(r.unschedulable) + len(r.bind_failures)
+                self.nominated_in_window += n_nominated
+                self.failed_in_window += len(r.unschedulable) - n_nominated + len(r.bind_failures)
             if tracing:
                 self.slice_keys.extend(k for k, _ in r.scheduled)
         if tracing:
@@ -189,6 +222,8 @@ class Run:
         if self.t1 is None:
             self.t1 = now
             self.stages_end = self.stage_seconds()
+            if self.window_trace is not None:
+                self.window_trace.stop()
             if self.slice is None:
                 return False
             self.slice.start()
@@ -256,10 +291,18 @@ class Context:
 
 
 def _flat(events):
+    """The record as the reference's events, one a binding, a preemption, an
+    eviction or a delete."""
     for kind, items in events:
         if kind == "bind":
             for key, node in items:
                 yield ("bind", key, node)
+        elif kind == "preempt":
+            for preemptor, node, victims in items:
+                yield ("preempt", preemptor, node, tuple(victims))
+        elif kind == "rebalance":
+            for key, _source, _target in items:
+                yield ("evict", key)
         else:
             for key in items:
                 yield ("delete", key)
@@ -270,12 +313,19 @@ def run_cell(cell: dict, config: dict, params: dict, bench: dict, seed: int, sec
              solver_overrides: dict | None = None) -> dict:
     """One run; returns the result line's object."""
     t_start = time.perf_counter() if t_start is None else t_start
+    # loaded first, so that a name that finds no module fails before set-up
+    ref = load_reference(config)
     run = load_process(params["process"])(cell, config, params, seed, device, trace, solver_overrides)
     gc_clock = GcClock()
     try:
         run.warmup()
         if device != "cpu":
             run.torch.cuda.synchronize()
+            if not trace and any(m["source"] == "device_trace" and applies(m, cell["name"])
+                                 for m in bench["end_to_end"]):
+                # started in set-up, stopped once the window has closed
+                run.window_trace = WindowTrace(run.torch)
+                run.window_trace.start()
         stages0 = run.stage_seconds()
         gc.callbacks.append(gc_clock)
         try:
@@ -285,10 +335,14 @@ def run_cell(cell: dict, config: dict, params: dict, bench: dict, seed: int, sec
         stages1 = run.stages_end
     finally:
         run.spans.restore()
-    setup_s = window["t0"] - t_start
+    # the program's set-up: the seconds the benchmark spent starting its own
+    # profiler for the window are left out
+    profiler_start_s = run.window_trace.start_s if run.window_trace is not None else 0.0
+    setup_s = window["t0"] - t_start - profiler_start_s
     window_s = window["t1"] - window["t0"]
     edges = np.linspace(window["t0"], window["t1"], 5)
     counts = [max([b for t, b in run.progress if t <= e] or [0]) for e in edges[1:]]
+    print(f"portbench: the window {window_s:.6f} s, {run.bound_in_window} pods bound", file=sys.stderr)
     print("portbench: pods bound in each quarter of the window: "
           + ", ".join(str(c - p) for p, c in zip([0] + counts[:-1], counts)), file=sys.stderr)
     print(f"portbench: the garbage collector paused {gc_clock.runs[0]} / {gc_clock.runs[1]} / "
@@ -298,10 +352,6 @@ def run_cell(cell: dict, config: dict, params: dict, bench: dict, seed: int, sec
         print(f"portbench: {k} {v}", file=sys.stderr)
     cuda = device != "cpu"
     mem_peak = int(run.torch.cuda.max_memory_allocated()) if cuda else 0
-    found = forbidden_modules(sys.modules)
-    if found:
-        raise SystemExit(f"portbench: the run loaded {', '.join(found)}; the benchmark runs the port alone")
-
     if trace:
         print(f"portbench: traced window {window_s:.3f} s, {run.bound_in_window / window_s:.3f} pods bound/s "
               f"(the StageProfiler and the span wrappers on)", file=sys.stderr)
@@ -322,6 +372,13 @@ def run_cell(cell: dict, config: dict, params: dict, bench: dict, seed: int, sec
         del ctx
     else:
         e2e = dict(window["e2e"], setup_s=setup_s)
+        wt = run.window_trace
+        if wt is not None:
+            print(f"portbench: the window's device trace: {wt.events} device events, busy {wt.busy_s} s; "
+                  f"the profiler took {wt.start_s:.6f} s to start, left out of setup_s", file=sys.stderr)
+            if wt.busy_s and run.bound_in_window:
+                # the card's busy time a pod bound, over all of the window's work
+                e2e["card_us_per_pod"] = 1e6 * wt.busy_s / run.bound_in_window
         for m in bench["end_to_end"]:
             if applies(m, cell["name"]) and m["name"] in e2e:
                 metrics[m["name"]] = {"value": float(e2e[m["name"]]), "unit": m["unit"]}
@@ -344,10 +401,17 @@ def run_cell(cell: dict, config: dict, params: dict, bench: dict, seed: int, sec
     if cuda:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    numbers = reference.judge(node_dicts, pods, _flat(events), store, nodes, sample)
+    numbers = ref.judge(node_dicts, pods, _flat(events), store, nodes, sample)
     print(f"portbench: reference judged {numbers['_bindings']} bindings, scored {numbers['_score_checked']}, "
           f"in {time.perf_counter() - t_ref:.3f} s", file=sys.stderr)
-    checks = {name: {"value": numbers[name], "limit": limit} for name, limit in LIMITS.items()}
+    for k, v in numbers.items():
+        if k.startswith("_") and k not in ("_bindings", "_score_checked"):
+            print(f"portbench: reference {k[1:]} {v}", file=sys.stderr)
+    checks = {name: {"value": numbers[name], "limit": limit} for name, limit in ref.LIMITS.items()}
+    # after everything the process ran: the program, the readers, the reference
+    found = forbidden_modules(sys.modules)
+    if found:
+        raise SystemExit(f"portbench: the run loaded {', '.join(found)}; the benchmark runs the port alone")
     out = {
         "correct": all(c["value"] <= c["limit"] for c in checks.values()),
         "attempted": int(window["attempted"]),

@@ -49,6 +49,6 @@ class Process(Run):
         self.extra["top-ups in the window"] = (
             f"{len(self.top_ups)} of {self.chunk} pods, {sum(self.top_ups):.3f} s creating and deleting; "
             f"the stream reached wave {(self.pods.created - 1) // self.traffic.wave_pods}")
-        return {"t0": t0, "t1": t1, "attempted": self.bound_in_window + self.failed_in_window,
+        return {"t0": t0, "t1": t1, "attempted": self.attempted_in_window,
                 "failed": self.failed_in_window,
                 "e2e": {"pods_per_s": self.bound_in_window / (t1 - t0)}}

@@ -2,8 +2,9 @@
 
 It imports numpy and nothing of the program. It reads the same node and pod
 dicts the program was given, replays the program's answers (the bindings it
-returned, in the order it returned them, and the harness's deletes between
-them), and judges each binding against the state that binding saw:
+returned, in the order it returned them, the pods it evicted, and the
+harness's deletes between them), and judges each binding against the state
+that binding saw:
 
 - feasibility, for every binding: NodeResourcesFit (cpu, memory, pod count),
   NodePorts, PodTopologySpread's DoNotSchedule constraints and
@@ -188,6 +189,11 @@ class Cluster:
         # namespace -> (kind, weight, topology key, selector) -> owners per domain
         self._owners: dict[str, dict[tuple, np.ndarray]] = defaultdict(dict)
         self.bound: dict[str, tuple[PodView, int]] = {}
+        # node -> keys of the pods bound there
+        self.on_node: dict[int, set[str]] = defaultdict(set)
+        # per node, how many times its pods changed: a key for what a
+        # reader works out per node
+        self.stamp = np.zeros(n, np.int64)
 
     def domains(self, key: str) -> tuple[np.ndarray, int]:
         """Per node, the index of its value of ``key`` (-1 without it), and
@@ -213,6 +219,7 @@ class Cluster:
         return table[(sel, key)]
 
     def _update(self, p: PodView, node: int, sign: int) -> None:
+        self.stamp[node] += 1
         self.cpu[node] += sign * p.cpu
         self.mem[node] += sign * p.mem
         self.nz_cpu[node] += sign * p.nz_cpu
@@ -236,10 +243,12 @@ class Cluster:
 
     def bind(self, p: PodView, node: int) -> None:
         self.bound[p.key] = (p, node)
+        self.on_node[node].add(p.key)
         self._update(p, node, +1)
 
     def delete(self, key: str) -> None:
         p, node = self.bound.pop(key)
+        self.on_node[node].discard(key)
         self._update(p, node, -1)
 
     # -- the default profile --
@@ -323,77 +332,135 @@ def normalize_interpod(raw: np.ndarray) -> np.ndarray:
     return (float(MAX_NODE_SCORE) * ((raw - lo).astype(np.float64) / float(hi - lo))).astype(np.int64)
 
 
-def judge(node_dicts, pods, events, program_store: dict, program_nodes: dict | None,
-          sample: set) -> dict:
+class Replay:
+    """The replay of one run's answers into a ``Cluster``, and the counts of
+    what breaks the default profile.
+
+    ``run`` hands each event to ``on_<kind>``: ``("bind", key, node)`` for
+    each binding the program returned, ``("delete", key)`` for each pod the
+    harness deleted, ``("preempt", preemptor, node, victims)`` for each
+    preemption the program made and ``("evict", key)`` for each pod its
+    rebalancer evicted. An eviction replays as a delete after which the pod
+    may bind again, as an evicted pod re-enters the queue. A reference for a
+    further plugin subclasses it and judges its own events."""
+
+    def __init__(self, node_dicts, pods, sample: set):
+        self.cl = Cluster(node_dicts)
+        self.pods = pods
+        self.sample = sample
+        self.views: dict[str, PodView] = {}
+        self.all_idx = np.arange(len(self.cl.names))
+        self.infeasible = self.unknown = self.double = self.gap = 0
+        self.checked = 0
+        self.n_bind = 0
+        self.seen: set[str] = set()
+
+    def view(self, key: str) -> PodView:
+        p = self.views.get(key)
+        if p is None:
+            p = self.views[key] = PodView(self.pods[key])
+        return p
+
+    def run(self, events) -> None:
+        for ev in events:
+            getattr(self, f"on_{ev[0]}")(*ev[1:])
+
+    def on_delete(self, key: str) -> None:
+        if key in self.cl.bound:
+            self.cl.delete(key)
+
+    def on_evict(self, key: str) -> None:
+        self.on_delete(key)
+        self.seen.discard(key)
+
+    def on_preempt(self, preemptor: str, node_name: str, victims) -> None:
+        for key in victims:
+            self.on_evict(key)
+
+    def on_bind(self, key: str, node_name: str) -> None:
+        if key not in self.pods or node_name not in self.cl.index:
+            self.unknown += 1
+            return
+        if key in self.seen:
+            self.double += 1
+            return
+        self.seen.add(key)
+        p = self.view(key)
+        node = self.cl.index[node_name]
+        if self.n_bind in self.sample:
+            ok = self.cl.feasible(p, self.all_idx)
+            if not ok[node]:
+                self.infeasible += 1
+            else:
+                feasible = self.score_nodes(p, ok)
+                if feasible[node] and self.scored(p, node):
+                    feas = np.flatnonzero(feasible)
+                    tot = self.cl.scores(p, feas)
+                    self.gap = max(self.gap, int(tot.max() - tot[np.searchsorted(feas, node)]))
+            self.checked += 1
+        elif not self.cl.feasible(p, np.array([node]))[0]:
+            self.infeasible += 1
+        self.cl.bind(p, node)
+        self.n_bind += 1
+
+    def score_nodes(self, p: PodView, ok: np.ndarray) -> np.ndarray:
+        """The nodes a scored pick is chosen among: here every node that
+        passes the filters."""
+        return ok
+
+    def scored(self, p: PodView, node: int) -> bool:
+        """Whether the binding of ``p`` to ``node`` was a pick by score."""
+        return True
+
+    def readback(self, program_store: dict, program_nodes: dict | None) -> int:
+        cl = self.cl
+        mismatch = 0
+        for key, node_name in program_store.items():
+            want = cl.bound.get(key)
+            if (want is None and node_name) or (want is not None and cl.names[want[1]] != node_name):
+                mismatch += 1
+        mismatch += sum(1 for key in cl.bound if key not in program_store)
+        if program_nodes is not None:
+            for name, (cpu, mem, keys) in program_nodes.items():
+                i = cl.index.get(name)
+                if i is None or cpu != cl.cpu[i] or mem != cl.mem[i] or set(keys) != cl.on_node[i]:
+                    mismatch += 1
+        return mismatch
+
+    def numbers(self, mismatch: int) -> dict:
+        return {
+            "infeasible_binds": self.infeasible,
+            "score_gap": self.gap,
+            "double_or_unknown_binds": self.double + self.unknown,
+            "readback_mismatches": mismatch,
+            "_bindings": self.n_bind,
+            "_score_checked": self.checked,
+        }
+
+
+# every number the default profile's check compares is exact: a correct run
+# reads 0 on each
+LIMITS = {
+    "infeasible_binds": 0,
+    "score_gap": 0,
+    "double_or_unknown_binds": 0,
+    "readback_mismatches": 0,
+}
+
+
+def judge(node_dicts, pods, events, program_store: dict, program_nodes: dict | None, sample: set) -> dict:
     """Replay the program's answers and judge them.
 
     ``pods``: pod key -> the pod dict handed to the program (a mapping
-    with ``in`` and ``[]``). ``events``: in
-    order, ``("bind", key, node)`` for each binding the program returned and
-    ``("delete", key)`` for each pod the harness deleted. ``program_store``:
-    pod key -> node name ("" unbound) as the program's ClusterState reads
-    back after the run. ``program_nodes``: node name -> (cpu, memory, pod
-    keys) as the program's cache holds them, or None. ``sample``: the
-    positions among the bindings whose score is checked.
+    with ``in`` and ``[]``). ``events``: in order, the events ``Replay.run``
+    reads. ``program_store``: pod key -> node name ("" unbound) as the
+    program's ClusterState reads back after the run. ``program_nodes``: node
+    name -> (cpu, memory, pod keys) as the program's cache holds them, or
+    None. ``sample``: the positions among the bindings whose score is
+    checked.
 
-    Returns the numbers compared, each of which is 0 in a correct run."""
-    cl = Cluster(node_dicts)
-    views: dict[str, PodView] = {}
-    infeasible = unknown = double = 0
-    gap = 0
-    checked = 0
-    seen: set[str] = set()
-    n_bind = 0
-    all_idx = np.arange(len(cl.names))
-    for ev in events:
-        if ev[0] == "delete":
-            if ev[1] in cl.bound:
-                cl.delete(ev[1])
-            continue
-        _, key, node_name = ev
-        if key not in pods or node_name not in cl.index:
-            unknown += 1
-            continue
-        if key in seen:
-            double += 1
-            continue
-        seen.add(key)
-        p = views.get(key) or views.setdefault(key, PodView(pods[key]))
-        node = cl.index[node_name]
-        if n_bind in sample:
-            ok = cl.feasible(p, all_idx)
-            feas = np.flatnonzero(ok)
-            if not ok[node]:
-                infeasible += 1
-            else:
-                tot = cl.scores(p, feas)
-                gap = max(gap, int(tot.max() - tot[np.searchsorted(feas, node)]))
-            checked += 1
-        elif not cl.feasible(p, np.array([node]))[0]:
-            infeasible += 1
-        cl.bind(p, node)
-        n_bind += 1
-
-    # read-back: what the program's store and cache say against the replay
-    mismatch = 0
-    for key, node_name in program_store.items():
-        want = cl.bound.get(key)
-        if (want is None and node_name) or (want is not None and cl.names[want[1]] != node_name):
-            mismatch += 1
-    mismatch += sum(1 for key in cl.bound if key not in program_store)
-    if program_nodes is not None:
-        on_node: dict[int, set] = defaultdict(set)
-        for k, (_, n) in cl.bound.items():
-            on_node[n].add(k)
-        for name, (cpu, mem, keys) in program_nodes.items():
-            i = cl.index.get(name)
-            if i is None or cpu != cl.cpu[i] or mem != cl.mem[i] or set(keys) != on_node.get(i, set()):
-                mismatch += 1
-    return {
-        "infeasible_binds": infeasible,
-        "score_gap": gap,
-        "double_or_unknown_binds": double + unknown,
-        "readback_mismatches": mismatch,
-        "_bindings": n_bind,
-        "_score_checked": checked,
-    }
+    Returns the numbers compared (``LIMITS``' names, each 0 in a correct
+    run) and, under names that start with ``_``, what was judged."""
+    replay = Replay(node_dicts, pods, sample)
+    replay.run(events)
+    return replay.numbers(replay.readback(program_store, program_nodes))

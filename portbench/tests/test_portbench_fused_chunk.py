@@ -56,4 +56,5 @@ def test_the_metric_is_declared_for_the_spread_cell():
     bench = harness.load_json(harness.ROOT / "BENCHMARK.json")
     (m,) = [m for m in bench["per_layer"] if m["name"] == METRIC]
     assert m == {"name": METRIC, "unit": "%", "better": "higher", "source": "program_counter",
-                 "layer": "solve", "moves": "pods_per_s", "workloads": ["spread5k.backlog"]}
+                 "layer": "solve", "moves": "card_us_per_pod",
+                 "workloads": ["spread5k.backlog"]}

@@ -58,5 +58,8 @@ def test_the_metric_is_declared_for_the_spread_cell():
     bench = harness.load_json(harness.ROOT / "BENCHMARK.json")
     (m,) = [m for m in bench["per_layer"] if m["name"] == METRIC]
     assert m == {"name": METRIC, "unit": "%", "better": "higher", "source": "program_counter",
-                 "layer": "solve", "moves": "pods_per_s", "workloads": ["spread5k.backlog"]}
-    assert bench["per_layer"][-1] == m  # appended after the accepted entries
+                 "layer": "solve", "moves": "card_us_per_pod",
+                 "workloads": ["spread5k.backlog"]}
+    # appended right after the cell's first seven entries
+    names = [e["name"] for e in bench["per_layer"]]
+    assert names.index(METRIC) == names.index("launches_per_pod.spread5k") + 1

@@ -33,8 +33,11 @@ def test_result_line_schema_traced():
     bench = harness.load_json(harness.ROOT / "BENCHMARK.json")
     allowed = {m["name"] for m in bench["per_layer"] if harness.applies(m, "basic10k.backlog")}
     assert set(out["metrics"]) <= allowed
-    # the CPU has no device trace: only the program's own stage seconds read
-    assert set(out["metrics"]) == {"tensorize_share.backlog", "commit_share.backlog", "solve_share.backlog"}
+    # the CPU has no device trace: only the program's own stage seconds and
+    # its garbage collector's read
+    assert set(out["metrics"]) == {"tensorize_share.backlog", "commit_share.backlog", "solve_share.backlog",
+                                   "enqueue_share.backlog", "upload_share.backlog", "issue_us_per_pod.backlog",
+                                   "card_read_share.backlog", "gc_share.backlog"}
     assert "pods_per_s" not in out["metrics"] and "setup_s" not in out["metrics"]
     assert "busy_s" not in out["device"] and "breakdown" not in out
 

@@ -18,7 +18,9 @@ CELL = "spread5k.backlog"
 def test_the_cell_reads_correct():
     out = run_small(CELL)
     assert out["correct"] is True and out["failed"] == 0 and out["attempted"] > 0
-    assert set(out["metrics"]) == {"pods_per_s", "setup_s"}
+    # the cell's other end-to-end metric, the card's busy time a pod, comes
+    # from the device trace, which the CPU has not
+    assert set(out["metrics"]) == {"setup_s"}
     assert all(c["value"] == 0 for c in out["checks"].values())
 
 
@@ -38,11 +40,13 @@ def test_a_traced_run_reads_the_counters_and_the_stage_shares(monkeypatch):
     _fresh_counters(monkeypatch)
     out = run_small(CELL, trace=True)
     assert out["correct"] is True
-    # the CPU has no device trace: the chunk counters and the program's own
-    # stage seconds read, the slice's idle share and launches do not
+    # the CPU has no device trace: the chunk counters, the program's own
+    # stage seconds and the window's rate read, the slice's idle share and
+    # launches do not
     assert set(out["metrics"]) == {"spread_chunk_pct.spread5k", "spread_iters_per_chunk.spread5k",
                                    "solve_share.spread5k", "card_read_share.spread5k",
-                                   "tensorize_share.spread5k"}
+                                   "tensorize_share.spread5k", "loop_pods_per_s.spread5k"}
+    assert out["metrics"]["loop_pods_per_s.spread5k"]["value"] > 0
     assert out["metrics"]["spread_chunk_pct.spread5k"]["value"] >= 90.0
     assert out["metrics"]["spread_iters_per_chunk.spread5k"]["value"] >= 1.0
 
@@ -102,11 +106,20 @@ def test_the_cell_and_its_metrics_are_declared():
     assert constraint["maxSkew"] == 5 and constraint["whenUnsatisfiable"] == "DoNotSchedule"
     assert constraint["labelSelector"]["matchLabels"] == kind["pod"]["metadata"]["labels"]
     mine = [m for m in bench["per_layer"] if m.get("workloads") == [CELL]]
-    assert [m["name"] for m in mine] == [
-        "spread_chunk_pct.spread5k", "spread_iters_per_chunk.spread5k", "solve_share.spread5k",
-        "card_read_share.spread5k", "tensorize_share.spread5k", "device_idle_pct.spread5k",
-        "launches_per_pod.spread5k"]
-    assert bench["per_layer"][-len(mine):] == mine  # appended, after the accepted entries
-    assert CELL in {m["name"]: m for m in bench["end_to_end"]}["pods_per_s"]["workloads"]
+    first = ["spread_chunk_pct.spread5k", "spread_iters_per_chunk.spread5k", "solve_share.spread5k",
+             "card_read_share.spread5k", "tensorize_share.spread5k", "device_idle_pct.spread5k",
+             "launches_per_pod.spread5k"]
+    assert [m["name"] for m in mine][:len(first)] == first
+    # appended together, after the accepted entries of their time
+    start = bench["per_layer"].index(mine[0])
+    assert bench["per_layer"][start:start + len(first)] == mine[:len(first)]
+    # the window's rate spread too widely here for the largest bound, so the
+    # cell's end-to-end metric is the card's busy time a pod, and the rate
+    # is a per-layer metric of its own
+    e2e = {m["name"]: m for m in bench["end_to_end"]}
+    assert CELL not in e2e["pods_per_s"]["workloads"]
+    assert e2e["card_us_per_pod"]["workloads"] == [CELL] and e2e["card_us_per_pod"]["source"] == "device_trace"
+    assert all(m["moves"] == "card_us_per_pod" for m in mine)
+    assert mine[-1]["name"] == "loop_pods_per_s.spread5k" and mine[-1]["layer"] == "Loop and queue"
     assert not any(m["name"] == "domain_counts_roofline" and harness.applies(m, CELL)
                    for m in bench["per_layer"])

@@ -13,7 +13,9 @@ them, each gap put to the innermost host span that was open at its middle,
 kernel launches (every device event but copies and fills, as
 chip_rates.py counts them) and device seconds per kernel name. Both clocks
 are the Unix clock in nanoseconds: the profiler converts the device's
-timestamps to it, and the spans read ``time.time_ns``.
+timestamps to it, and the spans read ``time.time_ns``. ``WindowTrace`` runs
+the same profiler over a whole untraced window, for an end-to-end metric
+taken from the device trace, and keeps only the card's busy seconds.
 """
 
 from __future__ import annotations
@@ -164,10 +166,50 @@ class DeviceSlice:
         self.t1 = time.time_ns()
         self.spans.on = False
         self.prof.stop()
-        from torch.autograd import DeviceType
-
-        events = [(e.name(), e.start_ns(), e.end_ns())
-                  for e in self.prof.profiler.kineto_results.events()
-                  if e.device_type() == DeviceType.CUDA]
+        events = device_events(self.prof)
         self.prof = None
         self.result = reduce_slice(events, list(self.spans.items), self.t0, self.t1, pods)
+
+
+def device_events(prof) -> list[tuple[str, int, int]]:
+    """A stopped profiler's device events as ``(name, start_ns, end_ns)``."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
+class WindowTrace:
+    """torch.profiler (CUDA activity only) over a whole untraced window, for
+    an end-to-end metric of the device trace: the card's busy seconds, the
+    union of every device interval from the window's start until the work
+    it issued has ended."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.prof = None
+        self.busy_s: float | None = None
+        self.events = 0
+        self.start_s = 0.0
+
+    def start(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        self.torch.cuda.synchronize()
+        t = time.perf_counter()
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.prof.start()
+        # the profiler's first start in a process (CUPTI's set-up) takes
+        # seconds: the benchmark's own cost, which set-up leaves out
+        self.start_s = time.perf_counter() - t
+
+    def stop(self) -> None:
+        self.torch.cuda.synchronize()
+        self.prof.stop()
+        events = device_events(self.prof)
+        self.prof = None
+        self.events = len(events)
+        if events:
+            lo, hi = min(s for _, s, _ in events), max(e for _, _, e in events)
+            self.busy_s = sum(e - s for s, e in union([(s, e) for _, s, e in events], lo, hi)) / 1e9
